@@ -7,20 +7,34 @@ card.
 Phases, each of which raises on failure (nothing catches it):
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build the five CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together);
-3. hold each kernel against its plain PyTorch version on the card — the
-   main-path shapes of the userbehavior day (10.63 M records), a ragged
-   4-row batch at max_range 60/600/1800/3600, a zero-span stream and a
-   single-record stream — exact for integer outputs, 1e-5 relative for the
-   moments; time kernel, plain version and the one-call library yardstick
-   (CUDA events, median of several runs);
+3. hold each kernel against its plain PyTorch version on the card:
+   - B1-B3 at the run-path shapes of the userbehavior day (10.63 M
+     records), at the sweep's 18-row shard (every dataset at every
+     range), a ragged 4-row batch at max_range 60/600/1800/3600, a
+     zero-span stream and a single-record stream — exact for integer
+     outputs, 1e-5 relative for the moments;
+   - B4 (trend_scan) at the fidelity shape of max_range 3600 (the three
+     originals' and sims' count rows), a ragged batch of lengths
+     {0, 1, 1023, 1024, 1025, 86 400}, unpadded widths 0 and 1025, and one
+     604 800-long row whose total sits just under 2^31 - 1 — exact;
+   - B5 (pair_stats) at the fidelity shape of max_range 3600 and at
+     S = 37, K = 86 528 — ``|G - G_plain| <= 1e-4 sqrt(G_aa G_bb)``;
+   timing kernel, plain version and the one-call library yardstick (CUDA
+   events, median of several runs);
 4. drive ``Controller(tmp, device="cuda").run("userbehavior", 3600, ...,
    scale=1.0, backend="torch")`` with every launch count set to 0 just
    before and read just after, and check it against the port's own
    ``backend="numpy"`` run on the same input;
-5. print the ``kernels`` and ``report`` JSON lines and, last, the
-   ``{"ok": true, "device": ...}`` line.
+5. drive ``Controller(fresh, device="cuda").run_many(("sogouq", "traffic",
+   "userbehavior"), (600, 1200, 1800, 2400, 3000, 3600), ..., scale=1.0,
+   backend="torch")`` (the paper's Tables 1-3 grid and its Fig.-6
+   fidelity matrices) the same way, and check it against the port's
+   ``backend="numpy"`` sweep: stored sims byte-equal, rows equal,
+   statistics and fidelity matrices within 1e-3;
+6. print the ``report``, ``sweep`` and ``kernels`` JSON lines and, last,
+   the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -28,10 +42,12 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -46,10 +62,21 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 
 MAIN_DATASET, MAIN_RANGE, MAIN_SCALE, MAIN_SEED = "userbehavior", 3600, 1.0, 0
+SWEEP_DATASETS = ("sogouq", "traffic", "userbehavior")
+SWEEP_RANGES = (600, 1200, 1800, 2400, 3000, 3600)
 MOMENT_RTOL = 1e-5
-#: launches each kernel must show on the main path: B1 and B2 once, B3 for
+#: B5's bound: |G - G_plain| <= GRAM_RTOL * sqrt(G_plain[a,a] G_plain[b,b])
+#: (and, by Cauchy-Schwarz, |sums - plain| <= GRAM_RTOL sqrt(K G[a,a]))
+GRAM_RTOL = 1e-4
+STAT_TOL = 1e-3
+#: launches each kernel must show on the run path: B1 and B2 once, B3 for
 #: the kept stamps and again for the original stream's report statistics
 MIN_LAUNCHES = {"stream_sample": 1, "compact": 1, "metrics_fused": 2}
+#: ... and on the sweep path: one B1/B2 shard, B3 for the shard and the
+#: originals, B4 and B5 once per max_range's fidelity matrix
+MIN_SWEEP_LAUNCHES = {"stream_sample": 1, "compact": 1, "metrics_fused": 2,
+                      "trend_scan": len(SWEEP_RANGES),
+                      "pair_stats": len(SWEEP_RANGES)}
 
 
 def _card_line() -> str:
@@ -103,7 +130,19 @@ def _moments_err(name: str, got, want) -> float:
     return float(np.abs(g - w).max(initial=0.0))
 
 
+def _wrappers():
+    """The five kernel wrappers, each with its ``launches`` count."""
+    from repro_torch.kernels.compact import compact
+    from repro_torch.kernels.metrics_fused import stream_metrics
+    from repro_torch.kernels.stream_sample import stream_sample
+    from repro_torch.kernels.trend_scan import pair_stats, trend_scan
+    return {"stream_sample": stream_sample, "compact": compact,
+            "metrics_fused": stream_metrics, "trend_scan": trend_scan,
+            "pair_stats": pair_stats}
+
+
 # ----------------------------------------------------------- phase 3: kernels
+@functools.lru_cache(maxsize=None)
 def _streams(scale: float, seed: int):
     """The real streams the checks run on: the three paper datasets at
     ``scale`` plus the degenerate shapes NSA must survive."""
@@ -146,9 +185,13 @@ def check_kernels(device: str, scale: float, seed: int,
                     ub[:1000]], [60, 600, 1800, 3600]),
         "zero_span": ([flat], [600]),
         "single": ([single], [600]),
+        # the run_many shard: every (dataset, range) of the paper grid
+        "sweep": ([streams[d].t for d in SWEEP_DATASETS
+                   for _ in SWEEP_RANGES],
+                  [mr for _ in SWEEP_DATASETS for mr in SWEEP_RANGES]),
     }
-    rows, errs = {}, {"stream_sample": 0.0, "compact": 0.0,
-                      "metrics_fused": 0.0}
+    errs = {"stream_sample": 0.0, "compact": 0.0, "metrics_fused": 0.0}
+    timed = {}
     for case, (ts, ranges) in cases.items():
         mults = [mult(t, mr) for t, mr in zip(ts, ranges)]
         b1_in = up(ops.stream_sample_inputs(ts, ranges, mults))
@@ -176,40 +219,9 @@ def check_kernels(device: str, scale: float, seed: int,
         _moments_err(f"metrics_fused/{case}/f64", mom,
                      torch.from_numpy(np.stack([q.sum(1), (q * q).sum(1)],
                                                axis=1)))
-        if case != "main":
-            continue
-        S, N = b1_in[0].shape
-        W = b1_in[1].shape[1]
-        bound, by = _bound_ms(S * N * (4 + 4 + 1) + 3 * S * W * 4 + S * 16,
-                              S * N * 30)
-        rows["stream_sample"] = dict(
-            ms=_time_ms(lambda: stream_sample(*b1_in), timing_reps),
-            plain_ms=_time_ms(lambda: stream_sample_plain(*b1_in),
-                              plain_reps),
-            bound_ms=bound, bound_by=by, library_ms=None,
-            shape=f"S={S} N={N} W={W}")
-        rows["compact"] = dict(
-            ms=_time_ms(lambda: compact(keep), timing_reps),
-            plain_ms=_time_ms(lambda: compact_plain(keep), plain_reps),
-            library_ms=_time_ms(
-                lambda: torch.cumsum(keep, dim=1, dtype=torch.int32),
-                timing_reps),
-            shape=f"R={S} N={N} kept={int(tot.sum())}")
-        rows["compact"]["bound_ms"], rows["compact"]["bound_by"] = \
-            _bound_ms(S * N * (1 + 4) + S * 4, S * N * 4)
-        Sk, Nk = kept.shape
-        sim_row = kept[0, :int(tot[0])]
-        sim = dict(
-            ms=_time_ms(lambda: stream_metrics(kept, tot, buckets),
-                        timing_reps),
-            plain_ms=_time_ms(lambda: stream_metrics_plain(kept, tot,
-                                                           buckets),
-                              plain_reps),
-            library_ms=_time_ms(lambda: torch.bincount(
-                sim_row, minlength=buckets), timing_reps),
-            bound_ms=_bound_ms(Sk * Nk * 4 + Sk * 4 + Sk * buckets * 4
-                               + Sk * 8, Sk * Nk * 3 + Sk * buckets * 4)[0],
-            shape=f"S={Sk} N={Nk} B={buckets} kept={int(tot.sum())}")
+        if case in ("main", "sweep"):
+            timed[case] = _b123_timings(b1_in, keep, tot, kept, buckets,
+                                        timing_reps, plain_reps)
 
     # B3's second main-path launch: the ORIGINAL stream at 86 400 buckets
     b_orig, tr = _bucket_series(main, None, None)
@@ -225,6 +237,8 @@ def check_kernels(device: str, scale: float, seed: int,
         [[want.sum(), (want * want).sum()]]))
     S, N = ss_o.shape
     row = ss_o[0, :int(len_o[0])]
+    rows = {name: dict(timed["main"][name], sweep=timed["sweep"][name])
+            for name in ("stream_sample", "compact")}
     rows["metrics_fused"] = dict(
         ms=_time_ms(lambda: stream_metrics(ss_o, len_o, buckets),
                     timing_reps),
@@ -232,7 +246,9 @@ def check_kernels(device: str, scale: float, seed: int,
                           plain_reps),
         library_ms=_time_ms(lambda: torch.bincount(row, minlength=buckets),
                             timing_reps),
-        shape=f"S={S} N={N} B={buckets} (original stream)", sim=sim)
+        shape=f"S={S} N={N} B={buckets} (original stream)",
+        sim=timed["main"]["metrics_fused"],
+        sweep=timed["sweep"]["metrics_fused"])
     rows["metrics_fused"]["bound_ms"], rows["metrics_fused"]["bound_by"] = \
         _bound_ms(S * N * 4 + S * 4 + S * buckets * 4 + S * 8,
                   S * N * 3 + S * buckets * 4)
@@ -241,18 +257,230 @@ def check_kernels(device: str, scale: float, seed: int,
     return rows
 
 
+def _b123_timings(b1_in, keep, tot, kept, buckets: int, timing_reps: int,
+                  plain_reps: int):
+    """Kernel, plain and library times of B1, B2 and B3 (on the kept
+    stamps) at one case's shapes, each with its bound."""
+    import torch
+
+    from repro_torch.kernels.compact import compact, compact_plain
+    from repro_torch.kernels.metrics_fused import (stream_metrics,
+                                                   stream_metrics_plain)
+    from repro_torch.kernels.stream_sample import (stream_sample,
+                                                   stream_sample_plain)
+    S, N = b1_in[0].shape
+    W = b1_in[1].shape[1]
+    out = {"stream_sample": dict(
+        ms=_time_ms(lambda: stream_sample(*b1_in), timing_reps),
+        plain_ms=_time_ms(lambda: stream_sample_plain(*b1_in), plain_reps),
+        library_ms=None, shape=f"S={S} N={N} W={W}")}
+    out["stream_sample"]["bound_ms"], out["stream_sample"]["bound_by"] = \
+        _bound_ms(S * N * (4 + 4 + 1) + 3 * S * W * 4 + S * 16, S * N * 30)
+    out["compact"] = dict(
+        ms=_time_ms(lambda: compact(keep), timing_reps),
+        plain_ms=_time_ms(lambda: compact_plain(keep), plain_reps),
+        library_ms=_time_ms(
+            lambda: torch.cumsum(keep, dim=1, dtype=torch.int32),
+            timing_reps),
+        shape=f"R={S} N={N} kept={int(tot.sum())}")
+    out["compact"]["bound_ms"], out["compact"]["bound_by"] = \
+        _bound_ms(S * N * (1 + 4) + S * 4, S * N * 4)
+    Sk, Nk = kept.shape
+    row = kept[0, :int(tot[0])]
+    out["metrics_fused"] = dict(
+        ms=_time_ms(lambda: stream_metrics(kept, tot, buckets), timing_reps),
+        plain_ms=_time_ms(lambda: stream_metrics_plain(kept, tot, buckets),
+                          plain_reps),
+        library_ms=_time_ms(lambda: torch.bincount(row, minlength=buckets),
+                            timing_reps),
+        shape=f"S={Sk} N={Nk} B={buckets} kept={int(tot.sum())}")
+    out["metrics_fused"]["bound_ms"], out["metrics_fused"]["bound_by"] = \
+        _bound_ms(Sk * Nk * 4 + Sk * 4 + Sk * buckets * 4 + Sk * 8,
+                  Sk * Nk * 3 + Sk * buckets * 4)
+    return out
+
+
+# ------------------------------------------------------- B4 and B5 (phase 3)
+def _fidelity_counts(streams, max_range: int):
+    """The count rows of one fidelity matrix of the sweep at ``max_range``:
+    the originals' per-second counts, then the sims', as the engine stacks
+    them. Returns ``(q int32 (6, W), lengths)``."""
+    from repro_torch.streamsim import nsa, per_second_counts
+    rows = [per_second_counts(streams[d]) for d in SWEEP_DATASETS] + \
+        [per_second_counts(nsa(streams[d], max_range, backend="numpy"))
+         for d in SWEEP_DATASETS]
+    lengths = np.array([len(r) for r in rows], np.int64)
+    q = np.zeros((len(rows), int(lengths.max())), np.int32)
+    for i, r in enumerate(rows):
+        q[i, :len(r)] = r
+    return q, lengths
+
+
+def _centered_trends(q, lengths, window: int):
+    """B5's input on the engine's chain, through the plain scan: trends ->
+    resample onto the shortest row -> centering -> PAIR_TILE padding."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.trend_scan import trend_scan_plain
+    dev = q.device
+    w_eff, half = ops._window_tables(lengths, window)
+    trend = ops._trend_from_prefix(trend_scan_plain(q), *(
+        torch.from_numpy(a).to(dev) for a in (lengths, w_eff, half)))
+    z = ops._resample_uniform(trend, torch.from_numpy(lengths).to(dev),
+                              int(lengths.min()))
+    return ops._pad_cols(z - z.mean(dim=1, keepdim=True), ops.PAIR_TILE)
+
+
+def _pair_err(name: str, got, want, k: int) -> float:
+    """B5 against its plain version: the Gram within GRAM_RTOL of
+    sqrt(G_aa G_bb), the row sums within GRAM_RTOL sqrt(k G_aa); returns
+    the largest Gram difference, absolute and over sqrt(G_aa G_bb)."""
+    (s, g), (s_p, g_p) = [[t.double().cpu().numpy() for t in pair]
+                          for pair in (got, want)]
+    d = np.clip(np.diag(g_p), 0.0, None)
+    scale = np.sqrt(np.outer(d, d))
+    diff = np.abs(g - g_p)
+    if g.shape != g_p.shape or s.shape != s_p.shape or \
+            not (diff <= GRAM_RTOL * scale).all():
+        raise AssertionError(f"{name}: Gram beyond {GRAM_RTOL} of "
+                             "sqrt(G_aa G_bb)")
+    if not (np.abs(s - s_p)[:, 0] <= GRAM_RTOL * np.sqrt(k * d)).all():
+        raise AssertionError(f"{name}: row sums beyond {GRAM_RTOL} of "
+                             "sqrt(K G_aa)")
+    with np.errstate(invalid="ignore", divide="ignore"):
+        scaled = np.where(scale > 0, diff / np.where(scale > 0, scale, 1.0),
+                          0.0)
+    return float(diff.max(initial=0.0)), float(scaled.max(initial=0.0))
+
+
+def check_trend_kernels(device: str, scale: float, seed: int,
+                        timing_reps: int = 20, plain_reps: int = 3):
+    """Phase 3 for B4 and B5: each against its plain version at every
+    case; returns their timing rows at the fidelity shapes of the sweep's
+    largest range (the shapes the main path gives them)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.trend_scan import (pair_stats,
+                                                pair_stats_plain,
+                                                trend_scan, trend_scan_plain)
+
+    streams, _, _ = _streams(scale, seed)
+    rng = np.random.default_rng(seed)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    q_np, lengths = _fidelity_counts(streams, max(SWEEP_RANGES))
+    q_fid = ops._pad_cols(up(q_np), ops.TILE)
+    lens_ragged = [0, 1, 1023, 1024, 1025, 86_400]
+    ragged = np.zeros((len(lens_ragged), 86_400), np.int32)
+    for i, n in enumerate(lens_ragged):
+        ragged[i, :n] = rng.poisson(120.0, n)
+    week = np.full((1, 604_800), 3550, np.int32)    # total 2 147 040 000
+    scan_cases = {
+        "fidelity": q_fid,
+        "ragged": ops._pad_cols(up(ragged), ops.TILE),
+        "width0": up(np.zeros((3, 0), np.int32)),
+        "width1025": up(rng.poisson(9.0, (2, 1025)).astype(np.int32)),
+        "week": ops._pad_cols(up(week), ops.TILE),
+    }
+    for case, q in scan_cases.items():
+        _exact(f"trend_scan/{case}", trend_scan(q), trend_scan_plain(q))
+    if int(trend_scan(scan_cases["week"])[0, -1]) != 604_800 * 3550:
+        raise AssertionError("trend_scan/week: wrong total")
+
+    z_fid = _centered_trends(q_fid, lengths, 60)
+    big = rng.normal(0.0, 40.0, (37, 86_528)).astype(np.float32)
+    big -= big.mean(axis=1, keepdims=True)
+    pair_cases = {"fidelity": z_fid, "S37": up(big)}
+    err = scaled_err = 0.0
+    for case, x in pair_cases.items():
+        e, se = _pair_err(f"pair_stats/{case}", pair_stats(x),
+                          pair_stats_plain(x), x.shape[1])
+        err, scaled_err = max(err, e), max(scaled_err, se)
+
+    S, N = q_fid.shape
+    rows = {"trend_scan": dict(
+        ms=_time_ms(lambda: trend_scan(q_fid), timing_reps),
+        plain_ms=_time_ms(lambda: trend_scan_plain(q_fid), plain_reps),
+        library_ms=_time_ms(lambda: torch.cumsum(q_fid, 1,
+                                                 dtype=torch.int32),
+                            timing_reps),
+        max_abs_err=0.0, shape=f"S={S} N={N} (fidelity, max_range "
+                               f"{max(SWEEP_RANGES)})")}
+    rows["trend_scan"]["bound_ms"], rows["trend_scan"]["bound_by"] = \
+        _bound_ms(S * N * 8, S * N)
+    q_week = scan_cases["week"]
+    rows["trend_scan"]["week"] = dict(
+        ms=_time_ms(lambda: trend_scan(q_week), timing_reps),
+        library_ms=_time_ms(lambda: torch.cumsum(q_week, 1,
+                                                 dtype=torch.int32),
+                            timing_reps),
+        bound_ms=_bound_ms(q_week.numel() * 8, q_week.numel())[0],
+        shape=f"S=1 N={q_week.shape[1]}")
+
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # the yardstick in f32
+    try:
+        for case, x in pair_cases.items():
+            S, K = x.shape
+            row = dict(
+                ms=_time_ms(lambda: pair_stats(x), timing_reps),
+                plain_ms=_time_ms(lambda: pair_stats_plain(x), plain_reps),
+                library_ms=_time_ms(lambda: x @ x.T, timing_reps),
+                shape=f"S={S} K={K}")
+            row["bound_ms"], row["bound_by"] = _bound_ms(
+                S * K * 4 + S * 4 + S * S * 4, S * (S + 1) * K + S * K)
+            if case == "fidelity":
+                rows["pair_stats"] = dict(row, max_abs_err=err,
+                                          max_scaled_err=scaled_err)
+            else:
+                rows["pair_stats"][case] = row
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return rows
+
+
+def _same_sim(store_a, store_b, key: str) -> None:
+    a, b = store_a.get(key), store_b.get(key)
+    cols_a = {"t": a.t, "scale_stamp": a.scale_stamp, **a.payload}
+    cols_b = {"t": b.t, "scale_stamp": b.scale_stamp, **b.payload}
+    if cols_a.keys() != cols_b.keys() or any(
+            cols_a[k].dtype != cols_b[k].dtype or
+            cols_a[k].tobytes() != cols_b[k].tobytes() for k in cols_a):
+        raise AssertionError(f"stored sim {key} differs between torch and "
+                             "numpy")
+
+
+def _same_report(rep, ref) -> None:
+    """Rows equal; trend correlation and volatilities within STAT_TOL."""
+    name = f"{rep.dataset}/{rep.max_range}"
+    if (rep.original_rows, rep.simulated_rows) != \
+            (ref.original_rows, ref.simulated_rows):
+        raise AssertionError(f"{name}: row counts differ from numpy")
+    if not abs(rep.trend_corr - ref.trend_corr) <= STAT_TOL:
+        raise AssertionError(f"{name}: trend_corr {rep.trend_corr} vs "
+                             f"numpy {ref.trend_corr}")
+    for which in ("original_volatility", "simulated_volatility"):
+        va, vb = getattr(rep, which), getattr(ref, which)
+        for f in ("average", "variance", "std_variance"):
+            x, y = getattr(va, f), getattr(vb, f)
+            if not (np.isfinite(x) and
+                    abs(x - y) <= STAT_TOL * max(abs(y), 1e-12)):
+                raise AssertionError(f"{name}: {which}.{f}: {x} vs numpy "
+                                     f"{y}")
+
+
 # -------------------------------------------------------- phase 4: main path
 def run_main_path(device: str, scale: float, seed: int, workdir: Path):
     """Phase 4: ``Controller.run`` through the kernels, with the launch
     counts zeroed just before and read just after, then the same run on
     the numpy backend as the reference."""
-    from repro_torch.kernels.compact import compact
-    from repro_torch.kernels.metrics_fused import stream_metrics
-    from repro_torch.kernels.stream_sample import stream_sample
     from repro_torch.streamsim import Controller, StreamStore
 
-    wrappers = {"stream_sample": stream_sample, "compact": compact,
-                "metrics_fused": stream_metrics}
+    wrappers = _wrappers()
     seen = {}
 
     def consumer(queue):
@@ -287,27 +515,9 @@ def run_main_path(device: str, scale: float, seed: int, workdir: Path):
                       seed=seed, backend="numpy")
     ref_s = time.perf_counter() - t0
     key = f"{MAIN_DATASET}__sim{MAIN_RANGE}"
-    a = StreamStore(workdir / "torch").get(key)
-    b = StreamStore(workdir / "numpy").get(key)
-    cols_a = {"t": a.t, "scale_stamp": a.scale_stamp, **a.payload}
-    cols_b = {"t": b.t, "scale_stamp": b.scale_stamp, **b.payload}
-    if cols_a.keys() != cols_b.keys() or any(
-            cols_a[k].dtype != cols_b[k].dtype or
-            cols_a[k].tobytes() != cols_b[k].tobytes() for k in cols_a):
-        raise AssertionError("stored sims differ between torch and numpy")
-    if (rep.original_rows, rep.simulated_rows) != \
-            (ref.original_rows, ref.simulated_rows):
-        raise AssertionError("row counts differ between torch and numpy")
-    if not abs(rep.trend_corr - ref.trend_corr) <= 1e-3:
-        raise AssertionError(f"trend_corr {rep.trend_corr} vs numpy "
-                             f"{ref.trend_corr}")
-    for which in ("original_volatility", "simulated_volatility"):
-        va, vb = getattr(rep, which), getattr(ref, which)
-        for f in ("average", "variance", "std_variance"):
-            x, y = getattr(va, f), getattr(vb, f)
-            if not (np.isfinite(x) and abs(x - y) <= 1e-3 * max(abs(y),
-                                                                1e-12)):
-                raise AssertionError(f"{which}.{f}: {x} vs numpy {y}")
+    _same_sim(StreamStore(workdir / "torch"), StreamStore(workdir / "numpy"),
+              key)
+    _same_report(rep, ref)
     report = {
         "dataset": MAIN_DATASET, "max_range": MAIN_RANGE, "scale": scale,
         "original_rows": rep.original_rows,
@@ -322,6 +532,137 @@ def run_main_path(device: str, scale: float, seed: int, workdir: Path):
         "numpy_produce_s": ref.produce_s,
     }
     return launches, report
+
+
+# ------------------------------------------------------ phase 5: the sweep
+class _SweepConsumer:
+    """Thread-safe consumer for ``run_many``, which drains every scenario's
+    queue on its own thread: counts each scenario's records (returned) and
+    the sweep's total (under a lock)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.records = 0
+        self.buckets = 0
+
+    def __call__(self, queue):
+        n = b = 0
+        for bucket in queue:
+            n += len(bucket)
+            b += 1
+        with self.lock:
+            self.records += n
+            self.buckets += b
+        return {"records_seen": n}
+
+
+def run_sweep_path(device: str, scale: float, seed: int, workdir: Path):
+    """Phase 5: ``Controller.run_many`` over the paper's grid in a fresh
+    store, with the launch counts zeroed just before and read just after,
+    then the same sweep on the numpy backend as the reference."""
+    import torch
+
+    from repro_torch.streamsim import Controller, StreamStore, engine
+
+    wrappers = _wrappers()
+    fid_s = []
+    plain_fidelity = engine.DeviceSweepResult.fidelity
+
+    def timed_fidelity(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return plain_fidelity(self, *args, **kwargs)
+        finally:
+            fid_s.append(time.perf_counter() - t0)
+
+    engine.DeviceSweepResult.fidelity = timed_fidelity
+    try:
+        ctl = Controller(str(workdir / "sweep_torch"), device=device)
+        consumer = _SweepConsumer()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        reps = ctl.run_many(SWEEP_DATASETS, SWEEP_RANGES, consumer,
+                            scale=scale, seed=seed, backend="torch")
+        run_s = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        torch_fid_s = sum(fid_s)
+        fid_s.clear()
+
+        if ctl.last_result.mode != "device":
+            raise AssertionError(f"sweep ran in {ctl.last_result.mode} mode")
+        if len(ctl.last_result.plan.cached) != 0:
+            raise AssertionError("sweep store was not fresh")
+        for name, least in MIN_SWEEP_LAUNCHES.items():
+            if launches[name] < least:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times on the sweep, expected >= "
+                                     f"{least}")
+        for r in reps:
+            if r.consumer_metrics["records_seen"] != r.simulated_rows:
+                raise AssertionError(
+                    f"{r.dataset}/{r.max_range}: consumer saw "
+                    f"{r.consumer_metrics['records_seen']} records, report "
+                    f"says {r.simulated_rows}")
+        if consumer.records != sum(r.simulated_rows for r in reps):
+            raise AssertionError("sweep consumer total differs from reports")
+
+        ref_ctl = Controller(str(workdir / "sweep_numpy"), device=device)
+        t0 = time.perf_counter()
+        refs = ref_ctl.run_many(SWEEP_DATASETS, SWEEP_RANGES, _SweepConsumer(),
+                                scale=scale, seed=seed, backend="numpy")
+        ref_s = time.perf_counter() - t0
+        numpy_fid_s = sum(fid_s)
+    finally:
+        engine.DeviceSweepResult.fidelity = plain_fidelity
+
+    grid = [(d, mr) for d in SWEEP_DATASETS for mr in SWEEP_RANGES]
+    if [(r.dataset, r.max_range) for r in reps] != grid or \
+            [(r.dataset, r.max_range) for r in refs] != grid:
+        raise AssertionError("sweep reports out of grid order")
+    st_a = StreamStore(workdir / "sweep_torch")
+    st_b = StreamStore(workdir / "sweep_numpy")
+    for (d, mr), rep, ref in zip(grid, reps, refs):
+        _same_sim(st_a, st_b, f"{d}__sim{mr}")
+        _same_report(rep, ref)
+    fid_err = 0.0
+    if len(ctl.last_fidelity) != len(SWEEP_RANGES) or \
+            len(ref_ctl.last_fidelity) != len(SWEEP_RANGES):
+        raise AssertionError("one fidelity matrix per max_range expected")
+    for fa, fb in zip(ctl.last_fidelity, ref_ctl.last_fidelity):
+        a = np.asarray(fa.trend_corr, float)
+        b = np.asarray(fb.trend_corr, float)
+        if fa.labels != fb.labels or fa.max_range != fb.max_range or \
+                a.shape != (2 * len(SWEEP_DATASETS),) * 2 or \
+                not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"fidelity {fa.max_range}: labels, shape "
+                                 "or NaN pattern differ from numpy")
+        live = ~np.isnan(a)
+        fid_err = max(fid_err, float(np.abs(a - b)[live].max(initial=0.0)))
+        if fid_err > STAT_TOL:
+            raise AssertionError(f"fidelity {fa.max_range}: {fid_err} "
+                                 "from numpy")
+    sweep = {
+        "datasets": list(SWEEP_DATASETS), "max_ranges": list(SWEEP_RANGES),
+        "scale": scale, "scenarios": len(reps),
+        "original_rows": {d: r.original_rows for d, r in
+                          ((r.dataset, r) for r in reps)},
+        "simulated_rows": sum(r.simulated_rows for r in reps),
+        "consumer_buckets": consumer.buckets,
+        "run_s": run_s, "nsa_s": max(r.nsa_s for r in reps),
+        "nsa_s_sum": sum(r.nsa_s for r in reps),
+        "produce_s": max(r.produce_s for r in reps),
+        "fidelity_s": torch_fid_s, "peak_device_bytes": peak,
+        "max_fidelity_abs_diff": fid_err,
+        "max_trend_corr_abs_diff": max(abs(a.trend_corr - b.trend_corr)
+                                       for a, b in zip(reps, refs)),
+        "numpy_run_s": ref_s, "numpy_nsa_s": max(r.nsa_s for r in refs),
+        "numpy_produce_s": max(r.produce_s for r in refs),
+        "numpy_fidelity_s": numpy_fid_s,
+    }
+    return launches, sweep
 
 
 def main() -> int:
@@ -354,13 +695,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = check_kernels("cuda", MAIN_SCALE, MAIN_SEED)
+    rows.update(check_trend_kernels("cuda", MAIN_SCALE, MAIN_SEED))
     check_s = time.perf_counter() - t0
     print(f"kernel checks passed in {check_s:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, report = run_main_path("cuda", MAIN_SCALE, MAIN_SEED,
-                                         Path(tmp))
-    report.update(build_s=build_s, kernel_check_s=check_s)
+        run_launches, report = run_main_path("cuda", MAIN_SCALE, MAIN_SEED,
+                                             Path(tmp))
+        report.update(build_s=build_s, kernel_check_s=check_s)
+        print(json.dumps({"report": report}), flush=True)
+        sweep_launches, sweep = run_sweep_path("cuda", MAIN_SCALE,
+                                               MAIN_SEED, Path(tmp))
 
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
@@ -369,19 +714,25 @@ def main() -> int:
                     "src/repro/kernels/compact.py:139"),
         "metrics_fused": ("src/repro_torch/csrc/metrics_fused.cu",
                           "src/repro/kernels/metrics_fused.py:269"),
+        "trend_scan": ("src/repro_torch/csrc/trend_scan.cu",
+                       "src/repro/kernels/trend_scan.py:107"),
+        "pair_stats": ("src/repro_torch/csrc/pair_stats.cu",
+                       "src/repro/kernels/trend_scan.py:221"),
     }
+    extra = ("sim", "sweep", "week", "S37", "max_scaled_err")
     kernels = []
     for name, (source, tpu) in replaces.items():
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": tpu, "launches": launches[name],
+            "replaces": tpu, "launches": sweep_launches[name],
+            "launches_by_path": {"run": run_launches[name],
+                                 "run_many": sweep_launches[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"],
-            **({"sim": r["sim"]} if "sim" in r else {})})
-    print(json.dumps({"report": report}))
+            "shape": r["shape"], **{k: r[k] for k in extra if k in r}})
+    print(json.dumps({"sweep": sweep}))
     print(f"card: {_card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Public wrappers over the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py`` (the NSA, compaction, metrics and
-pairwise-trend parts). Each op builds the host-side tables and layouts,
+Counterpart of ``repro/kernels/ops.py`` (the NSA, compaction, metrics,
+trend-scan, S×S trend-correlation and pairwise-trend parts). Each op
+builds the host-side tables and layouts,
 moves them to the requested device and calls a kernel wrapper, which
 launches the CUDA kernel for CUDA tensors and runs the kernel's plain
 PyTorch version for CPU tensors. ``device=None`` means CUDA; asking for
@@ -30,9 +31,14 @@ from repro_torch.kernels.metrics_fused import BUCKET_BLOCK, stream_metrics \
 from repro_torch.kernels.stream_sample import MAX_RANGE_LIMIT
 from repro_torch.kernels.stream_sample import stream_sample \
     as _stream_sample_kernel
+from repro_torch.kernels.trend_scan import pair_stats as _pair_stats_kernel
+from repro_torch.kernels.trend_scan import trend_scan as _trend_scan_kernel
 
 #: record quantum the record axis is padded to (the reference's TILE)
 TILE = 1024
+#: time quantum the pair-statistics axis is padded to (the reference's
+#: default ``bucket_block``, its pair-stats tile)
+PAIR_TILE = 512
 
 
 # ------------------------------------------------------------------ devices
@@ -313,10 +319,36 @@ def stream_metrics(ss, max_range: int, *, device=None):
     return hist[0], mom[0]
 
 
-# ------------------------------------------------- pairwise trend correlation
+# ------------------------------------------------------- trend & correlation
 # int32 prefix-sum accumulation: exact while a stream's total record count
 # stays below 2**31
 _TREND_TOTAL_LIMIT = 2 ** 31 - 1
+
+
+def _check_trend_domain(q_list) -> None:
+    """Refuse count series outside the int32 scan's exactness domain.
+
+    Both violations raise :class:`PallasDomainError` (not ``ValueError``)
+    so the metrics layer falls back to the numpy path for any input the
+    device path cannot take."""
+    for s, q in enumerate(q_list):
+        if len(q) and int(q.min()) < 0:
+            raise PallasDomainError(
+                f"stream {s}: negative counts are outside the device trend "
+                "domain; use the numpy trend path")
+        if int(q.sum(dtype=np.int64)) > _TREND_TOTAL_LIMIT:
+            raise PallasDomainError(
+                f"stream {s}: total count exceeds the int32 prefix-sum "
+                f"domain (limit {_TREND_TOTAL_LIMIT}); use the numpy trend "
+                "path")
+
+
+def _check_totals(totals) -> None:
+    if totals is not None and np.any(
+            np.asarray(totals, np.int64) > _TREND_TOTAL_LIMIT):
+        raise PallasDomainError(
+            "total count exceeds the int32 prefix-sum domain "
+            f"(limit {_TREND_TOTAL_LIMIT}); use the numpy trend path")
 
 
 def _window_tables(lengths: np.ndarray, window: int):
@@ -348,6 +380,193 @@ def _trend_from_prefix(psum, lengths, w_eff, half):
     return torch.where(i < n, out, torch.zeros((), device=psum.device))
 
 
+def _pad_cols(x, quantum: int):
+    """Zero-pad the last axis to a multiple of ``quantum`` (a whole
+    ``quantum`` when it is empty), as the reference pads before its
+    kernels."""
+    pad = (-x.shape[1]) % quantum
+    if pad or x.shape[1] == 0:
+        x = torch.cat([x, torch.zeros((x.shape[0], pad or quantum),
+                                      dtype=x.dtype, device=x.device)], 1)
+    return x.contiguous()
+
+
+def _trends(qmat, lengths: np.ndarray, window: int):
+    """Kernel B4 on a TILE-padded (S, N) int32 count matrix, then the
+    sliding-mean tail on the same device."""
+    dev = qmat.device
+    psum = _trend_scan_kernel(qmat)
+    w_eff, half = _window_tables(lengths, window)
+    return _trend_from_prefix(psum, *(torch.from_numpy(a).to(dev)
+                                      for a in (lengths, w_eff, half)))
+
+
+def trend_scan_batched(qs, window: int, *, device=None):
+    """Windowed sliding-mean trends of S count series, one B4 launch.
+
+    qs     : sequence of 1-D integer count series (ragged lengths allowed;
+             empty series give all-zero rows).
+    window : sliding-mean window; per series it clamps to
+             ``max(min(window, n), 1)`` (the host ``sliding_mean``
+             semantics).
+    device : where the launch runs (``None`` means CUDA).
+
+    Returns ``(trend float32 (S, N) on the device, lengths int64 (S,))``
+    with ``N`` the longest series rounded up to ``TILE``; entries past a
+    series' length are 0. Window sums are int32-exact, the divide is f32.
+
+    Raises :class:`PallasDomainError` for negative counts or a total past
+    2³¹ − 1, and ``ValueError`` for ``window < 1`` or no series.
+    """
+    if window < 1:
+        raise ValueError("window must be >= 1")
+    q_list = [np.asarray(q).reshape(-1) for q in qs]
+    if not q_list:
+        raise ValueError("need at least one count series")
+    _check_trend_domain(q_list)
+    lengths = np.array([len(q) for q in q_list], np.int64)
+    N = max(int(-(-lengths.max(initial=1) // TILE) * TILE), TILE)
+    qb = np.zeros((len(q_list), N), np.int32)
+    for s, q in enumerate(q_list):
+        qb[s, :len(q)] = q
+    dev = resolve_device(device)
+    return _trends(torch.from_numpy(qb).to(dev), lengths, window), lengths
+
+
+def trend_scan(q, window: int, *, device=None):
+    """Windowed sliding-mean trend of one count series: a float32 ``(n,)``
+    tensor on ``device``; the guards of :func:`trend_scan_batched`."""
+    trend, lengths = trend_scan_batched([q], window, device=device)
+    return trend[0, :int(lengths[0])]
+
+
+def trend_scan_batched_device(qmat, lengths, window: int, totals=None):
+    """Device-input form of :func:`trend_scan_batched`.
+
+    qmat    : (S, N) integer count series already on a device, zero past
+              each row's true length (the metrics kernel's histograms are
+              this shape).
+    lengths : true series lengths (host).
+    totals  : per-row total counts for the int32 domain guard (O(S) host
+              scalars the caller already has); ``None`` skips the guard.
+
+    Returns ``(trend f32 (S, N') on qmat's device, lengths int64 (S,))``
+    with ``N'`` the width rounded up to ``TILE``.
+    """
+    if window < 1:
+        raise ValueError("window must be >= 1")
+    qmat = torch.as_tensor(qmat)
+    if qmat.ndim != 2:
+        raise ValueError(f"qmat must be (S, N), got shape {tuple(qmat.shape)}")
+    lengths = np.asarray(lengths, np.int64).reshape(-1)
+    if len(lengths) != qmat.shape[0]:
+        raise ValueError("lengths must align with qmat rows")
+    _check_totals(totals)
+    q32 = _pad_cols(qmat.to(torch.int32), TILE)
+    return _trends(q32, lengths, window), lengths
+
+
+def trend_pair_stats(x):
+    """All-pairs Pearson sufficient statistics of stacked trends, one B5
+    launch on ``x``'s device.
+
+    x : (S, K) float32 trends on a common grid (zero tails contribute
+        nothing). Returns ``(sums f32 (S, 1), gram f32 (S, S))``.
+    """
+    x = torch.as_tensor(x).to(torch.float32)
+    if x.ndim != 2 or x.shape[0] < 1:
+        raise ValueError("x must be (S, K) with S >= 1")
+    return _pair_stats_kernel(_pad_cols(x, PAIR_TILE))
+
+
+def _resample_uniform(x, lengths, n_points: int):
+    """Linear resample of each (ragged) trend row onto ``n_points``: the
+    lerp at position ``i·(n−1)/(K−1)``, op for op as the reference's
+    ``_resample_uniform`` (``x`` and the int ``lengths`` on one device)."""
+    dev = x.device
+    n = lengths.to(torch.float32)[:, None]
+    i = torch.arange(n_points, dtype=torch.float32, device=dev)[None, :]
+    scale = (n - 1.0) / float(max(n_points - 1, 1))
+    pos = i * scale
+    n_int = lengths.to(torch.int32)[:, None]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    j = torch.floor(pos).to(torch.int32)
+    j = torch.minimum(torch.maximum(j, zero), torch.clamp(n_int - 2, min=0))
+    frac = pos - j.to(torch.float32)
+    x0 = torch.gather(x, 1, j.long())
+    x1 = torch.gather(x, 1, torch.minimum(
+        j + 1, torch.clamp(n_int - 1, min=0)).long())
+    return x0 * (1.0 - frac) + x1 * frac
+
+
+def _corr_from_gram(gram, live, S: int) -> np.ndarray:
+    """Normalize a centered Gram matrix into the S×S Pearson matrix on the
+    host, in float64: exact symmetry, clip to [-1, 1], unit diagonal for
+    non-zero variance, NaN rows for empty or zero-variance series. Shared
+    with the f64 numpy mirror (``metrics._corr_matrix_numpy``). ``live``
+    indexes the non-empty series ``gram`` covers."""
+    corr = np.full((S, S), np.nan)
+    g = np.asarray(gram, np.float64)
+    g = (g + g.T) / 2.0                       # exact symmetry
+    d = np.sqrt(np.clip(np.diag(g), 0.0, None))
+    denom = np.outer(d, d)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sub = np.where(denom > 0, g / np.where(denom > 0, denom, 1.0),
+                       np.nan)
+    np.clip(sub, -1.0, 1.0, out=sub)
+    np.fill_diagonal(sub, np.where(d > 0, 1.0, np.nan))
+    corr[np.ix_(live, live)] = sub
+    return corr
+
+
+def _corr_from_trends(trend, lengths: np.ndarray,
+                      n_points: Optional[int]) -> np.ndarray:
+    """Trends -> common-grid resample -> centering -> B5 -> host f64
+    normalization (the shared tail of the S×S matrix paths)."""
+    S = len(lengths)
+    live = np.flatnonzero(lengths > 0)
+    if len(live) == 0:
+        return np.full((S, S), np.nan)
+    K = int(n_points) if n_points is not None else int(lengths[live].min())
+    if K < 1:
+        raise ValueError("n_points must be >= 1")
+    dev = trend.device
+    z = _resample_uniform(trend.index_select(0, torch.from_numpy(live).to(dev)),
+                          torch.from_numpy(lengths[live]).to(dev), K)
+    z = z - z.mean(dim=1, keepdim=True)
+    _, gram = trend_pair_stats(z)
+    return _corr_from_gram(gram.cpu().numpy(), live, S)
+
+
+def trend_correlation_batched(qs, window: int,
+                              n_points: Optional[int] = None, *,
+                              device=None) -> np.ndarray:
+    """S×S trend-correlation matrix of host count series: counts -> B4 ->
+    trends -> resample -> centering -> B5 on ``device`` (``None`` means
+    CUDA), then the O(S²) f64 normalization on the host.
+
+    ``n_points`` (default: the shortest non-empty series' length) is the
+    common grid; for S = 2 the default reproduces the pairwise host
+    convention. Returns float64 ``(S, S)``: symmetric, clipped to [-1, 1],
+    unit diagonal, NaN rows for empty or zero-variance series. Raises
+    :class:`PallasDomainError` as :func:`trend_scan_batched` does.
+    """
+    trend, lengths = trend_scan_batched(qs, window, device=device)
+    return _corr_from_trends(trend, lengths, n_points)
+
+
+def trend_correlation_batched_device(qmat, lengths, window: int,
+                                     n_points: Optional[int] = None,
+                                     totals=None) -> np.ndarray:
+    """:func:`trend_correlation_batched` over count series already on a
+    device (the sweep engine's histogram rows), guarded by ``totals`` as in
+    :func:`trend_scan_batched_device`."""
+    trend, lengths = trend_scan_batched_device(qmat, lengths, window,
+                                               totals=totals)
+    return _corr_from_trends(trend, lengths, n_points)
+
+
+# ------------------------------------------------- pairwise trend correlation
 def _pairwise_corr(qa, la, wa, ha, ai, qb, lb, wb, hb, kk, k_max: int):
     """P (left, right) pairs -> P Pearson r's in float32 (the reference's
     ``_pairwise_corr_jit``): int32 prefix sums -> sliding-mean trends ->
@@ -431,12 +650,7 @@ def trend_corr_pairwise(qa, lengths_a, qb, lengths_b, window: int,
         raise ValueError(f"qa on {qa.device}, qb on {qb.device}")
     if len(ai) and (ai.min() < 0 or ai.max() >= len(la)):
         raise ValueError("a_index out of range")
-    if totals is not None:
-        totals = np.asarray(totals, np.int64).reshape(-1)
-        if np.any(totals > _TREND_TOTAL_LIMIT):
-            raise PallasDomainError(
-                "total count exceeds the int32 prefix-sum domain "
-                f"(limit {_TREND_TOTAL_LIMIT}); use the numpy trend path")
+    _check_totals(totals)
     kk = np.minimum(la[ai], lb)
     k_max = max(int(kk.max(initial=1)), 1)
     wa, ha = _window_tables(la, window)

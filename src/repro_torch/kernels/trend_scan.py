@@ -1,0 +1,130 @@
+"""Kernels B4 and B5: the device half of the Fig.-6 trend chain.
+
+Counterparts of ``repro/kernels/trend_scan.py``:
+
+- :func:`trend_scan` (B4, ``trend_scan_pallas``): per-row inclusive int32
+  prefix sums of ``(S, N)`` count series. It launches
+  ``csrc/trend_scan.cu`` for CUDA tensors and runs
+  :func:`trend_scan_plain` for CPU tensors. Exact while a row's total
+  stays below 2³¹ (the ops layer guards that before the call).
+- :func:`pair_stats` (B5, ``pair_stats_pallas``): per-row sums and the
+  Gram matrix ``x·xᵀ`` of ``(S, K)`` float32 trends. It launches
+  ``csrc/pair_stats.cu`` for CUDA tensors and runs :func:`pair_stats_plain`
+  for CPU tensors. The kernel accumulates in f32 without TF32; the plain
+  version computes in float64 and rounds once, so it is the oracle the
+  kernel is held to (within ``1e-4·sqrt(G[a,a]·G[b,b])``).
+
+Each wrapper adds one to its ``launches`` count where it launches its
+kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+# ------------------------------------------------------------------ B4
+def trend_scan_plain(q):
+    """Plain PyTorch version of B4 (any device): ``(S, N)`` int32 counts ->
+    ``(S, N)`` int32 inclusive prefix sums per row."""
+    return torch.cumsum(q, dim=1, dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_entry():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("trend_scan", "trend_scan_launch",
+                       [p, i, i, p, p, p, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_tile() -> int:
+    """Entries per block of the tile-sum and scan phases, read from the
+    library so the scratch is sized as the kernel indexes it."""
+    return _build.bind("trend_scan", "trend_scan_tile_entries", [])()
+
+
+def trend_scan(q):
+    """B4 on the counts' device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor (same contract as
+    :func:`trend_scan_plain`). Each kernel launch adds one to
+    ``trend_scan.launches``."""
+    if q.device.type == "cpu":
+        return trend_scan_plain(q)
+    if q.device.type != "cuda":
+        raise ValueError(f"trend_scan runs on cuda or cpu, not {q.device}")
+    if q.dtype != torch.int32 or q.ndim != 2 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous 2-D int32 tensor, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    S, n = q.shape
+    if S > 65535 or S * n >= 2 ** 31:
+        raise ValueError(f"batch {S} x {n} too large for one launch")
+    dev = q.device
+    psum = torch.empty((S, n), dtype=torch.int32, device=dev)
+    n_tiles = max(-(-n // _scan_tile()), 1)
+    tile_sums = torch.empty((S, n_tiles), dtype=torch.int32, device=dev)
+    tile_offsets = torch.empty_like(tile_sums)
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        code = _scan_entry()(p(q), S, n, p(tile_sums), p(tile_offsets),
+                             p(psum), _build.stream_handle(dev))
+    _build.check(code, "trend_scan")
+    trend_scan.launches += 1
+    return psum
+
+
+trend_scan.launches = 0
+
+
+# ------------------------------------------------------------------ B5
+def pair_stats_plain(x):
+    """Plain PyTorch version of B5 (any device), computed in float64 and
+    rounded once to float32, so it does not depend on any TF32 setting.
+
+    x : (S, K) float32. Returns ``(sums f32 (S, 1), gram f32 (S, S))`` with
+    ``sums[a] = Σ_t x[a, t]`` and ``gram[a, b] = Σ_t x[a, t]·x[b, t]``.
+    """
+    x64 = x.to(torch.float64)
+    return (x64.sum(dim=1, keepdim=True).to(torch.float32),
+            (x64 @ x64.T).to(torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_entry():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("pair_stats", "pair_stats_launch", [p, i, i, p, p, p])
+
+
+def pair_stats(x):
+    """B5 on the trends' device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor (same contract as
+    :func:`pair_stats_plain`). Each kernel launch adds one to
+    ``pair_stats.launches``."""
+    if x.device.type == "cpu":
+        return pair_stats_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"pair_stats runs on cuda or cpu, not {x.device}")
+    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 2-D float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    S, k = x.shape
+    if S < 1 or S * (S + 1) // 2 >= 2 ** 31 or S * k >= 2 ** 31:
+        raise ValueError(f"batch {S} x {k} outside one launch")
+    dev = x.device
+    sums = torch.empty((S, 1), dtype=torch.float32, device=dev)
+    gram = torch.empty((S, S), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        code = _pair_entry()(p(x), S, k, p(sums), p(gram),
+                             _build.stream_handle(dev))
+    _build.check(code, "pair_stats")
+    pair_stats.launches += 1
+    return sums, gram
+
+
+pair_stats.launches = 0

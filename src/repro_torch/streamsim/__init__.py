@@ -6,8 +6,10 @@ Pipeline stages (paper Fig. 4):
   PSD   -> :mod:`repro_torch.streamsim.producer`    (Algorithm 2)
 
 Supporting pieces: synthetic datasets, the stream store ("database"), the
-Kafka-analogue bounded queue, volatility metrics, the sweep plan and
-engine, and the controller.
+Kafka-analogue bounded queues, volatility and trend metrics, the sweep plan
+and engine, the controller, seeded fault injection
+(:mod:`repro_torch.streamsim.faults`) and the retry/breaker/deadline
+primitives (:mod:`repro_torch.streamsim.resilience`).
 """
 
 from repro_torch.streamsim.datasets import (  # noqa: F401
@@ -28,11 +30,15 @@ from repro_torch.streamsim.metrics import (  # noqa: F401
     Volatility,
     metrics_batched,
     per_second_counts,
+    trend,
+    trend_correlation,
+    trend_correlation_matrix,
     volatility,
 )
 from repro_torch.streamsim.store import StreamStore  # noqa: F401
 from repro_torch.streamsim.queue import (  # noqa: F401
     ByteBudget,
+    QueueGroup,
     StreamQueue,
 )
 from repro_torch.streamsim.faults import (  # noqa: F401
@@ -41,7 +47,17 @@ from repro_torch.streamsim.faults import (  # noqa: F401
     FaultSpec,
     InjectedConsumerCrash,
 )
+from repro_torch.streamsim.resilience import (  # noqa: F401
+    BreakerOpen,
+    CircuitBreaker,
+    Deadline,
+    Heartbeat,
+    Lease,
+    RetryPolicy,
+    SweepCheckpoint,
+)
 from repro_torch.streamsim.producer import (  # noqa: F401
+    MultiQueueProducer,
     Producer,
     RealClock,
     VirtualClock,
@@ -54,7 +70,10 @@ from repro_torch.streamsim.plan import (  # noqa: F401
 )
 from repro_torch.streamsim.engine import (  # noqa: F401
     DeviceSweepResult,
+    FidelityReport,
     SimulationReport,
+    consumer_label,
     execute_sweep,
+    run_sweep,
 )
 from repro_torch.streamsim.controller import Controller  # noqa: F401

@@ -5,11 +5,12 @@ The paper's controller has three functions, mirrored here:
   (2) collect physical/workload metrics of the stream processing system;
   (3) manage metrics of different stream data for viewing.
 
-The controller is a thin layer: :meth:`Controller.run` builds a one-cell
-:class:`~repro_torch.streamsim.plan.SweepPlan` and hands it to the sweep
-engine (:mod:`repro_torch.streamsim.engine`). What remains here is the
-paper-side surface: the store, the metrics repository (a JSON directory),
-and the per-dataset preprocessing timer.
+The controller is a thin layer: :meth:`Controller.run` and
+:meth:`Controller.run_many` build a :class:`~repro_torch.streamsim.plan.
+SweepPlan` and hand it to the sweep engine (:mod:`repro_torch.streamsim.
+engine`). What remains here is the paper-side surface: the store, the
+metrics repository (a JSON directory, with the per-sweep fidelity matrices
+under ``fidelity/``), and the per-dataset preprocessing timer.
 
 ``Controller(store_dir, device=None)``: the torch backend runs on
 ``device`` (``None`` means CUDA, and raises where CUDA is unavailable);
@@ -28,11 +29,13 @@ import numpy as np
 
 from repro_torch.streamsim import engine
 from repro_torch.streamsim.datasets import make_stream
-from repro_torch.streamsim.engine import SimulationReport
-from repro_torch.streamsim.nsa import nsa
+from repro_torch.streamsim.engine import FidelityReport, SimulationReport
+from repro_torch.streamsim.faults import FaultPlan
+from repro_torch.streamsim.nsa import _resolve_backend, nsa
 from repro_torch.streamsim.plan import plan_sweep
 from repro_torch.streamsim.preprocess import Stream, preprocess
 from repro_torch.streamsim.queue import StreamQueue
+from repro_torch.streamsim.resilience import RetryPolicy
 from repro_torch.streamsim.store import StreamStore
 
 
@@ -42,11 +45,16 @@ class Controller:
         self.store = StreamStore(store_dir)
         self.metrics_dir = Path(metrics_dir or (Path(store_dir) / "_metrics"))
         self.metrics_dir.mkdir(parents=True, exist_ok=True)
+        self.fidelity_dir = self.metrics_dir / "fidelity"
         self.device = device
         self._metrics_seq = itertools.count()
-        #: the executed sweep of the latest :meth:`run` (its ``mode`` says
-        #: whether the kernel chain ran or the host fallback did)
+        #: the executed sweep of the latest :meth:`run` or :meth:`run_many`
+        #: (its ``mode`` says whether the kernel chain ran or the host
+        #: fallback did)
         self.last_result: Optional[engine.DeviceSweepResult] = None
+        #: the per-sweep S×S fidelity matrices of the latest
+        #: :meth:`run_many` (also persisted under ``fidelity_dir``)
+        self.last_fidelity: List[FidelityReport] = []
 
     # ----------------------------------------------------- (1) simulate/run
     def prepare(self, dataset: str, *, scale: float = 1.0, seed: int = 0,
@@ -141,6 +149,132 @@ class Controller:
         self.save_metrics(report)
         return report
 
+    def run_many(self, datasets: Sequence[str], max_ranges: Sequence[int],
+                 consumer: Callable[[StreamQueue], Dict], *,
+                 scale: float = 1.0, seed: int = 0, queue_size: int = 64,
+                 backend: str = "auto", fidelity_window_s: int = 60,
+                 n_devices: Optional[int] = None,
+                 host_index: Optional[int] = None,
+                 n_hosts: Optional[int] = None,
+                 fault_plan: Optional[FaultPlan] = None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 breaker_threshold: int = 3,
+                 consumer_deadline_s: Optional[float] = None,
+                 on_failure: str = "raise",
+                 max_bytes: Optional[int] = None,
+                 retention_policy: str = "block",
+                 checkpoint: bool = False,
+                 chunk_s: int = 0,
+                 duration_s: int = 0,
+                 service: bool = False,
+                 autotune: Optional[str] = None
+                 ) -> List[SimulationReport]:
+        """The Tables 1-3 scenario sweep (datasets × time ranges), planned
+        and executed by the sweep engine on the controller's device.
+
+        :func:`~repro_torch.streamsim.plan.plan_sweep` resolves store cache
+        hits and packs the missing scenarios into per-device shards; each
+        shard runs B1 -> B2 -> B3 once
+        (:func:`~repro_torch.streamsim.engine.execute_sweep`); one S×S
+        fidelity matrix per ``max_range`` comes from the device-resident
+        count rows through B4 and B5; the sims are materialized and stored
+        once; and every scenario replays through ONE
+        :class:`~repro_torch.streamsim.producer.MultiQueueProducer` loop
+        (:func:`~repro_torch.streamsim.engine.run_sweep`).
+
+        Parameters
+        ----------
+        datasets, max_ranges :
+            The sweep grid is their cross product.
+        consumer : callable
+            Drains one scenario's queue and returns its metrics dict.
+            Scenario consumers run CONCURRENTLY (one thread per scenario:
+            the shared backpressure of the batched replay requires it), so
+            a consumer shared across scenarios must be thread-safe.
+        scale, seed, queue_size :
+            As in :meth:`run`.
+        backend : {"auto", "numpy", "torch"}
+            ``"torch"`` (and ``"auto"``) runs the kernel chain on the
+            controller's device; ``"numpy"`` reproduces the sequential
+            per-scenario reports on the host. NSA output is bit-identical;
+            statistics and fidelity matrices agree within 1e-3.
+        fidelity_window_s : int, default 60
+            Sliding-mean window of the fidelity matrices.
+        n_devices, host_index, n_hosts : int, optional
+            Plan-partition overrides (default: this process's CUDA device
+            count, one host). ``n_hosts > 1`` raises
+            ``NotImplementedError``.
+        fault_plan, retry_policy, breaker_threshold, consumer_deadline_s,
+        on_failure, max_bytes, retention_policy :
+            The replay's chaos and resilience knobs, passed through to
+            :func:`~repro_torch.streamsim.engine.replay_many`.
+        checkpoint, chunk_s, duration_s, service :
+            Not ported yet: ``checkpoint=True`` (the robustness slice),
+            ``chunk_s``/``duration_s`` (the chunked-stream slice) and
+            ``service=True`` (the sweep-service slice) raise
+            ``NotImplementedError``; the service's lease knobs come with
+            it.
+        autotune : None or "off"
+            Anything else raises ``NotImplementedError`` (the tile-tuning
+            slice).
+
+        Returns
+        -------
+        list of SimulationReport
+            One per (dataset, max_range), in ``for dataset: for max_range``
+            order; ``nsa_s`` is the sweep's shared NSA time (0.0 for cache
+            hits) and ``produce_s`` the shared replay time. Each report is
+            also persisted as JSON; the fidelity matrices are on
+            :attr:`last_fidelity` and under :attr:`fidelity_dir`.
+        """
+        from repro_torch.kernels import ops
+
+        if checkpoint:
+            raise NotImplementedError(
+                "run_many(checkpoint=True) is not ported yet; it comes with "
+                "the robustness slice")
+        if chunk_s or duration_s:
+            raise NotImplementedError(
+                "run_many(chunk_s=, duration_s=) is not ported yet; it comes "
+                "with the chunked-stream slice")
+        if service:
+            raise NotImplementedError(
+                "run_many(service=True) is not ported yet; it comes with the "
+                "sweep-service slice")
+        ops.check_autotune(autotune)
+        originals, t_pre = self._prepare_all(datasets, scale, seed)
+        if _resolve_backend(backend) == "numpy":
+            # host mode ignores the partition: no device topology query
+            n_devices = 1 if n_devices is None else n_devices
+            host_index = 0 if host_index is None else host_index
+            n_hosts = 1 if n_hosts is None else n_hosts
+        plan = plan_sweep(self.store, datasets, max_ranges,
+                          {d: len(originals[d]) for d in datasets},
+                          scale=scale, seed=seed, n_devices=n_devices,
+                          host_index=host_index, n_hosts=n_hosts)
+        if plan.n_hosts > 1:
+            raise NotImplementedError(
+                f"a plan over {plan.n_hosts} hosts (static multi-host "
+                "partitioning and its fidelity merge) is not ported yet; it "
+                "comes with the sweep-service slice")
+        result = engine.execute_sweep(plan, originals, self.store,
+                                      backend=backend, device=self.device)
+        self.last_result = result
+        reports, fidelity = engine.run_sweep(
+            result, consumer, queue_size=queue_size,
+            fidelity_window_s=fidelity_window_s, t_pre=t_pre,
+            fault_plan=fault_plan, retry_policy=retry_policy,
+            breaker_threshold=breaker_threshold,
+            consumer_deadline_s=consumer_deadline_s,
+            on_failure=on_failure, max_bytes=max_bytes,
+            retention_policy=retention_policy)
+        self.last_fidelity = fidelity
+        for fr in fidelity:
+            self.save_fidelity(fr)
+        for report in reports:
+            self.save_metrics(report)
+        return reports
+
     # -------------------------------------------------- (3) metrics manager
     def _unique_path(self, directory: Path, stem: str) -> Path:
         """ms stamp + a monotonic per-controller sequence number, so two
@@ -158,6 +292,28 @@ class Controller:
         with open(path, "w") as f:
             json.dump(report.to_json(), f, indent=2, default=_np_default)
         return path
+
+    def save_fidelity(self, report: FidelityReport) -> Path:
+        """Persist one sweep's S×S fidelity matrix under ``fidelity_dir``
+        (outside ``metrics_dir`` proper, so :meth:`list_metrics` keeps its
+        one-file-per-scenario contract). NaN entries are written as
+        ``null``."""
+        self.fidelity_dir.mkdir(parents=True, exist_ok=True)
+        stem = f"fidelity_max{report.max_range}_{int(time.time() * 1e3)}"
+        path = self._unique_path(self.fidelity_dir, stem)
+        with open(path, "w") as f:
+            json.dump(report.to_json(), f, indent=2, default=_np_default)
+        return path
+
+    def list_fidelity(self) -> List[Path]:
+        return sorted(self.fidelity_dir.glob("*.json"))
+
+    def load_fidelity(self) -> List[Dict]:
+        out = []
+        for p in self.list_fidelity():
+            with open(p) as f:
+                out.append(json.load(f))
+        return out
 
     def list_metrics(self) -> List[Path]:
         return sorted(self.metrics_dir.glob("*.json"))

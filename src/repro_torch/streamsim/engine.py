@@ -13,8 +13,15 @@ The middle layer of the plan → engine → replay/report architecture:
 - **Materialize** (:meth:`DeviceSweepResult.materialize`): the single lazy
   host pass — kept indices gather the payload columns once and the
   simulated streams land in the store.
-- **Replay / report** (:func:`replay_one`, :func:`build_report`): the PSDA
-  replay and the :class:`SimulationReport`, whose statistics read the
+- **Fidelity** (:meth:`DeviceSweepResult.fidelity`): one S×S
+  trend-correlation matrix per ``max_range`` over ``[originals...,
+  sims...]``, straight from the device-resident count rows through the
+  trend kernels B4 and B5 (:func:`~repro_torch.kernels.ops.
+  trend_correlation_batched_device`).
+- **Replay / report** (:func:`run_sweep`, :func:`replay_one`,
+  :func:`replay_many`, :func:`build_report`): the PSDA replay (one
+  :class:`~repro_torch.streamsim.producer.MultiQueueProducer` loop for a
+  sweep) and the :class:`SimulationReport` s, whose statistics read the
   original streams' metrics (one more B3 call) and the pairwise trend
   correlation (plain PyTorch, :func:`~repro_torch.kernels.ops.
   trend_corr_pairwise`).
@@ -40,17 +47,22 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.streamsim.faults import FaultPlan
 from repro_torch.streamsim.metrics import (StreamMetrics, Volatility,
                                            _volatility_from_moments,
                                            metrics_batched,
-                                           trend_correlation_from_counts)
+                                           trend_correlation_from_counts,
+                                           trend_correlation_matrix)
 from repro_torch.streamsim.nsa import (_resolve_backend, compression_factor,
                                        materialize_sweep, nsa,
                                        nsa_sweep_device)
 from repro_torch.streamsim.plan import Shard, SweepPlan
 from repro_torch.streamsim.preprocess import Stream
-from repro_torch.streamsim.producer import Producer, VirtualClock
-from repro_torch.streamsim.queue import StreamQueue
+from repro_torch.streamsim.producer import (MultiQueueProducer, Producer,
+                                            VirtualClock)
+from repro_torch.streamsim.queue import QueueGroup, StreamQueue
+from repro_torch.streamsim.resilience import (CircuitBreaker, Deadline,
+                                              RetryPolicy, SweepCheckpoint)
 
 #: sliding-mean window of the per-report trend correlation — the single
 #: source for the device chain AND its host fallback
@@ -91,6 +103,42 @@ class SimulationReport:
                 d[f] = Volatility(**v)
         known = {fld.name for fld in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass
+class FidelityReport:
+    """One sweep's Fig.-6 fidelity artifact from a ``run_many`` sweep.
+
+    ``trend_corr`` is the full S×S trend-correlation matrix over the
+    sweep's streams — every dataset's original stream followed by every
+    dataset's simulated stream at ``max_range`` — computed from ONE
+    batched chain (on the torch backend the whole counts → trend →
+    correlation chain stays on the device, consuming the engine's
+    device-resident count rows directly). ``labels[i]`` names row/column
+    ``i`` (``"<dataset>/original"`` or ``"<dataset>/sim<max_range>"``).
+
+    Matrix entries for empty / zero-variance streams are NaN in memory and
+    serialize to ``null`` in :meth:`to_json` (bare ``NaN`` tokens are not
+    valid JSON and would break non-Python consumers of the artifact).
+    """
+
+    max_range: int
+    window_s: int
+    labels: List[str]
+    trend_corr: List[List[float]]
+    #: cross-host merge provenance: ``provenance[i]`` names the
+    #: host/worker that produced row ``i``'s count data, parallel to
+    #: ``labels``. None (single-host artifacts) keeps it out of the JSON
+    #: payload.
+    provenance: Optional[List[Optional[str]]] = None
+
+    def to_json(self) -> Dict:
+        d = dataclasses.asdict(self)
+        d["trend_corr"] = [[None if v != v else v for v in row]
+                           for row in self.trend_corr]
+        if self.provenance is None:
+            d.pop("provenance")
+        return d
 
 
 # ---------------------------------------------------------------- execution
@@ -328,6 +376,88 @@ class DeviceSweepResult:
         return sr.hist[r, :self.spans.get(sc, sc[1])].cpu().numpy() \
             .astype(np.int64)
 
+    def count_rows(self, scenarios=None) -> Dict[Tuple[str, int],
+                                                 np.ndarray]:
+        """Per-second simulated count rows gathered to the host, scenario
+        -> int64 array (the export a cross-host fidelity merge reads:
+        exact integers, so the merging side can recompute the full S×S
+        matrix)."""
+        if scenarios is None:
+            scenarios = self.scenarios
+        if self.mode == "host":
+            self._ensure_host_group()
+            return {sc: np.asarray(self.sm[sc].counts
+                                   if sc in self.sm
+                                   else self._cached_sm[sc].counts,
+                                   dtype=np.int64)
+                    for sc in scenarios}
+        src = self._scenario_sources()
+        return {sc: self._counts_host(sc, src) for sc in scenarios}
+
+    # ------------------------------------------------------------- fidelity
+    def fidelity(self, window_s: int = 60) -> List[FidelityReport]:
+        """One S×S trend-correlation matrix per ``max_range`` over
+        ``[originals..., sims@max_range...]``.
+
+        Device mode reads the count rows where they already are: the
+        originals' rows (one upload per sweep) and the shards' histogram
+        rows are stacked on the report device and go through B4 -> trends
+        -> resample -> B5 (:func:`~repro_torch.kernels.ops.
+        trend_correlation_batched_device`); a domain error falls back to
+        the f64 numpy matrix. Host mode runs
+        :func:`~repro_torch.streamsim.metrics.trend_correlation_matrix` on
+        the host counts with the sweep's backend.
+        """
+        import torch
+
+        from repro_torch.kernels import ops
+
+        datasets = list(self.plan.datasets)
+        out = []
+        reported = set(self.scenarios)
+        src = self._scenario_sources() if self.mode == "device" else {}
+        for mr in self.plan.max_ranges:
+            scs = [(d, mr) for d in datasets if (d, mr) in reported]
+            if not scs:
+                continue
+            row_ds = [d for d, _ in scs]
+            labels = [f"{d}/original" for d in row_ds] + \
+                [f"{d}/sim{mr}" for d in row_ds]
+            if self.mode == "host":
+                matrix = trend_correlation_matrix(
+                    [self.om[d].counts for d in row_ds] +
+                    [self.sm[(d, mr)].counts for d in row_ds],
+                    window_s=window_s, backend=self.backend,
+                    device=self.device)
+            else:
+                try:
+                    om_mat, om_trs, om_totals, didx = \
+                        self._orig_count_matrix()
+                    sel = np.array([didx[d] for d in row_ds])
+                    om_sel = om_mat.index_select(
+                        0, torch.from_numpy(sel).to(om_mat.device))
+                    w_sc = max(int(self.spans.get(sc2, mr))
+                               for sc2 in scs)
+                    qb, lb, sim_totals = self._sim_count_rows(
+                        scs, src, max(int(om_sel.shape[1]), w_sc))
+                    pad = qb.shape[1] - om_sel.shape[1]
+                    if pad > 0:
+                        om_sel = torch.nn.functional.pad(om_sel, (0, pad))
+                    qmat = torch.cat([om_sel, qb], dim=0)
+                    lengths = np.concatenate([om_trs[sel], lb])
+                    totals = np.concatenate([om_totals[sel], sim_totals])
+                    matrix = ops.trend_correlation_batched_device(
+                        qmat, lengths, window_s, totals=totals)
+                except ops.PallasDomainError:
+                    matrix = trend_correlation_matrix(
+                        [self.om[d].counts for d in row_ds] +
+                        [self._counts_host((d, mr), src)
+                         for d in row_ds],
+                        window_s=window_s, backend="numpy")
+            out.append(FidelityReport(mr, window_s, labels,
+                                      np.asarray(matrix).tolist()))
+        return out
+
     # ---------------------------------------------------------- materialize
     def materialize(self, store=None) -> Dict[Tuple[str, int], Stream]:
         """The single lazy host pass: gather every shard scenario's kept
@@ -511,6 +641,260 @@ def replay_one(sim: Stream, consumer, queue_size: int, faults=None):
             t_prod)
 
 
+def consumer_label(consumer) -> Optional[str]:
+    """The task name a consumer advertises — ``.task_name``, ``.name``
+    (the task tier's consumers) or ``.__name__``, in that order. Surfaced in the deadline errors so a wedged *task* is
+    named alongside its scenario (one sweep can interleave many tasks;
+    "scenario ('sogouq', 600) timed out" alone does not say WHICH task
+    wedged)."""
+    for attr in ("task_name", "name", "__name__"):
+        label = getattr(consumer, attr, None)
+        if isinstance(label, str) and label:
+            return label
+    return None
+
+
+def _deadline_error(deadline_s, key, consumer) -> TimeoutError:
+    """The wedged-consumer TimeoutError, naming scenario AND task."""
+    task = consumer_label(consumer)
+    tag = f" running task {task!r}" if task else ""
+    return TimeoutError(
+        f"consumer deadline ({deadline_s}s) exceeded for {key!r}{tag}")
+
+
+def _replay_solo(key, sim: Stream, consumer, queue_size: int,
+                 deadline_s: Optional[float], faults) -> Dict:
+    """One scenario's retry replay (the resilience layer's unit of work):
+    fresh bounded queue + producer thread, the consumer on its own
+    deadline-joined thread. Returns the merged per-scenario stats or
+    raises the consumer's error (``TimeoutError`` on a blown deadline).
+    """
+    queue = StreamQueue(maxsize=queue_size)
+    producer = Producer(sim, queue, clock=VirtualClock(), faults=faults)
+    status = [None]
+    box: Dict = {}
+
+    def _produce():
+        status[0] = producer.run()
+
+    def _consume():
+        try:
+            box["result"] = consumer(queue)
+        except Exception as exc:   # keep the producer drainable
+            box["error"] = exc
+            for _ in queue:
+                pass
+
+    tp = threading.Thread(target=_produce, daemon=True)
+    tc = threading.Thread(target=_consume, daemon=True)
+    deadline = Deadline(deadline_s)
+    tp.start()
+    tc.start()
+    tc.join(deadline.remaining())
+    if tc.is_alive():
+        queue.close()              # unblock a get()-parked consumer; the
+        tc.join(5.0)               # producer sheds via the closed queue
+        raise _deadline_error(deadline_s, key, consumer)
+    tp.join()
+    if "error" in box:
+        raise box["error"]
+    if status[0] != 0:
+        raise RuntimeError("producer reported fault status")
+    return {**box["result"], **queue.stats(), **producer.stats()}
+
+
+def replay_many(sims: Dict, consumer, queue_size: int, *,
+                fault_plan: Optional[FaultPlan] = None,
+                retry_policy: Optional[RetryPolicy] = None,
+                breaker_threshold: int = 3,
+                consumer_deadline_s: Optional[float] = None,
+                on_failure: str = "raise",
+                max_bytes: Optional[int] = None,
+                retention_policy: str = "block"):
+    """Batched PSDA leg: ONE
+    :class:`~repro_torch.streamsim.producer.MultiQueueProducer` virtual-time
+    loop interleaves every scenario's buckets; each scenario's consumer
+    drains its own bounded queue in its own thread (shared backpressure
+    makes concurrent drains mandatory — a full sibling queue stalls the
+    whole loop). Returns ``({scenario: merged stats}, shared wall time)``
+    with per-scenario stats equivalent to sequential :func:`replay_one`
+    calls.
+
+    Resilience layer (all off by default; with the defaults the replay is
+    a plain fault-free walk):
+
+    - ``fault_plan`` injects the seeded chaos schedule into the producer
+      walk and wraps each consumer with its crash schedule.
+    - ``consumer_deadline_s`` bounds the joint consumer joins: a consumer
+      still running at the deadline with buckets available (or its stream
+      closed) is *wedged* — its queue is closed (the producer walk sheds
+      just that scenario) and it fails with a named ``TimeoutError``
+      instead of hanging the sweep; *starved* consumers (empty open
+      queue — victims of shared backpressure behind the wedged sibling)
+      get a short post-shed grace join.
+    - ``retry_policy`` retries each failed scenario solo with capped
+      exponential backoff; each retry rewinds the scenario's fault
+      schedule (``FaultInjector.reset``) while the crash-attempt counter
+      advances, so a transient injected crash heals deterministically.
+    - a per-scenario :class:`~repro_torch.streamsim.resilience.CircuitBreaker`
+      (``breaker_threshold`` consecutive failures) stops burning backoff
+      budget on a persistently-broken consumer.
+    - ``on_failure="degrade"`` converts terminal failures into partial
+      per-scenario stats (``degraded``/``failed``/``attempts``/
+      ``breaker`` + transport counters) instead of raising, so one broken
+      scenario no longer fails the whole sweep.
+    - ``max_bytes``/``retention_policy`` put the queue group under a
+      shared byte budget (broker retention; see
+      :class:`~repro_torch.streamsim.queue.ByteBudget`).
+
+    Raises
+    ------
+    RuntimeError
+        With ``on_failure="raise"`` (default), if ANY scenario's consumer
+        terminally fails: every failure is aggregated into one error
+        naming the failed scenarios, with the scenario exceptions chained
+        via ``__cause__`` (first failure outermost) so no traceback is
+        swallowed. Also raised on a producer fault status.
+    """
+    if on_failure not in ("raise", "degrade"):
+        raise ValueError(
+            f"on_failure must be 'raise' or 'degrade', got {on_failure!r}")
+    group = QueueGroup(sims, maxsize=queue_size, max_bytes=max_bytes,
+                       retention_policy=retention_policy)
+    producer = MultiQueueProducer(sims, group.queues, clock=VirtualClock(),
+                                  fault_plan=fault_plan)
+    wrapped = {key: (fault_plan.wrap_consumer(key, consumer)
+                     if fault_plan is not None else consumer)
+               for key in sims}
+    status = [None]
+    results: Dict = {}
+    errors: Dict[object, BaseException] = {}
+
+    def _produce():
+        status[0] = producer.run()
+
+    def _consume(key):
+        try:
+            results[key] = wrapped[key](group[key])
+        except Exception as exc:  # keep the producer loop drainable
+            errors[key] = exc
+            for _ in group[key]:
+                pass
+
+    t0 = time.perf_counter()
+    prod_th = threading.Thread(target=_produce, daemon=True)
+    cons = {key: threading.Thread(target=_consume, args=(key,),
+                                  daemon=True) for key in sims}
+    prod_th.start()
+    for th in cons.values():
+        th.start()
+    deadline = Deadline(consumer_deadline_s)
+    for th in cons.values():
+        th.join(deadline.remaining())    # None remaining == join forever
+    for key, th in cons.items():
+        if not th.is_alive():
+            continue
+        q = group[key]
+        if q.qsize() > 0 or q.closed:
+            # wedged: buckets available (or stream over) yet not
+            # finishing — shed it so the walk and its siblings complete
+            errors[key] = _deadline_error(consumer_deadline_s, key,
+                                          wrapped[key])
+            q.close()
+    prod_th.join()
+    # post-shed grace: starved consumers (empty queue behind the wedged
+    # sibling's backpressure) finish quickly once the producer resumed;
+    # already-errored (wedged) threads are abandoned, not re-joined
+    grace = Deadline(5.0 if consumer_deadline_s is not None else None)
+    for key, th in cons.items():
+        if key in errors:
+            continue
+        if th.is_alive():
+            th.join(grace.remaining())
+        if th.is_alive():
+            errors[key] = _deadline_error(consumer_deadline_s, key,
+                                          wrapped[key])
+            group[key].close()
+    t_prod = time.perf_counter() - t0
+
+    # ---- phase 2: solo retries with backoff, behind the breaker
+    attempts = {key: 1 for key in errors}
+    breaker_state = {key: "closed" for key in errors}
+    # separate dict: an abandoned (wedged) consumer thread may still
+    # write ``results[key]`` concurrently; retries must not race it
+    solo_results: Dict = {}
+    for key in [k for k in sims if k in errors]:
+        breaker = CircuitBreaker(breaker_threshold)
+        breaker.record_failure()            # the joint-loop failure
+        breaker_state[key] = breaker.state
+        if retry_policy is None:
+            continue
+        inj = (fault_plan.injector(key)
+               if fault_plan is not None and
+               not fault_plan.is_noop_for(key) else None)
+        while attempts[key] < retry_policy.max_attempts and breaker.allow():
+            time.sleep(retry_policy.delay(attempts[key], key))
+            attempts[key] += 1
+            if inj is not None:
+                inj.reset()                 # same transport schedule;
+            try:                            # crash attempts still advance
+                merged = _replay_solo(key, sims[key], wrapped[key],
+                                      queue_size, consumer_deadline_s, inj)
+                merged["retries"] = attempts[key] - 1
+                solo_results[key] = merged
+                breaker.record_success()
+                del errors[key]
+                break
+            except Exception as retry_exc:
+                errors[key] = retry_exc
+                breaker.record_failure()
+        breaker_state[key] = breaker.state
+
+    # ---- phase 3: assemble / degrade / raise
+    all_metrics: Dict = {}
+    for key in sims:
+        if key in errors:
+            continue
+        if key in solo_results:             # solo stats already merged
+            all_metrics[key] = solo_results[key]
+        else:
+            all_metrics[key] = {**results[key], **group[key].stats(),
+                                **producer.stats(key)}
+    if errors:
+        if on_failure == "degrade":
+            for key in errors:
+                all_metrics[key] = {
+                    "degraded": True,
+                    "failed": repr(errors[key]),
+                    "attempts": attempts[key],
+                    "breaker": breaker_state[key],
+                    **group[key].stats(),
+                    **producer.stats(key),
+                }
+        else:
+            ordered = [(key, errors[key]) for key in sims if key in errors]
+            cause = None
+            for _, exc in reversed(ordered):  # first failure outermost
+                # a consumer exception may already carry its own
+                # __cause__ chain — link the NEXT failure to that chain's
+                # tail so no failure becomes unreachable
+                tail, seen = exc, {id(exc)}
+                while tail.__cause__ is not None and id(tail.__cause__) \
+                        not in seen:
+                    tail = tail.__cause__
+                    seen.add(id(tail))
+                if tail.__cause__ is None and tail is not cause:
+                    tail.__cause__ = cause
+                cause = exc
+            detail = "; ".join(f"{key!r}: {exc!r}" for key, exc in ordered)
+            raise RuntimeError(
+                f"{len(ordered)} of {len(sims)} sweep consumer(s) failed: "
+                f"{detail}") from cause
+    if status[0] != 0:
+        raise RuntimeError("producer reported fault status")
+    return all_metrics, t_prod
+
+
 # ----------------------------------------------------------- report assembly
 def build_report(result: DeviceSweepResult, scenario: Tuple[str, int],
                  t_pre: float, t_prod: float,
@@ -541,3 +925,56 @@ def build_report(result: DeviceSweepResult, scenario: Tuple[str, int],
         attempts=int(consumer_metrics.get(
             "attempts", consumer_metrics.get("retries", 0) + 1)),
     )
+
+
+def run_sweep(result: DeviceSweepResult, consumer, *,
+              queue_size: int = 64, fidelity_window_s: int = 60,
+              t_pre: Optional[Dict[str, float]] = None,
+              fault_plan: Optional[FaultPlan] = None,
+              retry_policy: Optional[RetryPolicy] = None,
+              breaker_threshold: int = 3,
+              consumer_deadline_s: Optional[float] = None,
+              on_failure: str = "raise",
+              max_bytes: Optional[int] = None,
+              retention_policy: str = "block",
+              checkpoint: Optional[SweepCheckpoint] = None,
+              on_report=None, fidelity: bool = True
+              ) -> Tuple[List[SimulationReport], List[FidelityReport]]:
+    """Layer 3: fidelity matrices → materialize → batched replay → reports.
+
+    The full report tail of ``Controller.run_many``, consuming the
+    :class:`DeviceSweepResult` directly: fidelity is computed from the
+    device-resident count rows BEFORE the single
+    :meth:`~DeviceSweepResult.materialize` host pass, every scenario then
+    replays through ONE multi-queue virtual-time loop, and one
+    :class:`SimulationReport` per scenario is assembled in grid order.
+    Persistence of both artifacts stays with the caller (the controller's
+    metrics repository). The resilience keywords pass straight through to
+    :func:`replay_many`; ``checkpoint`` persists each report's completion
+    marker as soon as it is assembled, so a sweep killed after k reports
+    resumes with exactly k scenarios done. ``on_report`` (the sweep
+    service's publish hook) is called with each report as soon as it is assembled
+    — the sweep service uses it to publish result markers per scenario,
+    so a worker killed mid-batch loses only its unpublished tail.
+    ``fidelity=False`` skips the local matrix entirely (service workers
+    publish raw count rows instead and the merger owns the matrix).
+    """
+    t_pre = t_pre or {}
+    fid = result.fidelity(fidelity_window_s) if fidelity else []
+    result._ensure_stats()        # device stats before the host pass
+    sims = result.materialize()
+    all_metrics, t_prod = replay_many(
+        sims, consumer, queue_size, fault_plan=fault_plan,
+        retry_policy=retry_policy, breaker_threshold=breaker_threshold,
+        consumer_deadline_s=consumer_deadline_s, on_failure=on_failure,
+        max_bytes=max_bytes, retention_policy=retention_policy)
+    reports = []
+    for sc in result.scenarios:
+        r = build_report(result, sc, t_pre.get(sc[0], 0.0), t_prod,
+                         all_metrics[sc])
+        if checkpoint is not None:
+            checkpoint.mark_report(r)     # marker lands per report, so a
+        if on_report is not None:
+            on_report(r)
+        reports.append(r)                 # kill leaves a clean prefix
+    return reports, fid

@@ -21,6 +21,15 @@ Counts are **bit-exact** across backends; the kernel's raw ``[Σq, Σq²]``
 moments agree with exact f64 within ~1e-5 relative (block partials + Kahan
 fold in f32); derived moments (average / variance / σ) keep a 1e-3
 relative tolerance (the variance subtraction can amplify the moment error).
+
+:func:`trend` and :func:`trend_correlation_matrix` (the Fig.-6 "similar
+trend" check over all S×S pairs) run on ``"torch"`` through the trend
+kernels: counts -> prefix sums (B4) -> sliding-mean trends -> resample ->
+centered Gram (B5); only the O(S²) normalization runs on the host. The
+numpy backend mirrors the chain in float64; the two agree within 1e-3.
+Counts outside the int32 scan domain fall back to numpy
+(:class:`~repro_torch.kernels.ops.PallasDomainError`), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -234,3 +243,125 @@ def trend_correlation_from_counts(qa: np.ndarray, qb: np.ndarray,
     rb -= rb.mean()
     denom = np.sqrt((ra ** 2).sum() * (rb ** 2).sum())
     return float((ra * rb).sum() / denom) if denom > 0 else float("nan")
+
+
+def trend(stream: Stream, window_s: int = 600,
+          time_range: Optional[int] = None,
+          *, backend: str = "numpy", device=None) -> np.ndarray:
+    """Moving-average trend of the per-second counts (the Figs. 1-3
+    curves), float64 ``(time_range,)``.
+
+    ``"numpy"`` computes counts and an O(n) host cumsum sliding mean in
+    float64. ``"torch"`` chains kernel B3 into the prefix-sum kernel B4 on
+    ``device``: window sums are int32-exact and the divide is f32, within
+    1e-3 relative of numpy. Counts past the int32 scan domain fall back to
+    the numpy path.
+    """
+    buckets, tr = _bucket_series(stream, time_range, None)
+    if _resolve_backend(backend) == "torch" and tr > 0:
+        from repro_torch.kernels import ops
+        try:
+            hist, _ = ops.stream_metrics(buckets, tr, device=device)
+            return ops.trend_scan(hist.cpu().numpy(), max(window_s, 1),
+                                  device=device).cpu().numpy().astype(
+                                      np.float64)
+        except ops.PallasDomainError:
+            pass  # counts outside the int32 scan domain -> host path
+    q = np.bincount(buckets, minlength=tr)
+    return sliding_mean(q.astype(np.float64), window_s)
+
+
+def trend_correlation(a: Stream, b: Stream, window_s: int = 60,
+                      *, backend: str = "numpy", device=None) -> float:
+    """Trend correlation of two streams: Pearson r in [-1, 1], NaN when
+    either series is empty or has zero trend variance. ``"torch"`` runs
+    the device chain of :func:`trend_correlation_matrix` on the pair
+    (within 1e-3 of numpy); out-of-domain inputs fall back to numpy."""
+    qa = per_second_counts(a, backend=backend, device=device)
+    qb = per_second_counts(b, backend=backend, device=device)
+    if _resolve_backend(backend) == "torch":
+        from repro_torch.kernels import ops
+        try:
+            return float(ops.trend_correlation_batched(
+                [qa, qb], max(window_s, 1), device=device)[0, 1])
+        except ops.PallasDomainError:
+            pass  # totals outside the int32 scan domain -> host path
+    return trend_correlation_from_counts(qa, qb, window_s)
+
+
+# ------------------------------------------------- S x S correlation matrix
+def _corr_matrix_numpy(counts: Sequence[np.ndarray], window_s: int,
+                       n_points: Optional[int]) -> np.ndarray:
+    """Float64 host mirror of :func:`repro_torch.kernels.ops.
+    trend_correlation_batched`: the same resample-to-common-grid
+    convention and the same NaN/clip/diagonal contract."""
+    from repro_torch.kernels.ops import _corr_from_gram
+    trends = [sliding_mean(np.asarray(q, np.float64), window_s)
+              for q in counts]
+    S = len(trends)
+    live = [s for s in range(S) if len(trends[s])]
+    if not live:
+        return np.full((S, S), np.nan)
+    K = int(n_points) if n_points is not None else \
+        min(len(trends[s]) for s in live)
+    if K < 1:
+        raise ValueError("n_points must be >= 1")
+    grid = np.linspace(0.0, 1.0, K)
+    z = np.stack([np.interp(grid, np.linspace(0.0, 1.0, len(trends[s])),
+                            trends[s]) for s in live])
+    z -= z.mean(axis=1, keepdims=True)
+    return _corr_from_gram(z @ z.T, np.asarray(live), S)
+
+
+def trend_correlation_matrix(counts: Sequence[np.ndarray],
+                             window_s: int = 60, *,
+                             n_points: Optional[int] = None,
+                             backend: str = "auto", device=None,
+                             autotune: Optional[str] = None) -> np.ndarray:
+    """Pearson trend-correlation matrix for ALL S×S count-series pairs.
+
+    Every series' sliding-mean trend is resampled onto a common uniform
+    grid (``n_points``, default the shortest non-empty series' length),
+    mean-centered and correlated against every other.
+
+    Parameters
+    ----------
+    counts : sequence of 1-D integer arrays
+        Per-second count series, ragged lengths allowed.
+    window_s : int, default 60
+        Sliding-mean window (must be >= 1).
+    n_points : int, optional
+        Common resampling grid size.
+    backend : {"numpy", "torch", "auto"}
+        ``"torch"`` runs counts -> B4 -> trends -> resample -> centered
+        Gram (B5) on ``device`` (``None`` means CUDA); ``"numpy"`` mirrors
+        it in float64. The backends agree within 1e-3.
+    autotune : None or "off"
+        Anything else raises ``NotImplementedError``.
+
+    Returns
+    -------
+    np.ndarray, float64, shape (S, S)
+        Symmetric, clipped to [-1, 1], diagonal exactly 1 for series with
+        non-zero trend variance; rows and columns of empty or
+        zero-variance series are NaN.
+
+    Raises
+    ------
+    ValueError
+        If ``window_s < 1`` or ``n_points < 1``. Device-domain violations
+        do not raise here: they fall back to numpy.
+    """
+    from repro_torch.kernels import ops
+
+    ops.check_autotune(autotune)
+    if window_s < 1:
+        raise ValueError("window_s must be >= 1")
+    counts = [np.asarray(q).reshape(-1) for q in counts]
+    if _resolve_backend(backend) == "torch" and counts:
+        try:
+            return ops.trend_correlation_batched(counts, window_s, n_points,
+                                                 device=device)
+        except ops.PallasDomainError:
+            pass  # totals outside the int32 scan domain -> host path
+    return _corr_matrix_numpy(counts, window_s, n_points)

@@ -17,27 +17,41 @@ Emitting a bucket means a single vectorized slice (records are pre-grouped by
 scale_stamp), not a per-record loop — the beyond-paper optimization; the
 per-record variant is kept for the §Perf baseline comparison.
 
+:class:`MultiQueueProducer` is the batched-replay form: S scenarios'
+non-empty buckets interleave in ONE loop over a merged scale-stamp
+timeline, each scenario feeding its own bounded queue
+(:class:`repro_torch.streamsim.queue.QueueGroup`), while every scenario's
+consumer observes exactly the sequence of a sequential
+:meth:`Producer.run`. Under a :class:`RealClock` the loop is a heap-based
+timer wheel: one wall-clock loop fires every scenario's bucket at its due
+second.
+
 Fault injection (chaos layer)
 -----------------------------
-The producer accepts a seeded fault schedule
-(:mod:`repro_torch.streamsim.faults`): ``Producer(faults=<FaultInjector>)``.
-Scheduled drops, duplicates, bounded reorders, delay jitter, and producer
-stalls are applied at the emission point; every event is counted and
-surfaced in ``stats()`` (``fault_*`` keys, present only when a schedule is
-attached), so per-scenario delivery reconciles as ``delivered == emitted -
-dropped + duplicated``. A no-op schedule leaves the replay **bit-identical** to the
-fault-free pipeline.
+Both producers accept a seeded fault schedule
+(:mod:`repro_torch.streamsim.faults`): ``Producer(faults=<FaultInjector>)``
+and ``MultiQueueProducer(fault_plan=<FaultPlan>)``. Scheduled drops,
+duplicates, bounded reorders, delay jitter, and producer stalls are
+applied at the emission point; every event is counted and surfaced in
+``stats()`` (``fault_*`` keys, present only when a schedule is attached),
+so per-scenario delivery reconciles as ``delivered == emitted - dropped +
+duplicated``. A no-op schedule leaves the replay **bit-identical** to the
+fault-free pipeline. The multi-queue walks tolerate a member queue being
+closed under them (the engine's consumer-deadline watchdog does that to
+shed a wedged scenario): the dead scenario's remaining buckets count as
+``aborted_buckets`` and every other scenario replays to completion.
 """
 
 from __future__ import annotations
 
+import heapq
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 
-from repro_torch.streamsim.faults import FaultInjector
+from repro_torch.streamsim.faults import FaultInjector, FaultPlan
 from repro_torch.streamsim.preprocess import Stream
 from repro_torch.streamsim.queue import Bucket, StreamQueue
 
@@ -266,3 +280,327 @@ class Producer:
         if self.faults is not None:
             out.update(self.faults.stats())
         return out
+
+
+class MultiQueueProducer:
+    """Replays S simulated streams through S bounded queues in ONE loop.
+
+    The batched counterpart of :class:`Producer`: every scenario's
+    non-empty buckets are merged into a single ascending scale-stamp
+    timeline, and one loop walks it. Per simulated second, every scenario
+    with a bucket there emits it (in the scenarios' given order) to its
+    own queue.
+
+    Under a :class:`VirtualClock` (tests, CPU benchmarks,
+    ``Controller.run_many``) the walk is the gap-batched virtual-time
+    loop: each empty-second gap costs one ``sleep`` for the WHOLE sweep.
+    Under any other clock (:class:`RealClock` — live demos driving
+    several SPS consumers at once) the walk is a heap-based timer wheel
+    (:meth:`_run_timer_wheel`): each merged event is popped from a heap
+    keyed by its due wall time and emitted when that time arrives, so S
+    scenarios replay off ONE wall-clock loop instead of S timer threads.
+
+    Equivalence contract (tested): for each scenario the consumer observes
+    exactly what a sequential ``Producer(stream, queue).run()`` produces —
+    same bucket sequence, same queue stats, same producer stats, and each
+    scenario's queue closes right after its last bucket. Under the
+    virtual clock the per-bucket ``emit_time`` stamps are also identical
+    (bucket ``b`` emits at clock ``(b + 1) * tick_s``); under a real
+    clock ``emit_time`` is the wall time the wheel fired (the sequential
+    real-clock producer's semantics). Only the shared loop's *final*
+    clock value differs per scenario (it runs to the sweep's last stamp).
+
+    Backpressure is shared: one full queue stalls the loop (and therefore
+    every scenario) until its consumer drains — so consumers must run
+    concurrently, one per queue.
+
+    ``fault_plan`` attaches a seeded per-scenario fault schedule
+    (:class:`repro_torch.streamsim.faults.FaultPlan`); each scenario draws from
+    its OWN deterministic RNG stream, so its schedule is identical to the
+    one a sequential fault-injected :class:`Producer` replay would apply,
+    regardless of how scenarios interleave. A member queue closed under
+    the walk (the engine's consumer-deadline watchdog shedding a wedged
+    scenario) only kills THAT scenario — its remaining buckets count as
+    ``aborted_buckets`` and the walk continues; producer stalls, however,
+    stall the whole merged walk (one transport, one loop — the
+    broker-stall semantics).
+
+    Values must be whole :class:`Stream` s: the reference's chunked replay
+    (``ChunkFeed`` values) comes with the port's chunked-stream slice, and
+    anything else raises ``NotImplementedError``.
+    """
+
+    def __init__(self, streams: Mapping, queues: Mapping,
+                 clock: Optional[object] = None, tick_s: float = 1.0,
+                 on_emit: Optional[Callable[[object, Bucket], None]] = None,
+                 fault_plan: Optional[FaultPlan] = None):
+        if set(streams) != set(queues):
+            raise ValueError("streams and queues must share the same keys")
+        self.streams = dict(streams)
+        odd = [k for k, v in self.streams.items() if not isinstance(v, Stream)]
+        if odd:
+            raise NotImplementedError(
+                f"scenario {odd[0]!r} is a {type(self.streams[odd[0]]).__name__}"
+                ", not a Stream: chunked replay (ChunkFeed values) is not "
+                "ported yet; it comes with the chunked-stream slice")
+        self.queues = {k: queues[k] for k in self.streams}
+        self.clock = clock if clock is not None else VirtualClock()
+        self.tick_s = tick_s
+        self.on_emit = on_emit
+        self.fault_plan = fault_plan
+        self.emitted_buckets: Dict[object, int] = {k: 0 for k in self.streams}
+        self.emitted_records: Dict[object, int] = {k: 0 for k in self.streams}
+        self.aborted_buckets: Dict[object, int] = {k: 0 for k in self.streams}
+
+    def _injectors(self, keys):
+        """Per-scenario injectors (None where the schedule is a no-op —
+        the hot loop keeps its fault-free fast path for those rows)."""
+        if self.fault_plan is None:
+            return [None] * len(keys)
+        return [None if self.fault_plan.is_noop_for(k)
+                else self.fault_plan.injector(k) for k in keys]
+
+    def _emit_one(self, i, b, bucket_args, queues, injectors, n_buckets,
+                  n_records, keys):
+        """Apply one scenario's next bucket (chaos-aware); returns False
+        when the scenario's queue was closed under us (scenario dead)."""
+        t_col, payload_items, clock = bucket_args
+        inj = injectors[i]
+        try:
+            if inj is not None:
+                action = inj.draw()
+                if action.stall_s > 0.0:
+                    clock.sleep(action.stall_s)
+                if action.delay_s > 0.0:
+                    clock.sleep(action.delay_s)
+            sl_t = t_col
+            bucket = Bucket(
+                scale_stamp=b,
+                t=sl_t,
+                payload=dict(payload_items),
+                emit_time=clock.time(),
+            )
+            n_buckets[i] += 1
+            n_records[i] += len(bucket)
+            if inj is not None:
+                # earlier holds advance on EVERY emission (held ones
+                # included) — the sequential _emit discipline
+                released = inj.release_due()
+                if action.hold:
+                    inj.hold(bucket, action.hold)
+                elif not action.drop:
+                    queues[i].put(bucket)
+                    if action.duplicate:
+                        queues[i].put(_dup_bucket(bucket))
+                    if self.on_emit is not None:
+                        self.on_emit(keys[i], bucket)
+                for rb in released:
+                    queues[i].put(rb)
+                return True
+            queues[i].put(bucket)
+            if self.on_emit is not None:
+                self.on_emit(keys[i], bucket)
+            return True
+        except RuntimeError:
+            if not queues[i].closed:
+                raise
+            return False                    # shed scenario, walk continues
+
+    def _close_scenario(self, i, queues, injectors) -> None:
+        """Flush the scenario's held (reordered) buckets, then close."""
+        inj = injectors[i]
+        if inj is not None and not queues[i].closed:
+            try:
+                for rb in inj.flush():
+                    queues[i].put(rb)
+            except RuntimeError:
+                if not queues[i].closed:
+                    raise
+        queues[i].close()
+
+    def run(self) -> int:
+        """Walk the merged timeline once; returns the paper status code.
+
+        Host work is O(total #non-empty buckets) plus one ``np.lexsort``
+        over the merged events — empty simulated seconds cost one batched
+        ``sleep`` for the WHOLE sweep, not one per scenario. Per-scenario
+        state (timestamp/payload columns, queue, counters) is hoisted into
+        index-addressed locals before the loop, so the per-event cost
+        matches the sequential :class:`Producer` hot path. Non-virtual
+        clocks take the timer-wheel walk instead
+        (:meth:`_run_timer_wheel`).
+        """
+        if not isinstance(self.clock, VirtualClock):
+            return self._run_timer_wheel()
+        try:
+            keys = list(self.streams)
+            # hoisted per-scenario state, addressed by scenario index
+            t_cols = [self.streams[k].t for k in keys]
+            payloads = [list(self.streams[k].payload.items()) for k in keys]
+            queues = [self.queues[k] for k in keys]
+            injectors = self._injectors(keys)
+            on_emit = self.on_emit
+            clock, tick_s = self.clock, self.tick_s
+            n_buckets = [0] * len(keys)
+            n_records = [0] * len(keys)
+            dead = [False] * len(keys)
+            slices = []
+            events_b, events_s = [], []
+            last_bucket = [-1] * len(keys)
+            for i, key in enumerate(keys):
+                sl, _ = _group_by_scale_stamp(self.streams[key])
+                slices.append(sl)
+                if sl:
+                    bs = np.fromiter(sl, np.int64, len(sl))
+                    events_b.append(bs)
+                    events_s.append(np.full(len(bs), i, np.int64))
+                    last_bucket[i] = int(bs[-1])
+                else:
+                    queues[i].close()          # empty stream: nothing to emit
+            if events_b:
+                bs = np.concatenate(events_b)
+                si = np.concatenate(events_s)
+                # ascending simulated second; scenario order within a second
+                order = np.lexsort((si, bs))
+                prev = -1
+                # .tolist() up front: the loop then touches only native
+                # ints (per-event numpy scalar unboxing would dominate)
+                for b, i in zip(bs[order].tolist(), si[order].tolist()):
+                    if b != prev:
+                        clock.sleep((b - prev) * tick_s)
+                        prev = b
+                    if dead[i]:
+                        self.aborted_buckets[keys[i]] += 1
+                        continue
+                    sl = slices[i][b]
+                    inj = injectors[i]
+                    if inj is None:
+                        # fault-free fast path
+                        bucket = Bucket(
+                            scale_stamp=b,
+                            t=t_cols[i][sl],
+                            payload={k: v[sl] for k, v in payloads[i]},
+                            emit_time=clock.time(),
+                        )
+                        try:
+                            queues[i].put(bucket)
+                        except RuntimeError:
+                            if not queues[i].closed:
+                                raise
+                            dead[i] = True
+                            self.aborted_buckets[keys[i]] += 1
+                            continue
+                        n_buckets[i] += 1
+                        n_records[i] += len(bucket)
+                        if on_emit is not None:
+                            on_emit(keys[i], bucket)
+                    else:
+                        alive = self._emit_one(
+                            i, b,
+                            (t_cols[i][sl],
+                             [(k, v[sl]) for k, v in payloads[i]],
+                             clock),
+                            queues, injectors, n_buckets, n_records, keys)
+                        if not alive:
+                            dead[i] = True
+                            self.aborted_buckets[keys[i]] += 1
+                            continue
+                    if b == last_bucket[i]:
+                        # scenario done: close so its consumer can finish
+                        # without waiting for the rest of the sweep
+                        self._close_scenario(i, queues, injectors)
+            for i, key in enumerate(keys):
+                self.emitted_buckets[key] = n_buckets[i]
+                self.emitted_records[key] = n_records[i]
+            return STATUS_SUCCESS
+        except Exception:
+            for q in self.queues.values():
+                q.close()
+            return STATUS_FAULT
+
+    def _run_timer_wheel(self) -> int:
+        """Wall-clock batched replay: ONE heap of due times feeds S queues.
+
+        Every scenario's non-empty buckets become timer events due at
+        ``t0 + (b + 1) * tick_s`` — the sequential :class:`Producer`'s
+        schedule (bucket ``b`` fires after ``b + 1`` ticks). The wheel
+        pops the earliest event, sleeps until its due time, emits the
+        bucket, and pushes that scenario's next one — S live consumers
+        ride one loop and one heap instead of S chained-timer threads
+        (Algorithm 2 spawned a ``threading.Timer`` per tick per stream).
+        Ties fire in scenario order (heap entries carry the scenario
+        index), matching the virtual-time walk; a bounded queue that
+        fills stalls the wheel exactly like the virtual loop (shared
+        backpressure — consumers must drain concurrently). Per-scenario
+        bucket sequence, queue stats, and producer stats equal the
+        sequential per-stream replay; ``emit_time`` is the wall time the
+        wheel fired.
+        """
+        try:
+            keys = list(self.streams)
+            t_cols = [self.streams[k].t for k in keys]
+            payloads = [list(self.streams[k].payload.items()) for k in keys]
+            queues = [self.queues[k] for k in keys]
+            injectors = self._injectors(keys)
+            clock, tick_s = self.clock, self.tick_s
+            n_buckets = [0] * len(keys)
+            n_records = [0] * len(keys)
+            dead = [False] * len(keys)
+            slices, events = [], []
+            heap = []
+            for i, key in enumerate(keys):
+                sl, _ = _group_by_scale_stamp(self.streams[key])
+                slices.append(sl)
+                bs = sorted(sl)
+                events.append(bs)
+                if bs:
+                    heap.append((bs[0], i, 0))
+                else:
+                    queues[i].close()          # empty stream: nothing to emit
+            heapq.heapify(heap)
+            t0 = clock.time()
+            while heap:
+                b, i, j = heapq.heappop(heap)
+                delay = t0 + (b + 1) * tick_s - clock.time()
+                if delay > 0:
+                    clock.sleep(delay)
+                if not dead[i]:
+                    sl = slices[i][b]
+                    alive = self._emit_one(
+                        i, b,
+                        (t_cols[i][sl],
+                         [(k, v[sl]) for k, v in payloads[i]],
+                         clock),
+                        queues, injectors, n_buckets, n_records, keys)
+                    if not alive:
+                        dead[i] = True
+                        self.aborted_buckets[keys[i]] += 1
+                else:
+                    self.aborted_buckets[keys[i]] += 1
+                if j + 1 < len(events[i]):
+                    heapq.heappush(heap, (events[i][j + 1], i, j + 1))
+                elif not dead[i]:
+                    # scenario done: close so its consumer can finish
+                    # without waiting for the rest of the sweep
+                    self._close_scenario(i, queues, injectors)
+            for i, key in enumerate(keys):
+                self.emitted_buckets[key] = n_buckets[i]
+                self.emitted_records[key] = n_records[i]
+            return STATUS_SUCCESS
+        except Exception:
+            for q in self.queues.values():
+                q.close()
+            return STATUS_FAULT
+
+    def stats(self, key=None) -> Dict:
+        """Per-scenario producer stats (matching :meth:`Producer.stats`),
+        or the whole mapping when ``key`` is omitted."""
+        if key is not None:
+            out = {"emitted_buckets": self.emitted_buckets[key],
+                   "emitted_records": self.emitted_records[key],
+                   "aborted_buckets": self.aborted_buckets[key]}
+            if self.fault_plan is not None and \
+                    not self.fault_plan.is_noop_for(key):
+                out.update(self.fault_plan.injector(key).stats())
+            return out
+        return {k: self.stats(k) for k in self.streams}

@@ -15,8 +15,9 @@ the broker semantics the pipeline relies on:
   stuck on the group byte budget, raises ``RuntimeError("queue closed")``
   immediately instead of hanging until its timeout.
 
-:class:`ByteBudget` adds the *broker retention* dimension: queues built
-with one budget share ONE byte cap, with two retention policies:
+:class:`ByteBudget` adds the *broker retention* dimension: a
+:class:`QueueGroup` built with ``max_bytes`` shares ONE byte budget
+across its member queues, with two retention policies:
 
 - ``"block"`` — a put that would exceed the budget blocks until
   consumers drain bytes (global backpressure; a bucket larger than the
@@ -282,3 +283,55 @@ class StreamQueue:
             "dropped_retention": self.dropped_retention,
         }
 
+
+class QueueGroup:
+    """Named bounded :class:`StreamQueue` s for one batched replay — the
+    Kafka multi-topic analogue.
+
+    A multi-queue replay (:class:`repro_torch.streamsim.producer.
+    MultiQueueProducer`) interleaves S scenarios' buckets in one
+    virtual-time loop; each scenario keeps its OWN bounded queue here, so
+    per-scenario ordering, stats, and at-least-once semantics are exactly
+    the single-queue ones. Backpressure is *shared*: the single producer
+    loop blocks on whichever member queue is full, stalling every
+    scenario's emission — the broker-cluster behaviour of one producer
+    feeding S topics with bounded retention. Consumers must therefore
+    drain their queues concurrently (one thread per scenario;
+    ``Controller.run_many`` does this) — a sequential drain can deadlock
+    against a full sibling queue.
+
+    ``max_bytes`` adds a GLOBAL byte cap across the member queues (broker
+    retention): ``retention_policy="block"`` turns the
+    cap into shared byte backpressure, ``"drop_oldest"`` evicts the
+    globally-oldest buffered bucket instead (counted in each queue's
+    ``dropped_retention`` and in :meth:`budget_stats`).
+    """
+
+    def __init__(self, keys, maxsize: int = 64,
+                 max_bytes: Optional[int] = None,
+                 retention_policy: str = "block"):
+        self.budget = (None if max_bytes is None
+                       else ByteBudget(max_bytes, retention_policy))
+        self.queues: Dict[Any, StreamQueue] = {
+            k: StreamQueue(maxsize=maxsize, budget=self.budget)
+            for k in keys}
+
+    def __getitem__(self, key) -> StreamQueue:
+        return self.queues[key]
+
+    def __iter__(self):
+        return iter(self.queues)
+
+    def __len__(self) -> int:
+        return len(self.queues)
+
+    def items(self):
+        return self.queues.items()
+
+    def stats(self) -> Dict[Any, Dict[str, Any]]:
+        """Per-scenario transport stats, keyed like the constructor."""
+        return {k: q.stats() for k, q in self.queues.items()}
+
+    def budget_stats(self) -> Optional[Dict[str, Any]]:
+        """The shared byte budget's counters (None without ``max_bytes``)."""
+        return None if self.budget is None else self.budget.stats()

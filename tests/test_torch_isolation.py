@@ -55,11 +55,14 @@ def test_port_has_the_slice_modules():
     names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     for mod in ("kernels/_build.py", "kernels/stream_sample.py",
                 "kernels/compact.py", "kernels/metrics_fused.py",
-                "kernels/ops.py", "streamsim/engine.py",
-                "streamsim/controller.py", "core/__init__.py"):
+                "kernels/trend_scan.py", "kernels/ops.py",
+                "streamsim/engine.py", "streamsim/controller.py",
+                "streamsim/producer.py", "streamsim/queue.py",
+                "streamsim/resilience.py", "core/__init__.py"):
         assert mod in names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
-        "stream_sample.cu", "compact.cu", "metrics_fused.cu"}
+        "stream_sample.cu", "compact.cu", "metrics_fused.cu",
+        "trend_scan.cu", "pair_stats.cu"}
 
 
 _BLOCKED_RUN = r"""
@@ -77,6 +80,13 @@ with tempfile.TemporaryDirectory() as d:
         "traffic", 40, lambda q: {"n": sum(len(b) for b in q)},
         scale=0.002, seed=9, backend="torch")
 assert rep.consumer_metrics["n"] == rep.simulated_rows > 0
+with tempfile.TemporaryDirectory() as d:
+    ctl = Controller(d, device="cpu")
+    reps = ctl.run_many(
+        ["traffic", "sogouq"], [20, 40], lambda q: {"n": sum(len(b) for b in q)},
+        scale=0.002, seed=9, backend="torch")
+assert ctl.last_result.mode == "device" and len(ctl.last_fidelity) == 2
+assert all(r.consumer_metrics["n"] == r.simulated_rows > 0 for r in reps)
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
           and sys.modules[m] is not None]
 assert not loaded, loaded

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes, on one NVIDIA card.
+"""Where the time of the port's main paths goes, on one NVIDIA card.
 
     python3 tools/trace_main_path.py [--dataset userbehavior]
-        [--max-range 3600] [--scale 1.0] [--seed 0] [--reps 3]
+        [--max-range 3600] [--scale 1.0] [--seed 0] [--reps 3] [--sweep]
 
 Drives ``repro_torch.streamsim.Controller(tmp, device="cuda").run(...,
-backend="torch")`` ``--reps`` times, each in a fresh store (so every run
-does POSD and NSA), in three modes:
+backend="torch")`` — or, with ``--sweep``, ``run_many`` over the paper's
+grid (sogouq, traffic, userbehavior × 600 ... 3600 s, the Tables 1-3 sweep
+with its Fig.-6 fidelity matrices) — ``--reps`` times, each in a fresh
+store (so every run does POSD and NSA), in three modes:
 
 - ``plain``: no instrumentation — the end-to-end wall time;
 - ``spans``: the layer boundaries of the run (controller, plan, engine,
-  NSA, each kernel wrapper, host table build, store writes, replay,
-  report statistics) are wrapped in spans that synchronise the device at
-  both ends, so each span's time includes its device work; self time is a
-  span's time minus its child spans';
+  NSA, each kernel wrapper, host table build, store writes, fidelity and
+  its trend ops, replay, report statistics) are wrapped in spans that
+  synchronise the device at both ends, so each span's time includes its
+  device work; self time is a span's time minus its child spans';
 - ``profile``: one run under ``torch.profiler`` for the device's busy time
   (the union of kernel and copy intervals) and so its idle share.
 
@@ -34,6 +36,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 DEVICE = "cuda"
+SWEEP_DATASETS = ("sogouq", "traffic", "userbehavior")
+SWEEP_RANGES = (600, 1200, 1800, 2400, 3000, 3600)
 
 
 class Spans:
@@ -84,9 +88,17 @@ def _instrument(spans: Spans):
         (engine.DeviceSweepResult, "materialize", "engine.materialize"),
         (store.StreamStore, "put", "store.put"),
         (engine, "replay_one", "replay.replay_one"),
+        (engine, "replay_many", "replay.replay_many"),
         (engine, "build_report", "report.build_report"),
         (engine, "metrics_batched", "report.metrics_batched"),
         (ops, "trend_corr_pairwise", "report.trend_corr_pairwise"),
+        (engine.DeviceSweepResult, "fidelity", "engine.fidelity"),
+        (ops, "trend_scan_batched_device", "ops.trend_scan_batched_device"),
+        (ops, "trend_pair_stats", "ops.trend_pair_stats"),
+        (ops, "_trend_scan_kernel", "kernel.trend_scan"),
+        (ops, "_pair_stats_kernel", "kernel.pair_stats"),
+        (controller.Controller, "save_fidelity",
+         "controller.save_fidelity"),
     ]
     undo = []
     for owner, attr, name in targets:
@@ -97,22 +109,44 @@ def _instrument(spans: Spans):
 
 
 def _consumer(queue):
+    """Drains one queue; keeps no shared state, so ``run_many`` may call it
+    from one thread per scenario."""
     return {"records_seen": sum(len(b) for b in queue)}
 
 
 def _run(args, workdir: Path):
+    """One run in a fresh store; returns ``(wall s, report or the list of
+    reports)``."""
     import torch
 
     from repro_torch.streamsim import Controller
     ctl = Controller(str(workdir), device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rep = ctl.run(args.dataset, args.max_range, _consumer, scale=args.scale,
-                  seed=args.seed, backend="torch")
+    if args.sweep:
+        rep = ctl.run_many(SWEEP_DATASETS, SWEEP_RANGES, _consumer,
+                           scale=args.scale, seed=args.seed, backend="torch")
+    else:
+        rep = ctl.run(args.dataset, args.max_range, _consumer,
+                      scale=args.scale, seed=args.seed, backend="torch")
     torch.cuda.synchronize()
     if ctl.last_result.mode != "device":
         raise AssertionError("the run fell back to host mode")
     return time.perf_counter() - t0, rep
+
+
+def _summary(rep) -> dict:
+    if isinstance(rep, list):
+        return {"scenarios": len(rep),
+                "original_rows": {r.dataset: r.original_rows for r in rep},
+                "simulated_rows": sum(r.simulated_rows for r in rep),
+                "preprocess_s": {r.dataset: r.preprocess_s for r in rep},
+                "nsa_s": max(r.nsa_s for r in rep),
+                "produce_s": max(r.produce_s for r in rep)}
+    return {"original_rows": rep.original_rows,
+            "simulated_rows": rep.simulated_rows,
+            "preprocess_s": rep.preprocess_s,
+            "nsa_s": rep.nsa_s, "produce_s": rep.produce_s}
 
 
 def _busy_seconds(events) -> float:
@@ -136,6 +170,8 @@ def main() -> int:
     p.add_argument("--scale", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--sweep", action="store_true",
+                   help="trace run_many over the paper grid instead of run")
     args = p.parse_args()
 
     import torch
@@ -177,11 +213,7 @@ def main() -> int:
                         "median_s": float(np.median(tot)),
                         "median_self_s": float(np.median(self_t))}
         out["spans"] = table
-        rep = per_rep[-1][2]
-        out["report"] = {"original_rows": rep.original_rows,
-                         "simulated_rows": rep.simulated_rows,
-                         "preprocess_s": rep.preprocess_s,
-                         "nsa_s": rep.nsa_s, "produce_s": rep.produce_s}
+        out["report"] = _summary(per_rep[-1][2])
 
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
