@@ -7,7 +7,7 @@ card.
 Phases, each of which raises on failure (nothing catches it):
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the five CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build the CUDA kernels of B1-B7 from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card:
    - B1-B3 at the run-path shapes of the userbehavior day (10.63 M
@@ -21,6 +21,16 @@ Phases, each of which raises on failure (nothing catches it):
      604 800-long row whose total sits just under 2^31 - 1 — exact;
    - B5 (pair_stats) at the fidelity shape of max_range 3600 and at
      S = 37, K = 86 528 — ``|G - G_plain| <= 1e-4 sqrt(G_aa G_bb)``;
+   - B6 (stream_metrics_carry) at chunk 0 of the 1-day grid (18 rows: the
+     kept stamps the chunked path hands it, and all 10,631,168 records of
+     the slice), at a 1.77 M-record chunk of one row rebased by its first
+     bucket, and at ragged lengths with an all-padding row, under zero and
+     random carries — counts exact, the running sums within 1e-5 relative,
+     a zero carry equal to B3 bit for bit;
+   - B7 (trend_scan_carry) at the multi-day chunk shape (one 659-entry
+     row), the fidelity shape, widths 0, 1 and 1025 and a 604 800-entry row
+     whose seeded total ends just under 2^31 - 1 — exact, tail included,
+     and ``init = 0`` equal to B4 bit for bit;
    timing kernel, plain version and the one-call library yardstick (CUDA
    events, median of several runs);
 4. drive ``Controller(tmp, device="cuda").run("userbehavior", 3600, ...,
@@ -33,8 +43,23 @@ Phases, each of which raises on failure (nothing catches it):
    fidelity matrices) the same way, and check it against the port's
    ``backend="numpy"`` sweep: stored sims byte-equal, rows equal,
    statistics and fidelity matrices within 1e-3;
-6. print the ``report``, ``sweep`` and ``kernels`` JSON lines and, last,
-   the ``{"ok": true, "device": ...}`` line.
+6. drive the same grid chunked, ``run_many(..., chunk_s=600)`` in a fresh
+   store, and check it against phase 5's monolithic store and reports
+   (stored sims byte-equal, rows and consumer stats equal, volatility
+   within 1e-5, trend correlation and fidelity within 1e-3, at most two
+   chunks buffered per scenario);
+7. drive nine days of the userbehavior stream, ``run_many(("userbehavior",),
+   (3600,), ..., chunk_s=600, duration_s=9 * 86400)`` (95.7 M records, 54
+   chunk rounds), check it against the port's ``backend="numpy"`` chunked
+   run on the same original, then drive B7 through
+   ``ops.trend_scan_chunk`` over the finalized count row in 54 chunks and
+   hold the concatenated trend to B4's bit for bit;
+8. print the ``report``, ``sweep``, ``chunked``, ``multiday`` and
+   ``kernels`` JSON lines and, last, the ``{"ok": true, "device": ...}``
+   line.
+
+Every phase sets each launch count to 0 just before it drives its path and
+reads the counts just after.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -77,6 +102,23 @@ MIN_LAUNCHES = {"stream_sample": 1, "compact": 1, "metrics_fused": 2}
 MIN_SWEEP_LAUNCHES = {"stream_sample": 1, "compact": 1, "metrics_fused": 2,
                       "trend_scan": len(SWEEP_RANGES),
                       "pair_stats": len(SWEEP_RANGES)}
+CHUNK_S = 600
+#: ... on the chunked grid: B1, B2 and B6 once per chunk round of the one
+#: 18-row shard (3600 / 600), B3 for the originals, B4 and B5 per range
+CHUNKED_LAUNCHES = {"stream_sample": 6, "compact": 6,
+                    "stream_metrics_carry": 6, "metrics_fused": 1,
+                    "trend_scan": len(SWEEP_RANGES),
+                    "pair_stats": len(SWEEP_RANGES)}
+#: nine days of the Taobao UserBehavior stream (the public dataset spans
+#: 2017-11-25 to 2017-12-03), compressed to an hour per day
+MULTIDAY_S = 9 * 86_400
+MULTIDAY_CHUNKS = 9 * MAIN_RANGE // CHUNK_S
+MULTIDAY_LAUNCHES = {"stream_sample": MULTIDAY_CHUNKS,
+                     "compact": MULTIDAY_CHUNKS,
+                     "stream_metrics_carry": MULTIDAY_CHUNKS,
+                     "metrics_fused": 1, "trend_scan": 1, "pair_stats": 1,
+                     "trend_scan_carry": MULTIDAY_CHUNKS}
+TREND_WINDOW = 60
 
 
 def _card_line() -> str:
@@ -131,14 +173,35 @@ def _moments_err(name: str, got, want) -> float:
 
 
 def _wrappers():
-    """The five kernel wrappers, each with its ``launches`` count."""
+    """The seven kernel wrappers, each with its ``launches`` count."""
     from repro_torch.kernels.compact import compact
-    from repro_torch.kernels.metrics_fused import stream_metrics
+    from repro_torch.kernels.metrics_fused import (stream_metrics,
+                                                   stream_metrics_carry)
     from repro_torch.kernels.stream_sample import stream_sample
-    from repro_torch.kernels.trend_scan import pair_stats, trend_scan
+    from repro_torch.kernels.trend_scan import (pair_stats, trend_scan,
+                                                trend_scan_carry)
     return {"stream_sample": stream_sample, "compact": compact,
             "metrics_fused": stream_metrics, "trend_scan": trend_scan,
-            "pair_stats": pair_stats}
+            "pair_stats": pair_stats,
+            "stream_metrics_carry": stream_metrics_carry,
+            "trend_scan_carry": trend_scan_carry}
+
+
+def _zero_launches():
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _read_launches():
+    return {name: w.launches for name, w in _wrappers().items()}
+
+
+def _check_launches(path: str, launches, expected, exact: bool) -> None:
+    for name, want in expected.items():
+        got = launches[name]
+        if (got != want) if exact else (got < want):
+            raise AssertionError(f"{name} launched {got} times on {path}, "
+                                 f"expected {'' if exact else '>= '}{want}")
 
 
 # ----------------------------------------------------------- phase 3: kernels
@@ -154,9 +217,13 @@ def _streams(scale: float, seed: int):
 
 
 def check_kernels(device: str, scale: float, seed: int,
-                  timing_reps: int = 20, plain_reps: int = 3):
+                  timing_reps: int = 20, plain_reps: int = 3,
+                  keep_cases=None):
     """Phase 3: every kernel against its plain version at every case;
-    returns the per-kernel timing rows of the main-path shapes."""
+    returns the per-kernel timing rows of the main-path shapes. With
+    ``keep_cases`` (a dict), B1's and B2's outputs of the ``main``,
+    ``ragged`` and ``sweep`` cases are left there for
+    :func:`check_carry_kernels`."""
     import torch
 
     from repro_torch.kernels import ops
@@ -222,6 +289,9 @@ def check_kernels(device: str, scale: float, seed: int,
         if case in ("main", "sweep"):
             timed[case] = _b123_timings(b1_in, keep, tot, kept, buckets,
                                         timing_reps, plain_reps)
+        if keep_cases is not None and case in ("main", "ragged", "sweep"):
+            keep_cases[case] = dict(ss=ss, lengths=b1_in[-1], kept=kept,
+                                    totals=tot)
 
     # B3's second main-path launch: the ORIGINAL stream at 86 400 buckets
     b_orig, tr = _bucket_series(main, None, None)
@@ -440,6 +510,172 @@ def check_trend_kernels(device: str, scale: float, seed: int,
                 rows["pair_stats"][case] = row
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return rows
+
+
+# ------------------------------------------------------- B6 and B7 (phase 3)
+def _prefix_count(ss, lengths, below: int):
+    """Per-row count of the valid leading stamps below ``below`` (the
+    stamps are sorted, so these are a prefix)."""
+    import torch
+    i = torch.arange(ss.shape[1], device=ss.device)[None, :]
+    valid = i < lengths.to(ss.device)[:, None]
+    return ((ss < below) & valid).sum(dim=1).to(torch.int32)
+
+
+def _carry_err(name: str, got, want) -> float:
+    """B6's running sums against the plain version's, within MOMENT_RTOL."""
+    return _moments_err(name, got[:, ::2], want[:, ::2])
+
+
+def check_carry_kernels(device: str, seed: int, cases,
+                        timing_reps: int = 20, plain_reps: int = 3):
+    """Phase 3 for B6 and B7: each against its plain version at every case,
+    B6 with a zero carry against B3 and B7 with ``init = 0`` against B4 bit
+    for bit; returns their timing rows at the shapes the chunked path gives
+    them. ``cases`` holds B1's and B2's outputs kept by
+    :func:`check_kernels`."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.metrics_fused import (stream_metrics,
+                                                   stream_metrics_carry,
+                                                   stream_metrics_carry_plain)
+    from repro_torch.kernels.trend_scan import (trend_scan, trend_scan_carry,
+                                                trend_scan_carry_plain)
+    rng = np.random.default_rng(seed)
+
+    def carry(S, zero=False):
+        c = np.zeros((S, 4), np.float32) if zero else np.stack(
+            [rng.uniform(0, 5e5, S), rng.uniform(-1, 1, S),
+             rng.uniform(0, 5e8, S), rng.uniform(-64, 64, S)],
+            axis=1).astype(np.float32)
+        return torch.from_numpy(c).to(device)
+
+    # --- B6 cases: (stamps, lengths, base, buckets)
+    sweep, main, ragged = cases["sweep"], cases["main"], cases["ragged"]
+    b6 = {}
+    k0 = _prefix_count(sweep["kept"], sweep["totals"], CHUNK_S)
+    w0 = min(-(-max(int(k0.max()), 1) // ops.TILE) * ops.TILE,
+             sweep["kept"].shape[1])
+    chunk_buckets = ops._padded_buckets(CHUNK_S)
+    b6["grid_chunk0_kept"] = (sweep["kept"][:, :w0].contiguous(), k0, 0,
+                              chunk_buckets)
+    b6["grid_chunk0_records"] = (
+        sweep["ss"], _prefix_count(sweep["ss"], sweep["lengths"], CHUNK_S),
+        0, chunk_buckets)
+    lo = 3 * CHUNK_S
+    a = int(_prefix_count(main["ss"], main["lengths"], lo)[0])
+    b = int(_prefix_count(main["ss"], main["lengths"], lo + CHUNK_S)[0])
+    b6["multiday_chunk"] = (main["ss"][:, a:b].contiguous(),
+                            torch.tensor([b - a], dtype=torch.int32,
+                                         device=device), lo, chunk_buckets)
+    rs, rl = ragged["ss"], ragged["lengths"]
+    b6["ragged"] = (torch.cat([rs, rs[:1]]).contiguous(),
+                    torch.cat([rl, torch.zeros_like(rl[:1])]), 0,
+                    ops._padded_buckets(3600))
+    err = 0.0
+    for case, (ss, lens, base, buckets) in b6.items():
+        S = ss.shape[0]
+        for label, mcar in (("zero", carry(S, zero=True)),
+                            ("random", carry(S))):
+            hist, mom = stream_metrics_carry(ss, lens, buckets, mcar, base)
+            hist_p, mom_p = stream_metrics_carry_plain(ss, lens, buckets,
+                                                       mcar, base)
+            _exact(f"stream_metrics_carry/{case}/{label}/hist", hist, hist_p)
+            err = max(err, _carry_err(f"stream_metrics_carry/{case}/{label}",
+                                      mom, mom_p))
+        # a zero carry is B3 on the rebased stamps, bit for bit
+        hist, mom = stream_metrics_carry(ss, lens, buckets,
+                                         carry(S, zero=True), base)
+        h3, m3 = stream_metrics((ss - base).contiguous(), lens, buckets)
+        _exact(f"stream_metrics_carry/{case}/b3_hist", hist, h3)
+        _exact(f"stream_metrics_carry/{case}/b3_moments",
+               mom[:, ::2].contiguous(), m3)
+
+    def b6_row(case):
+        ss, lens, base, buckets = b6[case]
+        S = ss.shape[0]
+        mcar = carry(S)
+        n_valid = int(lens.sum())
+        row = ss[0, :int(lens[0])] - base
+        out = dict(
+            ms=_time_ms(lambda: stream_metrics_carry(ss, lens, buckets, mcar,
+                                                     base), timing_reps),
+            plain_ms=_time_ms(lambda: stream_metrics_carry_plain(
+                ss, lens, buckets, mcar, base), plain_reps),
+            library_ms=_time_ms(lambda: torch.bincount(row,
+                                                       minlength=buckets),
+                                timing_reps),
+            shape=f"S={S} N={ss.shape[1]} B={buckets} counted={n_valid}")
+        out["bound_ms"], out["bound_by"] = _bound_ms(
+            n_valid * 4 + S * 4 + S * 16 + S * buckets * 4 + S * 16,
+            n_valid * 3 + S * buckets * 4)
+        return out
+
+    rows = {"stream_metrics_carry": dict(
+        b6_row("grid_chunk0_kept"), max_abs_err=err,
+        records=b6_row("grid_chunk0_records"),
+        multiday=b6_row("multiday_chunk"))}
+
+    # --- B7 cases: (counts, init)
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    from repro_torch.streamsim import per_second_counts
+    day = per_second_counts(_streams(MAIN_SCALE, seed)[0][MAIN_DATASET])
+    day = day.astype(np.int32)               # a day's per-second counts
+    q_np = rng.poisson(120.0, (6, 87_040)).astype(np.int32)
+    ext_lo = 3 * CHUNK_S
+    b7 = {
+        # trend_scan_chunk's input on the multi-day path: the window tail
+        # and one chunk of counts, seeded with the total before them
+        "multiday_ext": (up(day[None, ext_lo - TREND_WINDOW + 1:
+                               ext_lo + CHUNK_S]),
+                         up(np.array([day[:ext_lo - TREND_WINDOW + 1].sum()],
+                                     np.int32))),
+        "fidelity": (ops._pad_cols(up(q_np), ops.TILE),
+                     up(rng.integers(0, 10 ** 6, len(q_np)).astype(
+                         np.int32))),
+        "width0": (up(np.zeros((3, 0), np.int32)),
+                   up(np.array([1, 2, 3], np.int32))),
+        "width1": (up(np.array([[7], [9]], np.int32)),
+                   up(np.array([0, 11], np.int32))),
+        "width1025": (up(rng.poisson(9.0, (2, 1025)).astype(np.int32)),
+                      up(np.array([5, 2 ** 30], np.int32))),
+        "near_limit": (up(np.full((1, 604_800), 3550, np.int32)),
+                       up(np.array([2 ** 31 - 1 - 604_800 * 3550 - 5],
+                                   np.int32))),
+    }
+    for case, (q, init) in b7.items():
+        psum, tail = trend_scan_carry(q, init)
+        psum_p, tail_p = trend_scan_carry_plain(q, init)
+        _exact(f"trend_scan_carry/{case}/psum", psum, psum_p)
+        _exact(f"trend_scan_carry/{case}/tail", tail, tail_p)
+        if q.shape[1]:
+            z, _ = trend_scan_carry(q, torch.zeros_like(init))
+            _exact(f"trend_scan_carry/{case}/b4", z, trend_scan(q))
+    _, tail = trend_scan_carry(*b7["near_limit"])
+    if int(tail[0]) != 2 ** 31 - 6:
+        raise AssertionError("trend_scan_carry/near_limit: wrong tail")
+
+    def b7_row(case):
+        q, init = b7[case]
+        S, N = q.shape
+        out = dict(
+            ms=_time_ms(lambda: trend_scan_carry(q, init), timing_reps),
+            plain_ms=_time_ms(lambda: trend_scan_carry_plain(q, init),
+                              plain_reps),
+            library_ms=_time_ms(lambda: torch.cumsum(q, 1,
+                                                     dtype=torch.int32),
+                                timing_reps),
+            shape=f"S={S} N={N}")
+        out["bound_ms"], out["bound_by"] = _bound_ms(S * N * 8 + S * 8,
+                                                     S * N)
+        return out
+
+    rows["trend_scan_carry"] = dict(b7_row("multiday_ext"), max_abs_err=0.0,
+                                    fidelity=b7_row("fidelity"))
     return rows
 
 
@@ -662,7 +898,201 @@ def run_sweep_path(device: str, scale: float, seed: int, workdir: Path):
         "numpy_produce_s": max(r.produce_s for r in refs),
         "numpy_fidelity_s": numpy_fid_s,
     }
-    return launches, sweep
+    return launches, sweep, (reps, ctl.last_fidelity)
+
+
+def _stat_close(name, got: float, want: float, rtol: float) -> None:
+    if not (np.isfinite(got) and abs(got - want) <= rtol * max(abs(want),
+                                                                 1e-12)):
+        raise AssertionError(f"{name}: {got} vs {want} beyond {rtol}")
+
+
+def _same_fidelity(name, got, want, n_matrices: int) -> float:
+    """Fidelity matrices with the same labels and NaN pattern, entries
+    within STAT_TOL; returns the largest difference."""
+    if len(got) != n_matrices or len(want) != n_matrices:
+        raise AssertionError(f"{name}: one fidelity matrix per max_range "
+                             "expected")
+    worst = 0.0
+    for fa, fb in zip(got, want):
+        a = np.asarray(fa.trend_corr, float)
+        b = np.asarray(fb.trend_corr, float)
+        if fa.labels != fb.labels or fa.max_range != fb.max_range or \
+                not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"{name} {fa.max_range}: labels or NaN "
+                                 "pattern differ")
+        live = ~np.isnan(a)
+        worst = max(worst, float(np.abs(a - b)[live].max(initial=0.0)))
+    if worst > STAT_TOL:
+        raise AssertionError(f"{name}: fidelity {worst} from the reference")
+    return worst
+
+
+def _bounded_feeds(reps) -> int:
+    hwm = max(r.consumer_metrics["feed_hwm_chunks"] for r in reps)
+    if hwm > 2:
+        raise AssertionError(f"a feed held {hwm} chunks (bound 2)")
+    return hwm
+
+
+# ---------------------------------------------- phase 6: the chunked grid
+def run_chunked_path(device: str, scale: float, seed: int, workdir: Path,
+                     mono):
+    """Phase 6: the paper's grid through the chunked pipeline in a fresh
+    store, launch counts zeroed just before and read just after, held to
+    phase 5's monolithic torch sweep (``mono`` = its reports and fidelity
+    matrices, its store under ``workdir/sweep_torch``)."""
+    import torch
+
+    from repro_torch.streamsim import Controller, StreamStore
+
+    mono_reps, mono_fid = mono
+    ctl = Controller(str(workdir / "chunked_torch"), device=device)
+    consumer = _SweepConsumer()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    reps = ctl.run_many(SWEEP_DATASETS, SWEEP_RANGES, consumer, scale=scale,
+                        seed=seed, backend="torch", chunk_s=CHUNK_S)
+    run_s = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    result = ctl.last_result
+    if result.mode != "device":
+        raise AssertionError(f"chunked grid ran in {result.mode} mode")
+    _check_launches("the chunked grid", launches, CHUNKED_LAUNCHES,
+                    exact=True)
+    grid = [(d, mr) for d in SWEEP_DATASETS for mr in SWEEP_RANGES]
+    if [(r.dataset, r.max_range) for r in reps] != grid:
+        raise AssertionError("chunked reports out of grid order")
+    st_a = StreamStore(workdir / "chunked_torch")
+    st_b = StreamStore(workdir / "sweep_torch")
+    vol_err = 0.0
+    for (d, mr), rep, ref in zip(grid, reps, mono_reps):
+        name = f"chunked {d}/{mr}"
+        _same_sim(st_a, st_b, f"{d}__sim{mr}")
+        if st_a.manifest(f"{d}__sim{mr}")["chunks"] != -(-mr // CHUNK_S):
+            raise AssertionError(f"{name}: not stored in chunks")
+        if rep.simulated_rows != ref.simulated_rows or \
+                rep.consumer_metrics["records_seen"] != rep.simulated_rows:
+            raise AssertionError(f"{name}: rows differ")
+        for k, v in ref.consumer_metrics.items():
+            if rep.consumer_metrics[k] != v:
+                raise AssertionError(f"{name}: consumer stat {k} differs")
+        for f in ("average", "variance", "std_variance"):
+            x = getattr(rep.simulated_volatility, f)
+            y = getattr(ref.simulated_volatility, f)
+            _stat_close(f"{name} volatility.{f}", x, y, MOMENT_RTOL)
+            vol_err = max(vol_err, abs(x - y) / max(abs(y), 1e-12))
+        if abs(rep.trend_corr - ref.trend_corr) > STAT_TOL:
+            raise AssertionError(f"{name}: trend_corr {rep.trend_corr} vs "
+                                 f"{ref.trend_corr}")
+    fid_err = _same_fidelity("chunked grid", ctl.last_fidelity, mono_fid,
+                             len(SWEEP_RANGES))
+    chunked = {
+        "chunk_s": CHUNK_S, "scenarios": len(reps),
+        "n_chunks": result.plan.n_chunks,
+        "simulated_rows": sum(r.simulated_rows for r in reps),
+        "consumer_buckets": consumer.buckets,
+        "run_s": run_s, "produce_s": max(r.produce_s for r in reps),
+        "nsa_s": max(r.nsa_s for r in reps), "peak_device_bytes": peak,
+        "feed_hwm_chunks": _bounded_feeds(reps), **result.pipeline_s,
+        "max_volatility_rel_diff": vol_err,
+        "max_trend_corr_abs_diff": max(abs(a.trend_corr - b.trend_corr)
+                                       for a, b in zip(reps, mono_reps)),
+        "max_fidelity_abs_diff": fid_err,
+        "tolerances": {"volatility_rel": MOMENT_RTOL, "trend_corr": STAT_TOL,
+                       "fidelity": STAT_TOL, "sims": "byte-equal"},
+    }
+    return launches, chunked
+
+
+# ---------------------------------------------- phase 7: nine days, chunked
+def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
+    """Phase 7: nine days of the userbehavior stream through the chunked
+    pipeline, held to the port's numpy backend on the same original; then
+    B7 through ``ops.trend_scan_chunk`` over the finalized count row,
+    held to B4's monolithic trend bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.streamsim import Controller, StreamStore
+
+    ctl = Controller(str(workdir / "md_torch"), device=device)
+    consumer = _SweepConsumer()
+    kw = dict(scale=scale, seed=seed, chunk_s=CHUNK_S, duration_s=MULTIDAY_S)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    (rep,) = ctl.run_many((MAIN_DATASET,), (MAIN_RANGE,), consumer,
+                          backend="torch", **kw)
+    run_s = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    result = ctl.last_result
+    if result.mode != "device":
+        raise AssertionError(f"multi-day ran in {result.mode} mode")
+
+    # B7 on the finalized count row, one launch per chunk
+    q = result.shard_results[0].hist[:1]
+    n = q.shape[1]
+    _zero_launches()
+    segs, tail, total = [], None, None
+    t0 = time.perf_counter()
+    for lo in range(0, n, CHUNK_S):
+        seg, start, tail, total = ops.trend_scan_chunk(
+            q[:, lo:lo + CHUNK_S], TREND_WINDOW, tail=tail,
+            psum_carry=total, lo=lo, is_last=lo + CHUNK_S >= n)
+        segs.append(seg)
+    chunked_trend = torch.cat(segs, dim=1)
+    torch.cuda.synchronize()
+    trend_chunk_s = time.perf_counter() - t0
+    launches["trend_scan_carry"] = _read_launches()["trend_scan_carry"]
+    _check_launches("the multi-day path", launches, MULTIDAY_LAUNCHES,
+                    exact=True)
+    mono, _ = ops.trend_scan_batched_device(q, [n], TREND_WINDOW)
+    if not torch.equal(chunked_trend, mono[:, :n]):
+        raise AssertionError("multi-day: B7 chunks differ from B4's trend")
+    if int(total[0]) != rep.simulated_rows:
+        raise AssertionError(f"multi-day: B7 total {int(total[0])} vs "
+                             f"{rep.simulated_rows} simulated rows")
+
+    # the reference: the port's numpy backend on the SAME original (its
+    # store entry copied, so POSD runs once)
+    key = f"{MAIN_DATASET}__orig__d{MULTIDAY_S}"
+    src_store = StreamStore(workdir / "md_torch")
+    ref_store = StreamStore(workdir / "md_numpy")
+    shutil.copytree(src_store._dir(key), ref_store._dir(key))
+    t0 = time.perf_counter()
+    (ref,) = Controller(str(workdir / "md_numpy"), device=device).run_many(
+        (MAIN_DATASET,), (MAIN_RANGE,), _SweepConsumer(), backend="numpy",
+        **kw)
+    ref_s = time.perf_counter() - t0
+    sim_key = f"{MAIN_DATASET}__sim{MAIN_RANGE}__d{MULTIDAY_S}"
+    _same_sim(src_store, ref_store, sim_key)
+    _same_report(rep, ref)
+    if rep.consumer_metrics["records_seen"] != rep.simulated_rows or \
+            ref.consumer_metrics["records_seen"] != ref.simulated_rows:
+        raise AssertionError("multi-day: consumer rows differ from reports")
+    multiday = {
+        "dataset": MAIN_DATASET, "max_range": MAIN_RANGE,
+        "duration_s": MULTIDAY_S, "chunk_s": CHUNK_S,
+        "n_chunks": result.plan.n_chunks, "span_s": n,
+        "original_rows": rep.original_rows,
+        "simulated_rows": rep.simulated_rows,
+        "consumer_buckets": consumer.buckets,
+        "run_s": run_s, "preprocess_s": rep.preprocess_s,
+        "produce_s": rep.produce_s, "nsa_s": rep.nsa_s,
+        "peak_device_bytes": peak, "feed_hwm_chunks": _bounded_feeds([rep]),
+        **result.pipeline_s, "trend_chunks_s": trend_chunk_s,
+        "trend_corr": rep.trend_corr, "trend_corr_numpy": ref.trend_corr,
+        "numpy_run_s": ref_s, "numpy_produce_s": ref.produce_s,
+        "tolerances": {"stats": STAT_TOL, "sims": "byte-equal",
+                       "trend_chunks_vs_b4": "bit-equal"},
+    }
+    return launches, multiday
 
 
 def main() -> int:
@@ -687,15 +1117,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"build: {len(_build.kernel_names())} kernels in {build_s:.1f} s")
+    print(f"build: {len(_build.kernel_names())} sources (kernels B1-B7) in "
+          f"{build_s:.1f} s")
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    rows = check_kernels("cuda", MAIN_SCALE, MAIN_SEED)
+    cases = {}
+    rows = check_kernels("cuda", MAIN_SCALE, MAIN_SEED, keep_cases=cases)
     rows.update(check_trend_kernels("cuda", MAIN_SCALE, MAIN_SEED))
+    rows.update(check_carry_kernels("cuda", MAIN_SEED, cases))
+    cases.clear()
     check_s = time.perf_counter() - t0
     print(f"kernel checks passed in {check_s:.1f} s")
 
@@ -704,35 +1138,53 @@ def main() -> int:
                                              Path(tmp))
         report.update(build_s=build_s, kernel_check_s=check_s)
         print(json.dumps({"report": report}), flush=True)
-        sweep_launches, sweep = run_sweep_path("cuda", MAIN_SCALE,
-                                               MAIN_SEED, Path(tmp))
+        sweep_launches, sweep, mono = run_sweep_path(
+            "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp))
+        print(json.dumps({"sweep": sweep}), flush=True)
+        chunked_launches, chunked = run_chunked_path(
+            "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp), mono)
+        print(json.dumps({"chunked": chunked}), flush=True)
+        md_launches, multiday = run_multiday_path("cuda", MAIN_SCALE,
+                                                  MAIN_SEED, Path(tmp))
+        print(json.dumps({"multiday": multiday}), flush=True)
 
+    by_path = {"run": run_launches, "run_many": sweep_launches,
+               "run_many_chunked": chunked_launches, "multiday": md_launches}
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
-                          "src/repro/kernels/stream_sample.py:146"),
+                          "src/repro/kernels/stream_sample.py:146",
+                          "run_many"),
         "compact": ("src/repro_torch/csrc/compact.cu",
-                    "src/repro/kernels/compact.py:139"),
+                    "src/repro/kernels/compact.py:139", "run_many"),
         "metrics_fused": ("src/repro_torch/csrc/metrics_fused.cu",
-                          "src/repro/kernels/metrics_fused.py:269"),
+                          "src/repro/kernels/metrics_fused.py:269",
+                          "run_many"),
         "trend_scan": ("src/repro_torch/csrc/trend_scan.cu",
-                       "src/repro/kernels/trend_scan.py:107"),
+                       "src/repro/kernels/trend_scan.py:107", "run_many"),
         "pair_stats": ("src/repro_torch/csrc/pair_stats.cu",
-                       "src/repro/kernels/trend_scan.py:221"),
+                       "src/repro/kernels/trend_scan.py:221", "run_many"),
+        "stream_metrics_carry": ("src/repro_torch/csrc/metrics_fused.cu",
+                                 "src/repro/kernels/metrics_fused.py:224",
+                                 "run_many_chunked"),
+        "trend_scan_carry": ("src/repro_torch/csrc/trend_scan.cu",
+                             "src/repro/kernels/trend_scan.py:167",
+                             "multiday"),
     }
-    extra = ("sim", "sweep", "week", "S37", "max_scaled_err")
+    extra = ("sim", "sweep", "week", "S37", "max_scaled_err", "records",
+             "multiday", "fidelity")
     kernels = []
-    for name, (source, tpu) in replaces.items():
+    for name, (source, tpu, path) in replaces.items():
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": tpu, "launches": sweep_launches[name],
-            "launches_by_path": {"run": run_launches[name],
-                                 "run_many": sweep_launches[name]},
+            "replaces": tpu, "launches": by_path[path][name],
+            "launches_by_path": {p: ls[name] for p, ls in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], **{k: r[k] for k in extra if k in r}})
-    print(json.dumps({"sweep": sweep}))
+        if kernels[-1]["launches"] < 1:
+            raise AssertionError(f"{name} never launched on its path")
     print(f"card: {_card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

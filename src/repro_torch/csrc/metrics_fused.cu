@@ -1,11 +1,18 @@
 // Fused batched stream metrics for Hopper: per-row histogram of scale
-// stamps plus its moments [sum q, sum q^2].
+// stamps plus its moments [sum q, sum q^2], whole (B3) or one time chunk at
+// a time with a carried moment state (B6).
 //
-// Replaces the TPU kernel repro/kernels/metrics_fused.py::_kernel
-// (stream_metrics_pallas). For row s of an (S, N) int32 stamp matrix,
-// record i counts iff i < lengths[s] and 0 <= ss < buckets (the TPU
-// kernel's padding id >= buckets is ignored the same way; the guard also
-// keeps the atomics in bounds). Two launches:
+// Replaces two TPU kernels of repro/kernels/metrics_fused.py:
+//   - _kernel (stream_metrics_pallas), entry metrics_launch (B3);
+//   - _kernel_carry (stream_metrics_carry_pallas), entry
+//     metrics_carry_launch (B6): the same histogram over one chunk's
+//     stamps, rebased by the chunk's first bucket, and a moment fold seeded
+//     from a per-row Kahan state [s1, c1, s2, c2] that it writes back
+//     updated.
+// For row s of an (S, N) int32 stamp matrix, record i counts iff
+// i < lengths[s] and 0 <= ss - base < buckets, in bucket ss - base (base is
+// 0 for B3; the TPU kernels' padding id >= buckets is ignored the same way,
+// and the guard also keeps the atomics in bounds). Two launches:
 //   1. metrics_hist: one block per 2048-record tile. The block finds the
 //      stamp range it touches; if that fits in shared memory (always, for
 //      the sorted stamps of the main path) it counts into a privatised
@@ -17,7 +24,9 @@
 //   2. metrics_moments: one block per row. Each 512-bucket block of the
 //      histogram is reduced to f32 partials of q and q^2 by one warp; the
 //      partials are folded in block order with Kahan compensation, as
-//      repro/kernels/metrics_fused.py:118-132 does on the TPU.
+//      repro/kernels/metrics_fused.py:118-132 does on the TPU. B6's fold is
+//      the same template, its state loaded from the carry instead of set
+//      to zeros, so B6 with a zero carry is B3 bit for bit.
 //
 // What bounds it: bytes. Each stamp is read once (4 B/record); the
 // histogram is written by atomics and read once more for the moments
@@ -26,6 +35,8 @@
 // privatisation keeps the atomics off device memory: a 2048-record tile of
 // a sorted day touches ~17 buckets at 86 528 buckets. A full privatised
 // histogram would not fit (86 528 x 4 B = 346 KB > 227 KB of shared memory).
+// B6 reads only each row's kept prefix (lengths), so a chunk costs its kept
+// records, not the padded width.
 //
 // Exactness: counts are exact int32 (the host wrapper refuses more than
 // 2^31 - 1 records). Moments are f32 with a summation order other than the
@@ -54,26 +65,31 @@ __device__ __forceinline__ void add_aggregated(int* base, int key,
 
 __global__ void __launch_bounds__(kThreads)
 metrics_hist(const int* __restrict__ ss, const int* __restrict__ lengths,
-             int n, int buckets, int* __restrict__ hist) {
+             int base, int n, int buckets, int* __restrict__ hist) {
   __shared__ int bins[kSmemBins];
   __shared__ int red_lo[kThreads / 32];
   __shared__ int red_hi[kThreads / 32];
   const int s = blockIdx.y;
   const int len = min(__ldg(lengths + s), n);
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  if (base >= len) return;
+  const long long first = static_cast<long long>(blockIdx.x) * kTile;
+  if (first >= len) return;
   const int* row = ss + static_cast<size_t>(s) * n;
   int* h = hist + static_cast<size_t>(s) * buckets;
 
-  // strided: a warp's lanes hold 32 consecutive records per item
+  // strided: a warp's lanes hold 32 consecutive records per item. The
+  // rebase is unsigned, so a stamp below base wraps past buckets and is
+  // ignored like one at or above base + buckets.
   int v[kItems];
   bool ok[kItems];
   int lo = buckets, hi = -1;
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
-    const long long i = base + j * kThreads + threadIdx.x;
-    v[j] = i < len ? row[i] : -1;
-    ok[j] = i < len && v[j] >= 0 && v[j] < buckets;
+    const long long i = first + j * kThreads + threadIdx.x;
+    const unsigned u = i < len ? static_cast<unsigned>(row[i]) -
+                                     static_cast<unsigned>(base)
+                               : 0xffffffffu;
+    ok[j] = u < static_cast<unsigned>(buckets);
+    v[j] = ok[j] ? static_cast<int>(u) : -1;
     if (ok[j]) {
       lo = min(lo, v[j]);
       hi = max(hi, v[j]);
@@ -116,9 +132,13 @@ metrics_hist(const int* __restrict__ ss, const int* __restrict__ lengths,
   }
 }
 
+// kCarry = false: the fold starts from zeros and writes [s1, s2] (B3);
+// kCarry = true: it starts from mcar[s] = [s1, c1, s2, c2] and writes the
+// updated 4-state (B6). Everything else is one code path.
+template <bool kCarry>
 __global__ void __launch_bounds__(kMomentThreads)
 metrics_moments(const int* __restrict__ hist, int buckets,
-                float* __restrict__ mom) {
+                const float* __restrict__ mcar, float* __restrict__ mom) {
   constexpr int kWarps = kMomentThreads / 32;
   __shared__ float p1[kWarps];
   __shared__ float p2[kWarps];
@@ -127,6 +147,12 @@ metrics_moments(const int* __restrict__ hist, int buckets,
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int n_blocks = buckets / kBucketBlock;
   float s1 = 0.f, c1 = 0.f, s2 = 0.f, c2 = 0.f;  // used by thread 0 only
+  if constexpr (kCarry) {
+    s1 = mcar[4 * s];
+    c1 = mcar[4 * s + 1];
+    s2 = mcar[4 * s + 2];
+    c2 = mcar[4 * s + 3];
+  }
   for (int round = 0; round < n_blocks; round += kWarps) {
     const int blk = round + wid;
     float a = 0.f, b = 0.f;
@@ -165,18 +191,22 @@ metrics_moments(const int* __restrict__ hist, int buckets,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    mom[2 * s] = s1;
-    mom[2 * s + 1] = s2;
+    if constexpr (kCarry) {
+      mom[4 * s] = s1;
+      mom[4 * s + 1] = c1;
+      mom[4 * s + 2] = s2;
+      mom[4 * s + 3] = c2;
+    } else {
+      mom[2 * s] = s1;
+      mom[2 * s + 1] = s2;
+    }
   }
 }
 
-}  // namespace
-
-// ss (S, N) int32 contiguous; lengths (S,) int32; hist (S, buckets) int32
-// zero-filled by the caller, buckets % 512 == 0; mom (S, 2) f32.
-extern "C" int metrics_launch(const void* ss, const void* lengths, int rows,
-                              int n, int buckets, void* hist, void* mom,
-                              void* stream) {
+template <bool kCarry>
+int launch(const void* ss, const void* lengths, int base, int rows, int n,
+           int buckets, void* hist, const void* mcar, void* mom,
+           void* stream) {
   if (rows == 0) return 0;
   if (buckets % kBucketBlock != 0) return static_cast<int>(
       cudaErrorInvalidValue);
@@ -184,10 +214,32 @@ extern "C" int metrics_launch(const void* ss, const void* lengths, int rows,
   if (n > 0) {
     const dim3 grid((n + kTile - 1) / kTile, rows);
     metrics_hist<<<grid, kThreads, 0, st>>>(
-        static_cast<const int*>(ss), static_cast<const int*>(lengths), n,
-        buckets, static_cast<int*>(hist));
+        static_cast<const int*>(ss), static_cast<const int*>(lengths), base,
+        n, buckets, static_cast<int*>(hist));
   }
-  metrics_moments<<<rows, kMomentThreads, 0, st>>>(
-      static_cast<const int*>(hist), buckets, static_cast<float*>(mom));
+  metrics_moments<kCarry><<<rows, kMomentThreads, 0, st>>>(
+      static_cast<const int*>(hist), buckets,
+      static_cast<const float*>(mcar), static_cast<float*>(mom));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// B3. ss (S, N) int32 contiguous; lengths (S,) int32; hist (S, buckets)
+// int32 zero-filled by the caller, buckets % 512 == 0; mom (S, 2) f32.
+extern "C" int metrics_launch(const void* ss, const void* lengths, int rows,
+                              int n, int buckets, void* hist, void* mom,
+                              void* stream) {
+  return launch<false>(ss, lengths, 0, rows, n, buckets, hist, nullptr, mom,
+                       stream);
+}
+
+// B6. As B3, with stamps counted in bucket ss - base, the moment fold seeded
+// from mcar (S, 4) f32 and the updated state written to mom (S, 4) f32.
+extern "C" int metrics_carry_launch(const void* ss, const void* lengths,
+                                    int base, int rows, int n, int buckets,
+                                    void* hist, const void* mcar, void* mom,
+                                    void* stream) {
+  return launch<true>(ss, lengths, base, rows, n, buckets, hist, mcar, mom,
+                      stream);
 }

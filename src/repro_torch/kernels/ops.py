@@ -1,8 +1,8 @@
 """Public wrappers over the port's kernels.
 
 Counterpart of ``repro/kernels/ops.py`` (the NSA, compaction, metrics,
-trend-scan, S×S trend-correlation and pairwise-trend parts). Each op
-builds the host-side tables and layouts,
+trend-scan, S×S trend-correlation, pairwise-trend and chunk-carry parts).
+Each op builds the host-side tables and layouts,
 moves them to the requested device and calls a kernel wrapper, which
 launches the CUDA kernel for CUDA tensors and runs the kernel's plain
 PyTorch version for CPU tensors. ``device=None`` means CUDA; asking for
@@ -20,6 +20,7 @@ Tiles are fixed (``TILE = 1024`` records, ``BUCKET_BLOCK = 512`` buckets);
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,11 +29,15 @@ import torch
 from repro_torch.kernels.compact import compact
 from repro_torch.kernels.metrics_fused import BUCKET_BLOCK, stream_metrics \
     as _stream_metrics_kernel
+from repro_torch.kernels.metrics_fused import stream_metrics_carry \
+    as _stream_metrics_carry_kernel
 from repro_torch.kernels.stream_sample import MAX_RANGE_LIMIT
 from repro_torch.kernels.stream_sample import stream_sample \
     as _stream_sample_kernel
 from repro_torch.kernels.trend_scan import pair_stats as _pair_stats_kernel
 from repro_torch.kernels.trend_scan import trend_scan as _trend_scan_kernel
+from repro_torch.kernels.trend_scan import trend_scan_carry \
+    as _trend_scan_carry_kernel
 
 #: record quantum the record axis is padded to (the reference's TILE)
 TILE = 1024
@@ -664,3 +669,208 @@ def trend_corr_pairwise(qa, lengths_a, qb, lengths_b, window: int,
                        qb.to(torch.int32), up(lb), up(wb), up(hb), up(kk),
                        k_max)
     return r.cpu().numpy().astype(np.float64)
+
+
+# ------------------------------------------------------------- chunk carry
+@dataclasses.dataclass
+class ChunkCarry:
+    """Device-resident cross-chunk state of the chunked sweep.
+
+    The chunked pipeline splits each scenario's simulated timeline into
+    fixed-size scale-stamp chunks (chunk ``k`` owns the absolute bucket
+    range ``[k·chunk_s, (k+1)·chunk_s)``); because chunks partition the
+    bucket axis, per-chunk outputs compose exactly:
+
+    ``hist``       (S, width) int32 — the running absolute-bucket histogram;
+                   each chunk's slice lands at its own columns, so the
+                   finalized histogram equals the monolithic kernel's.
+    ``mom``        (S, 4) float32 — the Kahan moment state
+                   ``[s1, c1, s2, c2]``, folded by kernel B6 chunk by chunk
+                   (carrying the compensations keeps the documented ~1e-5).
+    ``psum_tail``  (S,) int32 — the inclusive prefix total through the last
+                   folded bucket (kernel B7's carry-in).
+    ``trend_tail`` (S, w-1) int32 — the last ``w-1`` bucket counts, the
+                   history a ``w``-second sliding window still needs.
+
+    All four live on the carry's device; ``window``/``next_lo`` are host
+    bookkeeping. Unlike the reference, whose arrays are immutable,
+    :func:`stream_metrics_chunk` writes each chunk's counts into ``hist``
+    IN PLACE (the returned carry shares that tensor) and replaces the other
+    three; a new sweep starts from a new :func:`chunk_carry_init`.
+    """
+
+    hist: torch.Tensor
+    mom: torch.Tensor
+    psum_tail: torch.Tensor
+    trend_tail: torch.Tensor
+    window: int
+    next_lo: int = 0
+
+
+def chunk_carry_init(n_rows: int, width: int, window: int = 1, *,
+                     device=None) -> ChunkCarry:
+    """Fresh all-zero carry for ``n_rows`` scenario rows and a
+    ``width``-bucket axis on ``device`` (``None`` means CUDA). Each
+    scenario row has its own carry lane; a new sweep starts from a new
+    carry, never a reused one."""
+    if n_rows < 1 or width < 1:
+        raise ValueError("need n_rows >= 1 and width >= 1")
+    dev = resolve_device(device)
+    w = max(int(window), 1)
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return ChunkCarry(hist=zeros(n_rows, width),
+                      mom=zeros(n_rows, 4, dtype=torch.float32),
+                      psum_tail=zeros(n_rows),
+                      trend_tail=zeros(n_rows, w - 1), window=w)
+
+
+def stream_metrics_chunk(carry: ChunkCarry, ss, valid_counts, lo: int,
+                         hi: int) -> ChunkCarry:
+    """Fold one chunk's kept scale stamps into the carry, on its device:
+    one launch of kernel B6.
+
+    carry        : the state after the previous chunk
+                   (:func:`chunk_carry_init` for the first).
+    ss           : (S, N) integer ABSOLUTE stamps of this chunk's kept
+                   records; row ``s``'s entries past ``valid_counts[s]`` may
+                   hold anything. Valid stamps lie in ``[lo, hi)`` (NSA
+                   guarantees it; not re-checked, which would need a sync).
+    valid_counts : (S,) kept-record counts; a tensor on the carry's device
+                   keeps the call free of host synchronisation.
+    lo, hi       : the chunk's absolute bucket range (ragged last chunk
+                   allowed); consecutive calls must tile the axis in order.
+
+    B6 rebases the stamps by ``lo`` itself and reads only each row's kept
+    prefix. Its histogram lands at columns ``[lo, hi)`` of ``carry.hist``
+    (in place); ``mom`` is B6's updated Kahan state; ``psum_tail`` and
+    ``trend_tail`` advance for :func:`trend_scan_chunk`. Returns the new
+    :class:`ChunkCarry`.
+    """
+    ss = torch.as_tensor(ss)
+    if ss.ndim != 2:
+        raise ValueError(f"ss must be (S, N), got shape {tuple(ss.shape)}")
+    lo, hi = int(lo), int(hi)
+    cw = hi - lo
+    if cw <= 0:
+        raise ValueError(f"empty chunk range [{lo}, {hi})")
+    if lo != carry.next_lo:
+        raise ValueError(
+            f"chunk [{lo}, {hi}) out of order: carry expects lo == "
+            f"{carry.next_lo} (chunks must tile the bucket axis in order)")
+    if hi > carry.hist.shape[1]:
+        raise ValueError(f"chunk [{lo}, {hi}) exceeds the carry's "
+                         f"{carry.hist.shape[1]}-bucket axis")
+    S, N = ss.shape
+    _check_metrics_domain(N)
+    dev = carry.hist.device
+    lengths = torch.as_tensor(valid_counts).reshape(S).to(
+        device=dev, dtype=torch.int32).contiguous()
+    hist_c, mom = _stream_metrics_carry_kernel(
+        ss.to(device=dev, dtype=torch.int32).contiguous(), lengths,
+        _padded_buckets(cw), carry.mom, lo)
+    chunk_q = hist_c[:, :cw]
+    carry.hist[:, lo:hi] = chunk_q
+    psum_tail = carry.psum_tail + chunk_q.sum(dim=1, dtype=torch.int32)
+    w = carry.window
+    trend_tail = carry.trend_tail
+    if w > 1:
+        trend_tail = torch.cat([trend_tail, chunk_q], dim=1)[
+            :, -(w - 1):].contiguous()
+    return dataclasses.replace(carry, mom=mom, psum_tail=psum_tail,
+                               trend_tail=trend_tail, next_lo=hi)
+
+
+def chunk_carry_finalize(carry: ChunkCarry) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """``(hist int32 (S, width), moments float32 (S, 2))`` — the monolithic
+    engine's output shapes from a fully folded carry: counts equal to one
+    whole-timeline B3 launch, moments within the documented ~1e-5 (the fold
+    sees the same buckets in the same order, cut into other blocks)."""
+    return carry.hist, carry.mom[:, ::2].contiguous()
+
+
+def trend_scan_chunk(q_chunk, window: int, *, tail=None, psum_carry=None,
+                     lo: int = 0, is_last: bool = False):
+    """Streaming sliding-mean trend: the positions one chunk completes, one
+    launch of kernel B7.
+
+    A centered ``w``-window at position ``p`` reaches ``half = (w-1)//2``
+    buckets past ``p``, so after folding buckets ``[lo, lo+c)`` the
+    positions ``[max(lo-half, 0), lo+c-half)`` have their whole window
+    (``is_last=True`` flushes the final ``half`` positions). Window sums are
+    int32-exact (B7 seeds its running total from ``psum_carry``), so the
+    emitted segments concatenated over all chunks equal the monolithic
+    trend bit for bit, provided the whole series is at least ``window``
+    long (the monolithic path clamps ``w`` for shorter series, which a
+    stream cannot know in advance).
+
+    q_chunk    : (S, c) int32 — this chunk's bucket counts, on a device.
+    window     : sliding-mean window ``w`` (>= 1).
+    tail       : (S, w-1) int32 — the previous call's ``new_tail``
+                 (``None``: zeros, the first chunk).
+    psum_carry : (S,) int32 — the previous call's ``new_total``
+                 (``None``: zeros).
+    lo         : the chunk's first absolute bucket.
+    is_last    : flush the final ``half`` positions.
+
+    Returns ``(seg float32 (S, m), start, new_tail, new_total)``: ``seg``
+    covers trend positions ``[start, start + m)`` (``m`` may be 0 for a tiny
+    first chunk); ``new_tail``/``new_total`` feed the next call.
+    """
+    w = int(window)
+    if w < 1:
+        raise ValueError("window must be >= 1")
+    q_chunk = torch.as_tensor(q_chunk)
+    if q_chunk.ndim != 2:
+        raise ValueError(f"q_chunk must be (S, c), got "
+                         f"{tuple(q_chunk.shape)}")
+    q_chunk = q_chunk.to(torch.int32)
+    S, c = q_chunk.shape
+    dev = q_chunk.device
+    if tail is None:
+        tail = torch.zeros((S, w - 1), dtype=torch.int32, device=dev)
+    tail = torch.as_tensor(tail).to(device=dev, dtype=torch.int32)
+    if tuple(tail.shape) != (S, w - 1):
+        raise ValueError(f"tail must be (S, {w - 1}), got "
+                         f"{tuple(tail.shape)}")
+    if psum_carry is None:
+        psum_carry = torch.zeros(S, dtype=torch.int32, device=dev)
+    psum_carry = torch.as_tensor(psum_carry).to(
+        device=dev, dtype=torch.int32).reshape(S)
+
+    # ext covers global buckets [lo - (w-1), lo + c): every window an
+    # emittable position needs. Leading zeros (first chunks) reproduce the
+    # monolithic clamp at 0 exactly: zero counts add nothing to a window.
+    ext = torch.cat([tail, q_chunk], dim=1).contiguous()    # (S, w-1+c)
+    base = (psum_carry - tail.sum(dim=1, dtype=torch.int32)).contiguous()
+    cinc, _ = _trend_scan_carry_kernel(ext, base)   # inclusive prefix sums
+
+    half = (w - 1) // 2
+    hi_abs = lo + c
+    e0 = max(lo - half, 0)
+    e1 = hi_abs if is_last else max(hi_abs - half, e0)
+    new_tail = ext[:, ext.shape[1] - (w - 1):] if w > 1 else tail
+    new_total = psum_carry + q_chunk.sum(dim=1, dtype=torch.int32)
+    m = e1 - e0
+    if m <= 0:
+        return (torch.zeros((S, 0), dtype=torch.float32, device=dev), e0,
+                new_tail, new_total)
+    p = torch.arange(e0, e1, dtype=torch.int32, device=dev)[None, :]
+    # local (ext) indices of the window's exclusive-prefix bounds
+    jhi = torch.clamp(p + half + 1, max=hi_abs) - lo + (w - 1)
+    jlo = p + half - lo                                   # >= 0 by e0
+
+    def cex(j):                             # exclusive prefix at local j
+        jb = j.expand(S, m)
+        g = torch.gather(cinc, 1, torch.clamp(jb - 1, min=0).long())
+        return torch.where(jb > 0, g, base[:, None])
+
+    win = (cex(jhi) - cex(jlo)).to(torch.float32)
+    # divide by a device tensor, as _trend_from_prefix does: CUDA turns a
+    # divide by a host scalar into a multiply by its reciprocal, which can
+    # round differently from the monolithic trend
+    w_dev = torch.full((S, 1), float(w), dtype=torch.float32, device=dev)
+    return win / w_dev, e0, new_tail, new_total

@@ -1,4 +1,4 @@
-"""Kernels B4 and B5: the device half of the Fig.-6 trend chain.
+"""Kernels B4, B5 and B7: the device half of the Fig.-6 trend chain.
 
 Counterparts of ``repro/kernels/trend_scan.py``:
 
@@ -7,6 +7,10 @@ Counterparts of ``repro/kernels/trend_scan.py``:
   ``csrc/trend_scan.cu`` for CUDA tensors and runs
   :func:`trend_scan_plain` for CPU tensors. Exact while a row's total
   stays below 2³¹ (the ops layer guards that before the call).
+- :func:`trend_scan_carry` (B7, ``trend_scan_carry_pallas``): the same scan
+  over one time chunk, each row's running total seeded from ``init`` and
+  returned as ``tail`` for the next chunk (same source, same exactness;
+  ``init = 0`` gives B4's prefix sums bit for bit).
 - :func:`pair_stats` (B5, ``pair_stats_pallas``): per-row sums and the
   Gram matrix ``x·xᵀ`` of ``(S, K)`` float32 trends. It launches
   ``csrc/pair_stats.cu`` for CUDA tensors and runs :func:`pair_stats_plain`
@@ -79,6 +83,70 @@ def trend_scan(q):
 
 
 trend_scan.launches = 0
+
+
+# ------------------------------------------------------------------ B7
+def trend_scan_carry_plain(q, init):
+    """Plain PyTorch version of B7 (any device).
+
+    q    : (S, N) int32 counts of one time chunk.
+    init : (S,) int32 — each row's running total through the previous
+           chunk.
+
+    Returns ``(psum int32 (S, N), tail int32 (S,))`` with
+    ``psum[s, i] = init[s] + q[s, 0] + ... + q[s, i]`` and ``tail[s]`` the
+    row's total through this chunk (``init[s]`` for an empty chunk).
+    """
+    init = init.to(device=q.device, dtype=torch.int32).reshape(-1)
+    psum = torch.cumsum(q, dim=1, dtype=torch.int32) + init[:, None]
+    tail = psum[:, -1].clone() if q.shape[1] else init.clone()
+    return psum, tail
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_carry_entry():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("trend_scan", "trend_scan_carry_launch",
+                       [p, p, i, i, p, p, p, p, p])
+
+
+def trend_scan_carry(q, init):
+    """B7 on the counts' device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor (same contract as
+    :func:`trend_scan_carry_plain`). Each kernel launch adds one to
+    ``trend_scan_carry.launches``."""
+    if q.device.type == "cpu":
+        return trend_scan_carry_plain(q, init)
+    if q.device.type != "cuda":
+        raise ValueError(f"trend_scan_carry runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.dtype != torch.int32 or q.ndim != 2 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous 2-D int32 tensor, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    S, n = q.shape
+    if init.dtype != torch.int32 or tuple(init.shape) != (S,) or \
+            init.device != q.device or not init.is_contiguous():
+        raise ValueError("init must be a contiguous (S,) int32 tensor on "
+                         "the counts' device")
+    if S > 65535 or S * n >= 2 ** 31:
+        raise ValueError(f"batch {S} x {n} too large for one launch")
+    dev = q.device
+    psum = torch.empty((S, n), dtype=torch.int32, device=dev)
+    tail = torch.empty(S, dtype=torch.int32, device=dev)
+    n_tiles = max(-(-n // _scan_tile()), 1)
+    tile_sums = torch.empty((S, n_tiles), dtype=torch.int32, device=dev)
+    tile_offsets = torch.empty_like(tile_sums)
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        code = _scan_carry_entry()(p(q), p(init), S, n, p(tile_sums),
+                                   p(tile_offsets), p(psum), p(tail),
+                                   _build.stream_handle(dev))
+    _build.check(code, "trend_scan")
+    trend_scan_carry.launches += 1
+    return psum, tail
+
+
+trend_scan_carry.launches = 0
 
 
 # ------------------------------------------------------------------ B5

@@ -21,6 +21,9 @@ from repro_torch.streamsim.datasets import (  # noqa: F401
 )
 from repro_torch.streamsim.preprocess import Stream, preprocess  # noqa: F401
 from repro_torch.streamsim.nsa import (  # noqa: F401
+    ChunkedNSA,
+    ChunkHandles,
+    materialize_sweep_chunk,
     nsa,
     nsa_paper,
     scale_stamps,
@@ -57,6 +60,7 @@ from repro_torch.streamsim.resilience import (  # noqa: F401
     SweepCheckpoint,
 )
 from repro_torch.streamsim.producer import (  # noqa: F401
+    ChunkFeed,
     MultiQueueProducer,
     Producer,
     RealClock,
@@ -69,11 +73,13 @@ from repro_torch.streamsim.plan import (  # noqa: F401
     plan_sweep,
 )
 from repro_torch.streamsim.engine import (  # noqa: F401
+    ChunkedSweepRunner,
     DeviceSweepResult,
     FidelityReport,
     SimulationReport,
     consumer_label,
     execute_sweep,
     run_sweep,
+    run_sweep_chunked,
 )
 from repro_torch.streamsim.controller import Controller  # noqa: F401

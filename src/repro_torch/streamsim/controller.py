@@ -32,10 +32,10 @@ from repro_torch.streamsim.datasets import make_stream
 from repro_torch.streamsim.engine import FidelityReport, SimulationReport
 from repro_torch.streamsim.faults import FaultPlan
 from repro_torch.streamsim.nsa import _resolve_backend, nsa
-from repro_torch.streamsim.plan import plan_sweep
+from repro_torch.streamsim.plan import DAY_S, plan_sweep
 from repro_torch.streamsim.preprocess import Stream, preprocess
 from repro_torch.streamsim.queue import StreamQueue
-from repro_torch.streamsim.resilience import RetryPolicy
+from repro_torch.streamsim.resilience import RetryPolicy, SweepCheckpoint
 from repro_torch.streamsim.store import StreamStore
 
 
@@ -82,14 +82,52 @@ class Controller:
         return sim
 
     def _prepare_all(self, datasets: Sequence[str], scale: float,
-                     seed: int) -> tuple:
-        """POSD every dataset, timing each."""
+                     seed: int, duration_s: int = 0) -> tuple:
+        """POSD every dataset, timing each.
+
+        ``duration_s > 0`` prepares the MULTI-DAY original instead
+        (:meth:`_prepare_multiday`)."""
         originals, t_pre = {}, {}
         for d in datasets:
             t0 = time.perf_counter()
-            originals[d] = self.prepare(d, scale=scale, seed=seed)
+            if duration_s > 0:
+                originals[d] = self._prepare_multiday(d, scale, seed,
+                                                      duration_s)
+            else:
+                originals[d] = self.prepare(d, scale=scale, seed=seed)
             t_pre[d] = time.perf_counter() - t0
         return originals, t_pre
+
+    def _prepare_multiday(self, dataset: str, scale: float, seed: int,
+                          duration_s: int) -> Stream:
+        """One preprocessed day per 86 400 s of ``duration_s`` (day ``d``
+        generated with ``seed + d``, so days carry distinct traffic), each
+        rebased onto ``[d·86400, (d+1)·86400)`` so the diurnal cycle stays
+        aligned, concatenated and trimmed to ``duration_s``. Cached under
+        ``<dataset>__orig__d<duration>``."""
+        key = f"{dataset}__orig__d{duration_s}"
+        if self.store.exists(key):
+            return self.store.get(key)
+        n_days = -(-int(duration_s) // DAY_S)
+        ts, payloads = [], []
+        for day in range(n_days):
+            st = preprocess(make_stream(dataset, scale=scale, seed=seed + day))
+            # rebase the day onto its slot; clip a day running past
+            # 86 400 s to the slot boundary so the concatenation stays
+            # chronological
+            t_day = np.minimum(st.t - st.t[0], float(DAY_S))
+            ts.append(t_day + day * float(DAY_S))
+            payloads.append(st.payload)
+        t = np.concatenate(ts)
+        payload = {c: np.concatenate([p[c] for p in payloads])
+                   for c in payloads[0]}
+        keep = t < float(duration_s)     # trim the partial last day
+        stream = Stream(name=dataset, t=t[keep],
+                        payload={c: v[keep] for c, v in payload.items()},
+                        scale_stamp=None)
+        self.store.put(key, stream, {"scale": scale, "seed": seed,
+                                     "duration_s": int(duration_s)})
+        return stream
 
     def run(self, dataset: str, max_range: int,
             consumer: Callable[[StreamQueue], Dict], *,
@@ -180,7 +218,9 @@ class Controller:
         count rows through B4 and B5; the sims are materialized and stored
         once; and every scenario replays through ONE
         :class:`~repro_torch.streamsim.producer.MultiQueueProducer` loop
-        (:func:`~repro_torch.streamsim.engine.run_sweep`).
+        (:func:`~repro_torch.streamsim.engine.run_sweep`). With ``chunk_s``
+        the same sweep runs chunk by chunk instead (B1 -> B2 -> B6 per
+        chunk; see ``chunk_s`` below).
 
         Parameters
         ----------
@@ -208,12 +248,37 @@ class Controller:
         on_failure, max_bytes, retention_policy :
             The replay's chaos and resilience knobs, passed through to
             :func:`~repro_torch.streamsim.engine.replay_many`.
-        checkpoint, chunk_s, duration_s, service :
-            Not ported yet: ``checkpoint=True`` (the robustness slice),
-            ``chunk_s``/``duration_s`` (the chunked-stream slice) and
-            ``service=True`` (the sweep-service slice) raise
-            ``NotImplementedError``; the service's lease knobs come with
-            it.
+        checkpoint : bool, default False
+            Persist per-scenario completion markers through the stream
+            store (namespace: :attr:`~repro_torch.streamsim.plan.SweepPlan.
+            sweep_id`). A killed sweep re-invoked with the same arguments
+            resumes: finished scenarios' reports load from their markers,
+            only the remainder is planned and run, and the markers are
+            cleared once the whole sweep completes (its fidelity matrices
+            then cover the resumed subset).
+        chunk_s : int, default 0
+            ``> 0`` routes the sweep through the chunked double-buffered
+            pipeline (:class:`~repro_torch.streamsim.engine.
+            ChunkedSweepRunner` + :func:`~repro_torch.streamsim.engine.
+            run_sweep_chunked`): each scenario's timeline is computed,
+            persisted and replayed in ``chunk_s``-second chunks (B1, B2 and
+            B6 per chunk) with the cross-chunk carry on the device, so host
+            residency stays bounded (at most 2 chunks per scenario
+            buffered; ``feed_hwm_chunks`` in each report's
+            ``consumer_metrics``) while the reports compose to the
+            monolithic answer. ``chunk_s`` does not enter the store key:
+            chunked and monolithic runs share simulated streams. Not with
+            ``retry_policy``/``consumer_deadline_s`` (a consumed chunk
+            cannot be rewound); ``on_failure="degrade"`` still applies.
+        duration_s : int, default 0
+            ``> 0`` simulates a MULTI-DAY source: one preprocessed day per
+            86 400 s (:meth:`_prepare_multiday`), every scenario's
+            effective range growing to ``max_range`` per day
+            (``ScenarioSpec.span_s``). Requires ``chunk_s > 0``.
+        service : bool, default False
+            Not ported yet (the sweep-service slice): ``True`` raises
+            ``NotImplementedError`` after the argument checks; the
+            service's lease knobs come with it.
         autotune : None or "off"
             Anything else raises ``NotImplementedError`` (the tile-tuning
             slice).
@@ -229,50 +294,98 @@ class Controller:
         """
         from repro_torch.kernels import ops
 
-        if checkpoint:
-            raise NotImplementedError(
-                "run_many(checkpoint=True) is not ported yet; it comes with "
-                "the robustness slice")
-        if chunk_s or duration_s:
-            raise NotImplementedError(
-                "run_many(chunk_s=, duration_s=) is not ported yet; it comes "
-                "with the chunked-stream slice")
+        if duration_s and not chunk_s:
+            raise ValueError(
+                "duration_s requires chunk_s > 0 — multi-day sweeps run "
+                "through the chunked pipeline")
+        if chunk_s and (retry_policy is not None or
+                        consumer_deadline_s is not None):
+            raise ValueError(
+                "retry_policy/consumer_deadline_s are monolithic-replay "
+                "features; the chunked pipeline cannot rewind a "
+                "scenario's consumed chunks")
+        if service and (chunk_s or checkpoint):
+            raise ValueError(
+                "service mode is incompatible with chunk_s/checkpoint — "
+                "the service's durable work queue is its own checkpoint "
+                "and leases are scenario-granular")
         if service:
             raise NotImplementedError(
                 "run_many(service=True) is not ported yet; it comes with the "
                 "sweep-service slice")
         ops.check_autotune(autotune)
-        originals, t_pre = self._prepare_all(datasets, scale, seed)
+        originals, t_pre = self._prepare_all(datasets, scale, seed,
+                                             duration_s)
         if _resolve_backend(backend) == "numpy":
             # host mode ignores the partition: no device topology query
             n_devices = 1 if n_devices is None else n_devices
             host_index = 0 if host_index is None else host_index
             n_hosts = 1 if n_hosts is None else n_hosts
-        plan = plan_sweep(self.store, datasets, max_ranges,
-                          {d: len(originals[d]) for d in datasets},
+        row_counts = {d: len(originals[d]) for d in datasets}
+        plan = plan_sweep(self.store, datasets, max_ranges, row_counts,
                           scale=scale, seed=seed, n_devices=n_devices,
-                          host_index=host_index, n_hosts=n_hosts)
+                          host_index=host_index, n_hosts=n_hosts,
+                          chunk_s=chunk_s, duration_s=duration_s)
         if plan.n_hosts > 1:
             raise NotImplementedError(
                 f"a plan over {plan.n_hosts} hosts (static multi-host "
                 "partitioning and its fidelity merge) is not ported yet; it "
                 "comes with the sweep-service slice")
-        result = engine.execute_sweep(plan, originals, self.store,
-                                      backend=backend, device=self.device)
-        self.last_result = result
-        reports, fidelity = engine.run_sweep(
-            result, consumer, queue_size=queue_size,
-            fidelity_window_s=fidelity_window_s, t_pre=t_pre,
-            fault_plan=fault_plan, retry_policy=retry_policy,
-            breaker_threshold=breaker_threshold,
-            consumer_deadline_s=consumer_deadline_s,
-            on_failure=on_failure, max_bytes=max_bytes,
-            retention_policy=retention_policy)
-        self.last_fidelity = fidelity
-        for fr in fidelity:
-            self.save_fidelity(fr)
+        grid = [s.scenario for s in plan.scenarios]
+        ckpt: Optional[SweepCheckpoint] = None
+        prior: Dict = {}
+        if checkpoint:
+            ckpt = SweepCheckpoint(self.store, plan.sweep_id)
+            done = set(ckpt.done_scenarios()) & set(grid)
+            if done:
+                # resume: completed scenarios' reports come straight from
+                # their markers; only the remainder is planned and run
+                prior = {sc: r for sc, r in ckpt.load_reports().items()
+                         if sc in done}
+                remaining = [sc for sc in grid if sc not in done]
+                plan = None if not remaining else plan_sweep(
+                    self.store, datasets, max_ranges, row_counts,
+                    scale=scale, seed=seed, pairs=remaining,
+                    n_devices=n_devices, host_index=host_index,
+                    n_hosts=n_hosts, chunk_s=chunk_s, duration_s=duration_s)
+        new_reports: List[SimulationReport] = []
+        if plan is not None:
+            if chunk_s:
+                runner = engine.ChunkedSweepRunner(
+                    plan, originals, self.store, backend=backend,
+                    device=self.device, checkpoint=ckpt)
+                new_reports, fidelity = engine.run_sweep_chunked(
+                    runner, consumer, queue_size=queue_size,
+                    fidelity_window_s=fidelity_window_s, t_pre=t_pre,
+                    fault_plan=fault_plan, on_failure=on_failure,
+                    max_bytes=max_bytes, retention_policy=retention_policy,
+                    checkpoint=ckpt)
+                # run_sweep_chunked leaves the composed result on the runner
+                self.last_result = runner.result
+            else:
+                result = engine.execute_sweep(plan, originals, self.store,
+                                              backend=backend,
+                                              device=self.device,
+                                              checkpoint=ckpt)
+                self.last_result = result
+                new_reports, fidelity = engine.run_sweep(
+                    result, consumer, queue_size=queue_size,
+                    fidelity_window_s=fidelity_window_s, t_pre=t_pre,
+                    fault_plan=fault_plan, retry_policy=retry_policy,
+                    breaker_threshold=breaker_threshold,
+                    consumer_deadline_s=consumer_deadline_s,
+                    on_failure=on_failure, max_bytes=max_bytes,
+                    retention_policy=retention_policy, checkpoint=ckpt)
+            self.last_fidelity = fidelity
+            for fr in fidelity:
+                self.save_fidelity(fr)
+        by_sc = dict(prior)
+        by_sc.update({(r.dataset, r.max_range): r for r in new_reports})
+        reports = [by_sc[sc] for sc in grid]
         for report in reports:
             self.save_metrics(report)
+        if ckpt is not None:
+            ckpt.clear()     # sweep complete: the next run starts fresh
         return reports
 
     # -------------------------------------------------- (3) metrics manager

@@ -25,6 +25,10 @@ The middle layer of the plan → engine → replay/report architecture:
   original streams' metrics (one more B3 call) and the pairwise trend
   correlation (plain PyTorch, :func:`~repro_torch.kernels.ops.
   trend_corr_pairwise`).
+- **Chunked pipeline** (:class:`ChunkedSweepRunner`,
+  :func:`run_sweep_chunked`): the same sweep computed, persisted and
+  replayed one time chunk at a time (B1, B2 and B6 per chunk, the carry
+  on the device), double-buffered, in bounded host memory.
 
 Backend semantics
 -----------------
@@ -53,13 +57,14 @@ from repro_torch.streamsim.metrics import (StreamMetrics, Volatility,
                                            metrics_batched,
                                            trend_correlation_from_counts,
                                            trend_correlation_matrix)
-from repro_torch.streamsim.nsa import (_resolve_backend, compression_factor,
-                                       materialize_sweep, nsa,
+from repro_torch.streamsim.nsa import (ChunkedNSA, _resolve_backend,
+                                       compression_factor, materialize_sweep,
+                                       materialize_sweep_chunk, nsa,
                                        nsa_sweep_device)
 from repro_torch.streamsim.plan import Shard, SweepPlan
 from repro_torch.streamsim.preprocess import Stream
-from repro_torch.streamsim.producer import (MultiQueueProducer, Producer,
-                                            VirtualClock)
+from repro_torch.streamsim.producer import (ChunkFeed, MultiQueueProducer,
+                                            Producer, VirtualClock)
 from repro_torch.streamsim.queue import QueueGroup, StreamQueue
 from repro_torch.streamsim.resilience import (CircuitBreaker, Deadline,
                                               RetryPolicy, SweepCheckpoint)
@@ -148,8 +153,9 @@ class ShardResult:
 
     ``ss_kept``/``idx`` are the :func:`~repro_torch.streamsim.nsa.
     nsa_sweep_device` handles and ``hist`` the per-second count matrix,
-    all still on the shard's device. Only ``totals`` and ``mom`` — O(rows)
-    report scalars — live on the host.
+    all still on the shard's device (a chunked run consumed its handles
+    chunk by chunk and leaves ``ss_kept``/``idx`` None). Only ``totals``
+    and ``mom`` — O(rows) report scalars — live on the host.
     """
 
     shard: Shard
@@ -190,9 +196,22 @@ class DeviceSweepResult:
         self._persisted = False   # shard sims written to the store yet?
         self._stats: Optional[Dict] = None
         self._om_mat = None   # cached device upload of the originals' rows
-        #: per-scenario EFFECTIVE simulated range (``ScenarioSpec.span_s``)
+        #: optional SweepCheckpoint; materialize() then persists
+        #: per-scenario completion markers for crash-resume
+        self.checkpoint: Optional[SweepCheckpoint] = None
+        #: per-scenario EFFECTIVE simulated range (``ScenarioSpec.span_s``
+        #: — ``max_range`` per simulated day of a multi-day sweep)
         self.spans: Dict[Tuple[str, int], int] = {
             s.scenario: s.span_s for s in plan.scenarios}
+        self._store_keys: Dict[Tuple[str, int], str] = {
+            s.scenario: s.store_key for s in plan.scenarios}
+        #: chunked runs set this: scenario -> kept-row count, so
+        #: ``build_report`` never needs the (unbounded-memory)
+        #: ``materialize()`` host pass just to count rows
+        self.sim_row_counts: Optional[Dict[Tuple[str, int], int]] = None
+        #: chunked device runs set this: seconds spent dispatching chunks,
+        #: in host legs, and of those waiting on the chunks' copy events
+        self.pipeline_s: Dict[str, float] = {}
 
     @property
     def om(self) -> Dict[str, StreamMetrics]:
@@ -464,14 +483,23 @@ class DeviceSweepResult:
         payload columns from the device handles, persist the simulated
         streams (``store`` defaults to the plan's store; pass ``False``
         to skip persistence), and return the full scenario → Stream map.
-        The gather is idempotent; persistence happens once."""
+        The gather is idempotent; persistence happens once, and then marks
+        the scenarios materialized on the checkpoint, if there is one."""
         store = self.store if store is None else store
         if self._sims is None:
             sims: Dict[Tuple[str, int], Stream] = dict(self.host_sims)
             for sr in self.shard_results:
-                sims.update(materialize_sweep(
-                    self.originals, list(sr.pairs), sr.ss_kept, sr.idx,
-                    sr.totals))
+                if sr.ss_kept is None:
+                    # chunked run: the handles were consumed chunk by chunk
+                    # and the streams are already durable — reassemble them
+                    # from the store's chunk files (everything lands on the
+                    # host; bounded-memory callers read ``sim_row_counts``)
+                    for sc in sr.pairs:
+                        sims[sc] = self.store.get(self._store_keys[sc])
+                else:
+                    sims.update(materialize_sweep(
+                        self.originals, list(sr.pairs), sr.ss_kept, sr.idx,
+                        sr.totals))
             self._sims = {sc: sims[sc] for sc in self.scenarios}
         if store and not self._persisted:
             shard_scs = [sc for sr in self.shard_results
@@ -482,6 +510,10 @@ class DeviceSweepResult:
                 {f"{d}__sim{mr}": {"max_range": mr}
                  for d, mr in shard_scs})
             self._persisted = True
+            if self.checkpoint is not None:
+                # resume marker: these scenarios' streams are now durable
+                self.checkpoint.mark_materialized(
+                    [s.scenario for s in self.plan.local_missing])
         return self._sims
 
 
@@ -502,6 +534,7 @@ def _shard_devices(device) -> list:
 def execute_sweep(plan: SweepPlan, originals: Dict[str, Stream], store, *,
                   backend: str = "auto", multiple_mode: str = "time",
                   device=None,
+                  checkpoint: Optional[SweepCheckpoint] = None,
                   autotune: Optional[str] = None) -> DeviceSweepResult:
     """Execute a plan's NSA + metrics stages.
 
@@ -516,10 +549,12 @@ def execute_sweep(plan: SweepPlan, originals: Dict[str, Stream], store, *,
     Host mode (resolved ``"numpy"``): per-scenario numpy NSA + one
     ``metrics_batched`` call over ``[originals..., sims...]``.
 
-    ``device`` (``None`` means CUDA) is only read in device mode. Returns a
-    :class:`DeviceSweepResult`; NSA wall time is recorded per scenario (the
-    shared total for co-simulated scenarios, 0.0 for cache hits) and the
-    simulated streams are **not** yet materialized.
+    ``device`` (``None`` means CUDA) is only read in device mode.
+    ``checkpoint`` marks the scenarios materialized once their streams are
+    durable (at once in host mode, at :meth:`DeviceSweepResult.materialize`
+    in device mode). Returns a :class:`DeviceSweepResult`; NSA wall time is
+    recorded per scenario (the shared total for co-simulated scenarios, 0.0
+    for cache hits) and the simulated streams are **not** yet materialized.
     """
     from repro_torch.kernels import ops
 
@@ -535,6 +570,11 @@ def execute_sweep(plan: SweepPlan, originals: Dict[str, Stream], store, *,
     if result is None:
         result = _execute_host(plan, originals, store, backend,
                                multiple_mode, device)
+    result.checkpoint = checkpoint
+    if checkpoint is not None and result.mode == "host" and store:
+        # host mode persists its sims eagerly inside _execute_host
+        checkpoint.mark_materialized(
+            [s.scenario for s in plan.local_missing])
     return result
 
 
@@ -905,7 +945,13 @@ def build_report(result: DeviceSweepResult, scenario: Tuple[str, int],
     d, mr = scenario
     stats = result._ensure_stats()[scenario]
     original = result.originals[d]
-    simulated_rows = len(result.materialize()[scenario])
+    if result.sim_row_counts is not None and scenario in \
+            result.sim_row_counts:
+        # chunked run: the row count was accumulated per chunk — no
+        # whole-stream host pass just to measure it
+        simulated_rows = int(result.sim_row_counts[scenario])
+    else:
+        simulated_rows = len(result.materialize()[scenario])
     degraded = bool(consumer_metrics.get("degraded"))
     return SimulationReport(
         dataset=d,
@@ -978,3 +1024,435 @@ def run_sweep(result: DeviceSweepResult, consumer, *,
             on_report(r)
         reports.append(r)                 # kill leaves a clean prefix
     return reports, fid
+
+
+# ------------------------------------------------------- chunked pipeline
+class ChunkedSweepRunner:
+    """Chunked, double-buffered sweep execution — the unbounded-stream form.
+
+    Splits every scenario's simulated timeline into ``plan.chunk_s``-second
+    chunks and pipelines them through the device: chunk ``k+1``'s B1 → B2
+    → B6 launches are queued before chunk ``k``'s host leg (wait for its
+    staged copies → gather payload → ``StreamStore.append_chunk`` → feed
+    the replay) runs. Dispatch never reads a device value: every size comes
+    from the host tables, and each chunk's outputs are copied into pinned
+    host memory behind a CUDA event (:meth:`~repro_torch.streamsim.nsa.
+    ChunkHandles.to_host`), so the host leg waits for its own chunk only,
+    never for the next chunk already queued on the same stream.
+    Cross-chunk state stays on the device in a
+    :class:`~repro_torch.kernels.ops.ChunkCarry` (running histogram, Kahan
+    ``[Σq, Σq²]`` state, prefix-sum tail, trend window tail), so the
+    per-chunk outputs compose to the monolithic sweep's answer: counts
+    exact, moments within ~1e-5, trend and fidelity within 1e-3.
+
+    Host residency is bounded: per scenario at most the in-flight chunk
+    plus the :class:`~repro_torch.streamsim.producer.ChunkFeed` buffer
+    (``maxsize=2``) exist on the host at once; the feed's
+    ``feed_hwm_chunks`` stat, in every report's ``consumer_metrics``, is
+    the proof.
+
+    Resume is chunk-granular: ``append_chunk`` skips chunks already on
+    disk, so a killed multi-day run recomputes device work but rewrites
+    only the missing chunk files, and scenario-level resume (the
+    checkpoint's markers) still prunes completed scenarios from the plan.
+
+    ``backend`` resolution mirrors :func:`execute_sweep`: resolved
+    ``"torch"`` runs the device pipeline above on ``device`` (domain
+    errors fall back wholesale at CONSTRUCTION, before any chunk state
+    exists); resolved ``"numpy"`` runs the host composition — whole-stream
+    numpy NSA and f64 statistics — with the same chunked persist and
+    chunked replay feed.
+    """
+
+    def __init__(self, plan: SweepPlan, originals: Dict[str, Stream],
+                 store, *, backend: str = "auto",
+                 multiple_mode: str = "time", device=None,
+                 checkpoint: Optional[SweepCheckpoint] = None,
+                 autotune: Optional[str] = None):
+        from repro_torch.kernels import ops
+
+        ops.check_autotune(autotune)
+        if plan.chunk_s <= 0:
+            raise ValueError(
+                "plan has no chunk axis — build it with plan_sweep("
+                "chunk_s=...) to use the chunked runner")
+        self.plan = plan
+        self.originals = originals
+        self.store = store
+        self.backend = backend
+        self.multiple_mode = multiple_mode
+        self.device = device
+        self.checkpoint = checkpoint
+        self.chunk_s = int(plan.chunk_s)
+        self._specs = {s.scenario: s for s in plan.scenarios}
+        self._shard_states: List[Dict] = []
+        self._chunk_stats: Dict[str, Dict] = {}
+        #: the composed result of the latest :meth:`run`
+        self.result: Optional[DeviceSweepResult] = None
+        self.mode = "host"
+        if _resolve_backend(backend) == "torch" and all(
+                len(originals[s.dataset]) > 0 for s in plan.local_missing):
+            try:
+                self._prep_device()
+                self.mode = "device"
+            except ops.PallasDomainError:
+                self._shard_states = []   # wholesale host fallback
+
+    @property
+    def scenarios(self) -> Tuple[Tuple[str, int], ...]:
+        """The scenarios THIS process replays and reports (grid order) —
+        mirrors :attr:`DeviceSweepResult.scenarios`."""
+        if self.plan.n_hosts == 1:
+            return tuple(s.scenario for s in self.plan.scenarios)
+        local = {s.scenario for s in self.plan.local_missing} | \
+            {s.scenario for s in self.plan.cached}
+        return tuple(s.scenario for s in self.plan.scenarios
+                     if s.scenario in local)
+
+    def _prep_device(self) -> None:
+        """Upload every shard's tables ONCE; domain errors surface here,
+        before any chunk state exists."""
+        from repro_torch.kernels import ops
+
+        devices = _shard_devices(self.device)
+        for shard in self.plan.shards:
+            dev = devices[shard.device_index % len(devices)]
+            cn = ChunkedNSA(self.originals,
+                            [(s.dataset, s.span_s) for s in shard.specs],
+                            multiple_mode=self.multiple_mode, device=dev)
+            self._shard_states.append({
+                "shard": shard,
+                "nsa": cn,
+                "carry": ops.chunk_carry_init(
+                    len(shard.specs), cn.width,
+                    window=REPORT_TREND_WINDOW_S, device=dev),
+                "totals": np.zeros(len(shard.specs), np.int64),
+            })
+
+    # ------------------------------------------------------------- pipeline
+    def run(self, feeds: Optional[Dict[Tuple[str, int], ChunkFeed]] = None
+            ) -> DeviceSweepResult:
+        """Drive the full chunk pipeline; returns the composed result.
+
+        ``feeds`` (scenario → :class:`ChunkFeed`) receives every chunk
+        stream in round order — chunk ``k`` of EVERY scenario lands before
+        any scenario's chunk ``k+1`` — and each feed is closed after its
+        scenario's last chunk, so the chunked replay walk starts as soon as
+        chunk 0 lands. On any error every feed is closed before re-raising
+        (the producer side unblocks instead of deadlocking).
+        """
+        try:
+            self.result = (self._run_device(feeds) if self.mode == "device"
+                           else self._run_host(feeds))
+            return self.result
+        except BaseException:
+            if feeds:
+                for f in feeds.values():
+                    f.close()
+            raise
+
+    def _note_chunk(self, key: str, chunk: Stream) -> None:
+        """Fold one appended chunk into the manifest stats, so
+        ``finalize_chunks`` never re-reads what this process just wrote."""
+        st = self._chunk_stats.setdefault(
+            key, {"rows": 0, "nbytes": 0, "t_first": None, "t_last": None})
+        st["rows"] += len(chunk)
+        st["nbytes"] += chunk.nbytes()
+        if len(chunk):
+            if st["t_first"] is None:
+                st["t_first"] = float(chunk.t[0])
+            st["t_last"] = float(chunk.t[-1])
+
+    def _manifest_stats(self, key: str) -> Optional[Dict]:
+        st = self._chunk_stats.get(key)
+        if st is None:
+            return None
+        return {"rows": st["rows"], "nbytes": st["nbytes"],
+                "time_range_s": ((st["t_last"] - st["t_first"])
+                                 if st["t_first"] is not None else 0.0)}
+
+    def _feed_chunk(self, feeds, spec, k: int, chunk: Stream) -> None:
+        if feeds is None or spec.scenario not in feeds:
+            return
+        feeds[spec.scenario].put(chunk)
+        if k == spec.n_chunks - 1:
+            feeds[spec.scenario].close()
+
+    @staticmethod
+    def _slice_stream(sim: Stream, lo: int, hi: int) -> Stream:
+        """One chunk of an already-materialized sim (host data): its
+        scale stamps are sorted, so the chunk is one searchsorted slice."""
+        a, b = np.searchsorted(sim.scale_stamp, [lo, hi])
+        return Stream(name=sim.name, t=sim.t[a:b],
+                      payload={c: v[a:b] for c, v in sim.payload.items()},
+                      scale_stamp=sim.scale_stamp[a:b])
+
+    def _host_round(self, result, feeds, k: int,
+                    scenarios: List) -> None:
+        """Push chunk ``k`` of every HOST-materialized scenario (cache hits
+        in device mode; everything in host mode) into the feeds and, for
+        store-missing scenarios, append the chunk file."""
+        missing = {s.scenario for s in self.plan.local_missing}
+        for spec in scenarios:
+            if k >= spec.n_chunks:
+                continue
+            sim = result.host_sims[spec.scenario]
+            lo = k * self.chunk_s
+            hi = min(lo + self.chunk_s, spec.span_s)
+            chunk = self._slice_stream(sim, lo, hi)
+            if self.store and spec.scenario in missing:
+                self.store.append_chunk(spec.store_key, k, chunk)
+                self._note_chunk(spec.store_key, chunk)
+            self._feed_chunk(feeds, spec, k, chunk)
+
+    def _dispatch_chunk(self, k: int) -> List[Tuple[Dict, object]]:
+        """Queue chunk ``k``'s B1 → B2 → B6 on every shard still inside its
+        timeline, and its outputs' copies to pinned host memory; waits for
+        nothing."""
+        from repro_torch.kernels import ops
+
+        out = []
+        for st in self._shard_states:
+            lo = k * self.chunk_s
+            hi = min(lo + self.chunk_s, st["nsa"].width)
+            if lo >= hi:
+                continue          # this shard's timeline is over
+            h = st["nsa"].chunk(lo, hi)
+            st["carry"] = ops.stream_metrics_chunk(
+                st["carry"], h.ss_kept, h.totals, lo, hi)
+            out.append((st, h.to_host()))
+        return out
+
+    def _host_leg(self, result, feeds, cached, handles, k: int) -> None:
+        """Chunk ``k``'s host side: wait for its staged copies (its own
+        event only), gather the payload, append the chunk files, feed the
+        replay; then chunk ``k`` of the cache hits."""
+        for st, h in handles:
+            self._waited_s += h.wait()
+            totals = h.totals.numpy().astype(np.int64)
+            if not np.array_equal(totals, h.kept):
+                raise RuntimeError(
+                    f"chunk {k}: device kept counts {totals.tolist()} differ "
+                    f"from the tables' {h.kept.tolist()}")
+            chunks = materialize_sweep_chunk(self.originals,
+                                             st["nsa"].pairs, h, totals)
+            for r, spec in enumerate(st["shard"].specs):
+                if k >= spec.n_chunks:
+                    continue
+                st["totals"][r] += int(totals[r])
+                if self.store:
+                    self.store.append_chunk(spec.store_key, k, chunks[r])
+                    self._note_chunk(spec.store_key, chunks[r])
+                self._feed_chunk(feeds, spec, k, chunks[r])
+        self._host_round(result, feeds, k, cached)
+
+    def _run_device(self, feeds) -> DeviceSweepResult:
+        from repro_torch.kernels import ops
+
+        plan = self.plan
+        result = DeviceSweepResult(
+            plan, self.originals, self.store, self.backend, "device",
+            device=self._shard_states[0]["nsa"].device
+            if self._shard_states else _shard_devices(self.device)[0])
+        result.checkpoint = self.checkpoint
+        t0 = time.perf_counter()
+        for spec in plan.cached:
+            result.host_sims[spec.scenario] = \
+                self.store.get(spec.store_key)
+        cached = [s for s in plan.scenarios
+                  if s.scenario in result.host_sims]
+
+        # the double-buffered loop: dispatch k, THEN chunk k-1's host leg
+        # (the extra last pass only drains the final chunk's host leg)
+        self._waited_s = 0.0
+        dispatch_s = host_s = 0.0
+        prev: Optional[Tuple[List, int]] = None
+        for k in range(plan.n_chunks + 1):
+            t1 = time.perf_counter()
+            cur = self._dispatch_chunk(k) if k < plan.n_chunks else []
+            t2 = time.perf_counter()
+            if prev is not None:
+                self._host_leg(result, feeds, cached, *prev)
+            dispatch_s += t2 - t1
+            host_s += time.perf_counter() - t2
+            prev = (cur, k)
+        result.pipeline_s = {"dispatch_s": dispatch_s, "host_leg_s": host_s,
+                             "event_wait_s": self._waited_s}
+
+        # compose: fold each shard's carry into monolithic-shaped stats
+        for st in self._shard_states:
+            hist, mom2 = ops.chunk_carry_finalize(st["carry"])
+            result.shard_results.append(ShardResult(
+                shard=st["shard"],
+                pairs=tuple(s.scenario for s in st["shard"].specs),
+                ss_kept=None, idx=None, totals=st["totals"].copy(),
+                hist=hist, mom=mom2.cpu().numpy().astype(np.float64),
+                nsa_s=0.0))
+        self._finalize_store(result, [spec for st in self._shard_states
+                                      for spec in st["shard"].specs])
+        total_s = time.perf_counter() - t0
+        for sc in (s.scenario for s in plan.scenarios):
+            result.nsa_s[sc] = 0.0
+        result.sim_row_counts = {}
+        for sr in result.shard_results:
+            for r, sc in enumerate(sr.pairs):
+                result.nsa_s[sc] = total_s
+                result.sim_row_counts[sc] = int(sr.totals[r])
+        for spec in plan.cached:
+            result.sim_row_counts[spec.scenario] = \
+                len(result.host_sims[spec.scenario])
+        return result
+
+    def _finalize_store(self, result, specs) -> None:
+        """Write the chunked streams' manifests (their stats folded in as
+        the chunks were appended) and mark them materialized."""
+        if not self.store:
+            return
+        for spec in specs:
+            self.store.finalize_chunks(
+                spec.store_key, name=self.originals[spec.dataset].name,
+                n_chunks=spec.n_chunks,
+                extra_meta={"max_range": spec.max_range},
+                stats=self._manifest_stats(spec.store_key))
+        result._persisted = True
+        if self.checkpoint is not None:
+            self.checkpoint.mark_materialized(
+                [s.scenario for s in self.plan.local_missing])
+
+    def _run_host(self, feeds) -> DeviceSweepResult:
+        plan = self.plan
+        result = DeviceSweepResult(plan, self.originals, self.store,
+                                   self.backend, "host", device=self.device)
+        result.checkpoint = self.checkpoint
+        t0 = time.perf_counter()
+        for spec in plan.local_missing:
+            result.host_sims[spec.scenario] = nsa(
+                self.originals[spec.dataset], spec.span_s,
+                multiple_mode=self.multiple_mode, backend="numpy")
+        t_sweep = time.perf_counter() - t0
+        for spec in plan.cached:
+            result.host_sims[spec.scenario] = \
+                self.store.get(spec.store_key)
+        local = [s for s in plan.scenarios
+                 if s.scenario in result.host_sims]
+        for k in range(plan.n_chunks):
+            self._host_round(result, feeds, k, local)
+        self._finalize_store(result, plan.local_missing)
+        for spec in plan.scenarios:
+            result.nsa_s[spec.scenario] = 0.0 if spec.cached else t_sweep
+        scenarios = [sc for sc in (s.scenario for s in plan.scenarios)
+                     if sc in result.host_sims]
+        datasets = list(plan.datasets)
+        ms = metrics_batched(
+            [self.originals[d] for d in datasets] +
+            [result.host_sims[sc] for sc in scenarios],
+            [None] * len(datasets) +
+            [self._specs[sc].span_s for sc in scenarios],
+            backend=self.backend, device=self.device)
+        result._om = dict(zip(datasets, ms[:len(datasets)]))
+        result.sm = dict(zip(scenarios, ms[len(datasets):]))
+        result._host_group_done = True
+        result._sims = {sc: result.host_sims[sc] for sc in scenarios}
+        result.sim_row_counts = {sc: len(result.host_sims[sc])
+                                 for sc in scenarios}
+        return result
+
+
+def run_sweep_chunked(runner: ChunkedSweepRunner, consumer, *,
+                      queue_size: int = 64, fidelity_window_s: int = 60,
+                      t_pre: Optional[Dict[str, float]] = None,
+                      fault_plan: Optional[FaultPlan] = None,
+                      on_failure: str = "raise",
+                      max_bytes: Optional[int] = None,
+                      retention_policy: str = "block",
+                      checkpoint: Optional[SweepCheckpoint] = None
+                      ) -> Tuple[List[SimulationReport],
+                                 List[FidelityReport]]:
+    """Layer 3 of the chunked pipeline: compute, persist and REPLAY
+    chunk-overlapped.
+
+    The calling thread drives :meth:`ChunkedSweepRunner.run`; the
+    :class:`~repro_torch.streamsim.producer.MultiQueueProducer` (chunked
+    walk) and the per-scenario consumers run on their own threads,
+    consuming each scenario's :class:`~repro_torch.streamsim.producer.
+    ChunkFeed` (``maxsize=2``): replay of chunk 0 starts while chunk 1 is
+    still on the device, and backpressure chains queue → feed → runner so
+    host residency stays bounded end to end.
+
+    Differences from :func:`run_sweep`, by design: no
+    ``retry_policy``/``consumer_deadline_s`` — a chunked replay cannot
+    rewind a scenario's stream (its chunks are consumed as produced);
+    ``on_failure="degrade"`` still converts terminal consumer failures into
+    partial reports. Fault injection (``fault_plan``) applies unchanged:
+    the producer-side schedule walks the chunked rounds as it walks the
+    whole stream.
+    """
+    if on_failure not in ("raise", "degrade"):
+        raise ValueError(
+            f"on_failure must be 'raise' or 'degrade', got {on_failure!r}")
+    t_pre = t_pre or {}
+    scenarios = list(runner.scenarios)
+    feeds = {sc: ChunkFeed(maxsize=2) for sc in scenarios}
+    group = QueueGroup(feeds, maxsize=queue_size, max_bytes=max_bytes,
+                       retention_policy=retention_policy)
+    producer = MultiQueueProducer(feeds, group.queues,
+                                  clock=VirtualClock(),
+                                  fault_plan=fault_plan)
+    wrapped = {sc: (fault_plan.wrap_consumer(sc, consumer)
+                    if fault_plan is not None else consumer)
+               for sc in scenarios}
+    status = [None]
+    results: Dict = {}
+    errors: Dict[object, BaseException] = {}
+
+    def _produce():
+        status[0] = producer.run()
+
+    def _consume(sc):
+        try:
+            results[sc] = wrapped[sc](group[sc])
+        except Exception as exc:    # keep the producer walk drainable
+            errors[sc] = exc
+            for _ in group[sc]:
+                pass
+
+    t0 = time.perf_counter()
+    prod_th = threading.Thread(target=_produce, daemon=True)
+    cons = {sc: threading.Thread(target=_consume, args=(sc,), daemon=True)
+            for sc in scenarios}
+    prod_th.start()
+    for th in cons.values():
+        th.start()
+    result = runner.run(feeds)       # the chunk pipeline, on THIS thread
+    prod_th.join()
+    for th in cons.values():
+        th.join()
+    t_prod = time.perf_counter() - t0
+    if errors and on_failure == "raise":
+        ordered = [(sc, errors[sc]) for sc in scenarios if sc in errors]
+        detail = "; ".join(f"{sc!r}: {exc!r}" for sc, exc in ordered)
+        raise RuntimeError(
+            f"{len(ordered)} of {len(scenarios)} chunked sweep "
+            f"consumer(s) failed: {detail}") from ordered[0][1]
+    if status[0] != 0:
+        raise RuntimeError("producer reported fault status")
+
+    all_metrics: Dict = {}
+    for sc in scenarios:
+        if sc in errors:
+            all_metrics[sc] = {
+                "degraded": True, "failed": repr(errors[sc]),
+                "attempts": 1, **group[sc].stats(), **producer.stats(sc)}
+        else:
+            all_metrics[sc] = {**results[sc], **group[sc].stats(),
+                               **producer.stats(sc)}
+    fidelity = result.fidelity(fidelity_window_s)
+    result._ensure_stats()
+    reports = []
+    for sc in result.scenarios:
+        r = build_report(result, sc, t_pre.get(sc[0], 0.0), t_prod,
+                         all_metrics[sc])
+        if checkpoint is not None:
+            checkpoint.mark_report(r)
+        reports.append(r)
+    return reports, fidelity

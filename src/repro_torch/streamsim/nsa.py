@@ -34,6 +34,10 @@ Implementations
 - :func:`nsa_sweep_device` — a (stream × max_range) scenario grid as ONE
   launch of each kernel, leaving the kept stamps on the device for the
   metrics kernel.
+- :class:`ChunkedNSA` — the same grid served one time chunk at a time
+  (one B1 and one B2 launch per chunk over just the chunk's records),
+  for the chunked pipeline; :func:`materialize_sweep_chunk` is its host
+  gather.
 
 Backend selection rules
 -----------------------
@@ -46,8 +50,10 @@ nothing falls back to the CPU. Every backend produces bit-identical output.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -254,6 +260,212 @@ def materialize_sweep(streams: Dict[str, Stream],
             payload={k: v[idx] for k, v in src.payload.items()},
             scale_stamp=ss_host[r, :total],
         )
+    return out
+
+
+@dataclasses.dataclass
+class ChunkHandles:
+    """The outputs of ONE chunk of a chunked sweep (see :class:`ChunkedNSA`).
+
+    ``ss_kept``/``idx``/``totals`` are tensors on the sweep's device until
+    :meth:`to_host` stages them; ``idx`` entries are LOCAL to the chunk's
+    record slice (add ``rec_off[r]`` for indices into the source stream).
+    Both matrices hold the first ``K`` columns of each row, ``K`` the
+    ``TILE``-rounded largest kept count the host tables predict (``kept``):
+    the reference keeps the whole slice width, of which only the first
+    ``totals[r]`` entries are ever read.
+    """
+    ss_kept: object          # (R, K) int32 — kept scale stamps
+    idx: object              # (R, K) int32 — local kept indices
+    totals: object           # (R,) int32   — kept counts
+    rec_off: np.ndarray      # (R,) int64 host — record slice offsets
+    kept: np.ndarray         # (R,) int64 host — kept counts the tables give
+    lo: int                  # chunk bucket range [lo, hi)
+    hi: int
+    #: CUDA event recorded after :meth:`to_host` queued its copies
+    ready: object = None
+
+    def to_host(self) -> "ChunkHandles":
+        """Queue copies of what the host leg reads into pinned host memory
+        and record an event after them, without waiting: the host then
+        waits for THIS chunk's work only (:meth:`wait`), not for work queued
+        later on the same stream. CPU handles are returned as they are."""
+        if self.totals.device.type != "cuda":
+            return self
+        import torch
+
+        def pinned(x):
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            return out.copy_(x, non_blocking=True)
+
+        host = dataclasses.replace(self, ss_kept=pinned(self.ss_kept),
+                                   idx=pinned(self.idx),
+                                   totals=pinned(self.totals))
+        host.ready = torch.cuda.Event()
+        host.ready.record(torch.cuda.current_stream(self.totals.device))
+        return host
+
+    def wait(self) -> float:
+        """Block until the staged copies have landed; returns the seconds
+        spent waiting (0.0 for CPU handles)."""
+        if self.ready is None:
+            return 0.0
+        t0 = time.perf_counter()
+        self.ready.synchronize()
+        return time.perf_counter() - t0
+
+
+class ChunkedNSA:
+    """Per-chunk device NSA over a scenario grid — the unbounded-stream form.
+
+    Uploads each row's full-width bucket tables and rebased f32 timestamps
+    to the device ONCE, then serves the timeline chunk by chunk:
+    ``chunk(lo, hi)`` runs kernel B1 on just the record slice whose scale
+    stamps land in ``[lo, hi)`` and compacts its keep mask with B2, with no
+    host synchronisation (every size comes from the host tables).
+
+    Bit-exactness with the monolithic sweep: a chunk's records are a
+    CONTIGUOUS slice ``[starts[lo], starts[hi])`` of the sorted stream
+    (records never split a bucket), and B1 is launched with the full-width
+    tables rebased by the slice offset, so each record sees the same f32
+    timestamp, the same snapped bucket and the same in-bucket rank as in
+    the monolithic launch. Concatenating the chunks reproduces
+    :func:`nsa_sweep_device` exactly.
+
+    Parameters
+    ----------
+    streams : dict of str -> Stream
+        Source streams (non-empty).
+    pairs : sequence of (name, eff_range)
+        Scenario rows; ``eff_range`` is the row's EFFECTIVE simulated range
+        (``ScenarioSpec.span_s``, ``max_range`` per simulated day).
+    multiple_mode : {"time", "records"}
+        As in :func:`nsa`.
+    device : torch device, optional
+        Where the tables live and the kernels run (``None`` means CUDA).
+
+    Raises
+    ------
+    PallasDomainError
+        At construction, when any row falls outside the kernels' exactness
+        domain, so callers fall back to the host path before any chunk
+        state exists.
+    """
+
+    def __init__(self, streams: Dict[str, Stream],
+                 pairs: Sequence[Tuple[str, int]], *,
+                 multiple_mode: str = "time", device=None):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        self.pairs = [(name, int(rng)) for name, rng in pairs]
+        if not self.pairs:
+            raise ValueError("need at least one scenario row")
+        if any(rng <= 0 for _, rng in self.pairs):
+            raise ValueError("ranges must be positive")
+        ts = [np.asarray(streams[name].t, np.float64)
+              for name, _ in self.pairs]
+        if any(len(t) == 0 for t in ts):
+            raise ValueError("chunked path requires non-empty streams")
+        self.device = ops.resolve_device(device)
+        mults = [_multiple(len(streams[name]), streams[name].time_range,
+                           rng, multiple_mode)
+                 for name, rng in self.pairs]
+        t_b, starts_b, counts_b, k_b, scal_b, lengths = \
+            ops.stream_sample_inputs(ts, [rng for _, rng in self.pairs],
+                                     mults)
+        self.lengths = lengths.astype(np.int64)
+        self.width = starts_b.shape[1]
+        self.N = t_b.shape[1]
+        ops._check_metrics_domain(self.N)  # any chunk's kept width <= N
+        # host copies for slicing: column lo gives the first record of
+        # bucket lo (tail buckets carry starts = n, so rows whose range ends
+        # before the sweep's maximum give empty slices), and each bucket
+        # keeps exactly min(k, count) records (Bresenham keeps k of c >= k)
+        self._starts_np = starts_b.astype(np.int64)
+        kept = np.minimum(k_b, counts_b).astype(np.int64)
+        self._kept_cum = np.concatenate(
+            [np.zeros((len(self.pairs), 1), np.int64),
+             np.cumsum(kept, axis=1)], axis=1)
+        self._t, self._starts, self._counts, self._ktab, self._scal = (
+            torch.from_numpy(x).to(self.device)
+            for x in (t_b, starts_b, counts_b, k_b, scal_b))
+
+    def n_chunks(self, chunk_s: int) -> int:
+        return -(-self.width // int(chunk_s))
+
+    def _upload(self, x):
+        """A small per-chunk host array on the device, without a sync."""
+        import torch
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def chunk(self, lo: int, hi: int) -> ChunkHandles:
+        """Launch B1 and B2 for absolute buckets ``[lo, hi)``; returns the
+        handles without waiting for the device."""
+        import torch
+
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.stream_sample import stream_sample
+
+        lo, hi = int(lo), int(hi)
+        if not 0 <= lo < hi <= self.width:
+            raise ValueError(f"bad chunk range [{lo}, {hi}) for width "
+                             f"{self.width}")
+        a = self._starts_np[:, lo]
+        b = self.lengths if hi >= self.width else self._starts_np[:, hi]
+        m = b - a
+        kept = self._kept_cum[:, hi] - self._kept_cum[:, lo]
+
+        def tiles(x):
+            return max(int(-(-int(x) // ops.TILE) * ops.TILE), ops.TILE)
+
+        Nc = tiles(m.max())
+        K = min(tiles(kept.max()), Nc)
+        t_slice = torch.empty((len(self.pairs), Nc), dtype=torch.float32,
+                              device=self.device)
+        for r, off in enumerate(a.tolist()):
+            take = min(Nc, self.N - off)
+            t_slice[r, :take] = self._t[r, off:off + take]
+            if take < Nc:                   # pad with the last timestamp
+                t_slice[r, take:] = self._t[r, self.N - 1:]
+        # rebase the bucket tables by the slice offset: local rank equals
+        # global rank, so the keep bits match the monolithic launch
+        starts_reb = self._starts - self._upload(a.astype(np.int32))[:, None]
+        ss, keep = stream_sample(t_slice, starts_reb, self._counts,
+                                 self._ktab, self._scal,
+                                 self._upload(m.astype(np.int32)))
+        idx, totals = ops.compact_mask_batched_device(keep)
+        idx = idx[:, :K].contiguous()
+        ss_kept = torch.gather(ss, 1, torch.clamp(idx, max=Nc - 1).long())
+        return ChunkHandles(ss_kept=ss_kept, idx=idx, totals=totals,
+                            rec_off=a, kept=kept, lo=lo, hi=hi)
+
+
+def materialize_sweep_chunk(streams: Dict[str, Stream],
+                            pairs: Sequence[Tuple[str, int]],
+                            handles: ChunkHandles,
+                            totals: np.ndarray) -> List[Stream]:
+    """Host gather for ONE chunk: one Stream per scenario row, in ``pairs``
+    order. ``totals`` is the host copy of ``handles.totals``; handles staged
+    by :meth:`ChunkHandles.to_host` (and waited for) are read without
+    touching the device."""
+    w = int(np.max(totals, initial=0))
+    ss_host = handles.ss_kept[:, :w].cpu().numpy().astype(np.int64)
+    idx_host = handles.idx[:, :w].cpu().numpy()
+    out = []
+    for r, (name, _) in enumerate(pairs):
+        src, total = streams[name], int(totals[r])
+        gi = idx_host[r, :total].astype(np.int64) + int(handles.rec_off[r])
+        out.append(Stream(
+            name=src.name,
+            t=src.t[gi],
+            payload={k: v[gi] for k, v in src.payload.items()},
+            scale_stamp=ss_host[r, :total],
+        ))
     return out
 
 

@@ -24,7 +24,8 @@ timeline, each scenario feeding its own bounded queue
 consumer observes exactly the sequence of a sequential
 :meth:`Producer.run`. Under a :class:`RealClock` the loop is a heap-based
 timer wheel: one wall-clock loop fires every scenario's bucket at its due
-second.
+second. Fed :class:`ChunkFeed` s instead of whole streams, it replays the
+chunked engine's output round by round, in bounded host memory.
 
 Fault injection (chaos layer)
 -----------------------------
@@ -108,6 +109,76 @@ def _dup_bucket(bucket: Bucket) -> Bucket:
     (the transport re-sent the message, it did not copy the records)."""
     return Bucket(scale_stamp=bucket.scale_stamp, t=bucket.t,
                   payload=bucket.payload, emit_time=bucket.emit_time)
+
+
+class ChunkFeed:
+    """Bounded hand-off of time-chunk :class:`Stream` s from the chunked
+    engine (:class:`~repro_torch.streamsim.engine.ChunkedSweepRunner`) to the
+    replay walk — the piece that makes multi-day replay run in bounded
+    host memory.
+
+    One feed per scenario. The engine ``put()`` s chunk ``k`` as soon as
+    its host gather lands; the producer ``get()`` s chunks in order and
+    replays them. Both sides block on a :class:`threading.Condition` —
+    a full feed stalls the engine (backpressure), an empty feed stalls
+    the producer (**no busy-wait**: the producer thread sleeps in
+    ``Condition.wait`` until the engine's next ``put`` or ``close``).
+    ``close()`` marks the end of the scenario's timeline; ``get`` then
+    drains the remaining chunks and returns ``None``.
+
+    ``stats()`` exposes the bounded-residency proof:
+    ``feed_hwm_chunks`` is the high-watermark of chunks simultaneously
+    resident in the feed (≤ ``maxsize`` by construction — the acceptance
+    bound "peak host buckets ≤ 2 chunks per scenario"), and
+    ``feed_chunks`` the total handed through.
+    """
+
+    def __init__(self, maxsize: int = 2):
+        if maxsize < 1:
+            raise ValueError("maxsize must be >= 1")
+        self.maxsize = maxsize
+        self._items: list = []
+        self._cond = threading.Condition()
+        self._closed = False
+        self.hwm = 0
+        self.total = 0
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def put(self, stream: Stream, timeout: Optional[float] = None) -> None:
+        with self._cond:
+            while len(self._items) >= self.maxsize and not self._closed:
+                if not self._cond.wait(timeout=timeout):
+                    raise TimeoutError("ChunkFeed.put timed out")
+            if self._closed:
+                raise RuntimeError("feed closed")
+            self._items.append(stream)
+            self.total += 1
+            self.hwm = max(self.hwm, len(self._items))
+            self._cond.notify_all()
+
+    def get(self, timeout: Optional[float] = None) -> Optional[Stream]:
+        """Next chunk in timeline order; blocks (no busy-wait) while the
+        feed is empty and open; ``None`` once closed and drained."""
+        with self._cond:
+            while not self._items and not self._closed:
+                if not self._cond.wait(timeout=timeout):
+                    raise TimeoutError("ChunkFeed.get timed out")
+            if self._items:
+                item = self._items.pop(0)
+                self._cond.notify_all()
+                return item
+            return None
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def stats(self) -> Dict[str, int]:
+        return {"feed_hwm_chunks": self.hwm, "feed_chunks": self.total}
 
 
 class Producer:
@@ -325,9 +396,9 @@ class MultiQueueProducer:
     stall the whole merged walk (one transport, one loop — the
     broker-stall semantics).
 
-    Values must be whole :class:`Stream` s: the reference's chunked replay
-    (``ChunkFeed`` values) comes with the port's chunked-stream slice, and
-    anything else raises ``NotImplementedError``.
+    Values are whole :class:`Stream` s, or all :class:`ChunkFeed` s of
+    time-chunk streams (the chunked replay, :meth:`_run_chunked`); a mix
+    raises ``ValueError``.
     """
 
     def __init__(self, streams: Mapping, queues: Mapping,
@@ -337,12 +408,13 @@ class MultiQueueProducer:
         if set(streams) != set(queues):
             raise ValueError("streams and queues must share the same keys")
         self.streams = dict(streams)
-        odd = [k for k, v in self.streams.items() if not isinstance(v, Stream)]
-        if odd:
-            raise NotImplementedError(
-                f"scenario {odd[0]!r} is a {type(self.streams[odd[0]]).__name__}"
-                ", not a Stream: chunked replay (ChunkFeed values) is not "
-                "ported yet; it comes with the chunked-stream slice")
+        # chunked mode: values are ChunkFeed s of time-chunk streams
+        # instead of whole Stream s — all-or-nothing
+        n_feeds = sum(isinstance(v, ChunkFeed) for v in self.streams.values())
+        if n_feeds and n_feeds != len(self.streams):
+            raise ValueError("mix of ChunkFeed and Stream values — chunked "
+                             "replay is all-or-nothing per sweep")
+        self.chunked = bool(n_feeds)
         self.queues = {k: queues[k] for k in self.streams}
         self.clock = clock if clock is not None else VirtualClock()
         self.tick_s = tick_s
@@ -428,8 +500,11 @@ class MultiQueueProducer:
         index-addressed locals before the loop, so the per-event cost
         matches the sequential :class:`Producer` hot path. Non-virtual
         clocks take the timer-wheel walk instead
-        (:meth:`_run_timer_wheel`).
+        (:meth:`_run_timer_wheel`); feeds take the chunked walk
+        (:meth:`_run_chunked`).
         """
+        if self.chunked:
+            return self._run_chunked()
         if not isinstance(self.clock, VirtualClock):
             return self._run_timer_wheel()
         try:
@@ -592,9 +667,119 @@ class MultiQueueProducer:
                 q.close()
             return STATUS_FAULT
 
+    def _run_chunked(self) -> int:
+        """Replay from :class:`ChunkFeed` s of time-chunk streams.
+
+        The walk proceeds in *rounds*: one chunk per live scenario per
+        round (the engine pushes every scenario's chunk ``k`` before any
+        chunk ``k+1``, so the sweep stays on one aligned chunk grid),
+        merged-lexsorted and emitted exactly like :meth:`run` — the clock
+        and ``prev`` gap state carry ACROSS rounds, so under a
+        :class:`VirtualClock` per-bucket ``emit_time`` stamps are
+        identical to the whole-stream walk, and each scenario's consumer
+        observes the same bucket sequence either way. Replay of chunk 0
+        starts as soon as it lands: nothing waits for the full timeline.
+
+        **Stalled chunk iterator**: when a
+        feed has no chunk ready — the engine's next dispatch is still in
+        flight — the producer *blocks* in ``ChunkFeed.get`` on a
+        condition variable until the engine's ``put``/``close``. There is
+        no busy-wait and no timeout-retry loop, and fault injectors
+        persist across rounds (one draw per emission attempt, same RNG
+        walk as the whole-stream replay), so the reconciliation
+        identity ``delivered == emitted - dropped + duplicated`` holds
+        per scenario regardless of how the engine paces chunks. Under a
+        non-virtual clock each bucket still fires at its absolute due
+        time ``t0 + (b + 1) * tick_s`` (the timer-wheel schedule); a
+        stalled feed can only make buckets late, never reordered.
+
+        A scenario whose queue is closed under the walk goes dead but its
+        feed keeps draining (counting ``aborted_buckets``) — otherwise
+        the engine would block forever on a full feed of a shed scenario.
+        """
+        try:
+            keys = list(self.streams)
+            feeds = [self.streams[k] for k in keys]
+            queues = [self.queues[k] for k in keys]
+            injectors = self._injectors(keys)
+            clock, tick_s = self.clock, self.tick_s
+            virtual = isinstance(clock, VirtualClock)
+            n = len(keys)
+            n_buckets = [0] * n
+            n_records = [0] * n
+            dead = [False] * n
+            live = [True] * n
+            prev = -1                      # gap state carried across rounds
+            t0 = clock.time()              # wall-clock schedule origin
+            while any(live):
+                # ---- fetch this round's chunks (blocks, no busy-wait)
+                round_chunks = {}
+                for i in range(n):
+                    if not live[i]:
+                        continue
+                    chunk = feeds[i].get()
+                    if chunk is None:      # closed + drained: timeline over
+                        live[i] = False
+                        if dead[i]:
+                            queues[i].close()
+                        else:
+                            self._close_scenario(i, queues, injectors)
+                        continue
+                    round_chunks[i] = chunk
+                # ---- merged walk over the round's events (run() body)
+                events_b, events_s, slices = [], [], {}
+                for i, chunk in round_chunks.items():
+                    sl, _ = _group_by_scale_stamp(chunk)
+                    if not sl:
+                        continue           # empty chunk: nothing this round
+                    slices[i] = (sl, chunk)
+                    bs = np.fromiter(sl, np.int64, len(sl))
+                    events_b.append(bs)
+                    events_s.append(np.full(len(bs), i, np.int64))
+                if not events_b:
+                    continue
+                bs = np.concatenate(events_b)
+                si = np.concatenate(events_s)
+                order = np.lexsort((si, bs))
+                for b, i in zip(bs[order].tolist(), si[order].tolist()):
+                    if virtual:
+                        if b != prev:
+                            clock.sleep((b - prev) * tick_s)
+                            prev = b
+                    else:
+                        delay = t0 + (b + 1) * tick_s - clock.time()
+                        if delay > 0:
+                            clock.sleep(delay)
+                    if dead[i]:
+                        self.aborted_buckets[keys[i]] += 1
+                        continue
+                    sl, chunk = slices[i]
+                    s = sl[b]
+                    alive = self._emit_one(
+                        i, b,
+                        (chunk.t[s],
+                         [(k, v[s]) for k, v in chunk.payload.items()],
+                         clock),
+                        queues, injectors, n_buckets, n_records, keys)
+                    if not alive:
+                        dead[i] = True
+                        self.aborted_buckets[keys[i]] += 1
+            for i, key in enumerate(keys):
+                self.emitted_buckets[key] = n_buckets[i]
+                self.emitted_records[key] = n_records[i]
+            return STATUS_SUCCESS
+        except Exception:
+            for q in self.queues.values():
+                q.close()
+            for f in self.streams.values():
+                f.close()   # unblock the engine side — no orphaned put()
+            return STATUS_FAULT
+
     def stats(self, key=None) -> Dict:
         """Per-scenario producer stats (matching :meth:`Producer.stats`),
-        or the whole mapping when ``key`` is omitted."""
+        or the whole mapping when ``key`` is omitted. Chunked replays add
+        the feed's bounded-residency stats (``feed_hwm_chunks`` /
+        ``feed_chunks``)."""
         if key is not None:
             out = {"emitted_buckets": self.emitted_buckets[key],
                    "emitted_records": self.emitted_records[key],
@@ -602,5 +787,7 @@ class MultiQueueProducer:
             if self.fault_plan is not None and \
                     not self.fault_plan.is_noop_for(key):
                 out.update(self.fault_plan.injector(key).stats())
+            if self.chunked:
+                out.update(self.streams[key].stats())
             return out
         return {k: self.stats(k) for k in self.streams}

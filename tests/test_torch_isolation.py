@@ -58,8 +58,19 @@ def test_port_has_the_slice_modules():
                 "kernels/trend_scan.py", "kernels/ops.py",
                 "streamsim/engine.py", "streamsim/controller.py",
                 "streamsim/producer.py", "streamsim/queue.py",
-                "streamsim/resilience.py", "core/__init__.py"):
+                "streamsim/resilience.py", "streamsim/nsa.py",
+                "streamsim/store.py", "streamsim/plan.py",
+                "core/__init__.py"):
         assert mod in names
+    import importlib
+    for mod, attr in (("kernels.metrics_fused", "stream_metrics_carry"),
+                      ("kernels.trend_scan", "trend_scan_carry"),
+                      ("kernels.ops", "stream_metrics_chunk"),
+                      ("kernels.ops", "trend_scan_chunk"),
+                      ("streamsim.nsa", "ChunkedNSA"),
+                      ("streamsim.producer", "ChunkFeed"),
+                      ("streamsim.engine", "ChunkedSweepRunner")):
+        assert hasattr(importlib.import_module(f"repro_torch.{mod}"), attr)
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "stream_sample.cu", "compact.cu", "metrics_fused.cu",
         "trend_scan.cu", "pair_stats.cu"}
@@ -87,6 +98,14 @@ with tempfile.TemporaryDirectory() as d:
         scale=0.002, seed=9, backend="torch")
 assert ctl.last_result.mode == "device" and len(ctl.last_fidelity) == 2
 assert all(r.consumer_metrics["n"] == r.simulated_rows > 0 for r in reps)
+with tempfile.TemporaryDirectory() as d:
+    ctl = Controller(d, device="cpu")
+    reps = ctl.run_many(
+        ["traffic"], [20, 45], lambda q: {"n": sum(len(b) for b in q)},
+        scale=0.002, seed=9, backend="torch", chunk_s=7)
+assert ctl.last_result.mode == "device" and ctl.last_result.pipeline_s
+assert all(r.consumer_metrics["n"] == r.simulated_rows > 0 and
+           r.consumer_metrics["feed_chunks"] > 1 for r in reps)
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
           and sys.modules[m] is not None]
 assert not loaded, loaded

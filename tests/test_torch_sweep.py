@@ -448,23 +448,39 @@ def test_queue_group_budget_and_keys():
 
 
 def test_chunk_feed_values_not_ported():
-    feed = J.ChunkFeed()
-    with pytest.raises(NotImplementedError, match="chunk"):
-        T.MultiQueueProducer({"a": feed}, {"a": T.StreamQueue()})
+    # ported since: the port's own ChunkFeed values select the chunked walk;
+    # a mix with whole streams, or mismatched keys, still raise
+    feed = T.ChunkFeed()
+    assert T.MultiQueueProducer({"a": feed}, {"a": T.StreamQueue()}).chunked
+    sim = T.Stream("s", np.arange(3.0), {}, np.arange(3))
+    with pytest.raises(ValueError, match="mix"):
+        T.MultiQueueProducer({"a": feed, "b": sim},
+                             {"a": T.StreamQueue(), "b": T.StreamQueue()})
     with pytest.raises(ValueError):
         T.MultiQueueProducer({"a": feed}, {"b": T.StreamQueue()})
 
 
 # ---------------------------------------------------------- not ported yet
-@pytest.mark.parametrize("knob", [
-    {"checkpoint": True}, {"chunk_s": 60}, {"duration_s": 86_400},
-    {"service": True}, {"n_hosts": 2, "host_index": 0},
-    {"autotune": "cached"}],
+@pytest.mark.parametrize("knob,raises", [
+    ({"checkpoint": True}, None), ({"chunk_s": 60}, None),
+    ({"duration_s": 86_400}, ValueError),
+    ({"service": True}, NotImplementedError),
+    ({"n_hosts": 2, "host_index": 0}, NotImplementedError),
+    ({"autotune": "cached"}, NotImplementedError)],
     ids=["checkpoint", "chunk_s", "duration_s", "service", "n_hosts",
          "autotune"])
-def test_unported_knobs_raise(tmp_path, knob):
+def test_unported_knobs_raise(tmp_path, knob, raises):
+    # checkpoint and chunk_s are ported (the chunked slice) and run;
+    # duration_s without chunk_s raises the reference's ValueError
     c = T.Controller(str(tmp_path), device=CPU)
-    with pytest.raises(NotImplementedError):
+    if raises is None:
+        reps = c.run_many(["traffic"], [20], _drain, scale=SCALE, seed=9,
+                          backend="torch", **knob)
+        assert len(reps) == len(c.list_metrics()) == 1
+        assert reps[0].consumer_metrics["records_seen"] == \
+            reps[0].simulated_rows > 0
+        return
+    with pytest.raises(raises):
         c.run_many(["traffic"], [20], _drain, scale=SCALE, seed=9,
                    backend="torch", **knob)
     assert c.list_metrics() == []

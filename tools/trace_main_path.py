@@ -2,20 +2,31 @@
 """Where the time of the port's main paths goes, on one NVIDIA card.
 
     python3 tools/trace_main_path.py [--dataset userbehavior]
-        [--max-range 3600] [--scale 1.0] [--seed 0] [--reps 3] [--sweep]
+        [--max-range 3600] [--scale 1.0] [--seed 0] [--reps 3]
+        [--sweep | --chunked | --multiday]
 
 Drives ``repro_torch.streamsim.Controller(tmp, device="cuda").run(...,
 backend="torch")`` — or, with ``--sweep``, ``run_many`` over the paper's
 grid (sogouq, traffic, userbehavior × 600 ... 3600 s, the Tables 1-3 sweep
-with its Fig.-6 fidelity matrices) — ``--reps`` times, each in a fresh
-store (so every run does POSD and NSA), in three modes:
+with its Fig.-6 fidelity matrices); with ``--chunked``, the same grid
+through the chunked pipeline (``chunk_s=600``); with ``--multiday``, nine
+days of ``--dataset`` at ``--max-range`` per day, chunked — ``--reps``
+times, each in a fresh store (so every run does POSD and NSA; the
+multi-day original is prepared once and copied into each store, so its
+runs leave POSD out), in three modes:
 
 - ``plain``: no instrumentation — the end-to-end wall time;
 - ``spans``: the layer boundaries of the run (controller, plan, engine,
   NSA, each kernel wrapper, host table build, store writes, fidelity and
   its trend ops, replay, report statistics) are wrapped in spans that
   synchronise the device at both ends, so each span's time includes its
-  device work; self time is a span's time minus its child spans';
+  device work; self time is a span's time minus its child spans'. The
+  chunked runs add spans that do NOT synchronise, so the double buffering
+  stays as it is: ``chunk.dispatch`` (queueing one chunk's launches),
+  ``chunk.host_leg`` (the host side of one chunk), ``chunk.event_wait``
+  (of which: waiting for the chunk's copy event), ``chunk.materialize``,
+  ``store.append_chunk`` and ``replay.chunked`` (the producer walk, on its
+  own thread); their kernels are left to the profile;
 - ``profile``: one run under ``torch.profiler`` for the device's busy time
   (the union of kernel and copy intervals) and so its idle share.
 
@@ -27,8 +38,10 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import shutil
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -38,41 +51,53 @@ ROOT = Path(__file__).resolve().parent.parent
 DEVICE = "cuda"
 SWEEP_DATASETS = ("sogouq", "traffic", "userbehavior")
 SWEEP_RANGES = (600, 1200, 1800, 2400, 3000, 3600)
+CHUNK_S = 600
+MULTIDAY_S = 9 * 86_400
 
 
 class Spans:
-    """Nested wall-clock spans with device synchronisation at the edges."""
+    """Nested wall-clock spans, nested per thread; a span with ``sync``
+    synchronises the device at its edges, so its time includes its device
+    work."""
 
     def __init__(self, torch):
         self.torch = torch
         self.records = []        # (name, depth, seconds, self seconds)
-        self.depth = 0
-        self.child = [0.0]
+        self._local = threading.local()
 
-    def wrap(self, name, fn):
+    def _children(self):
+        child = getattr(self._local, "child", None)
+        if child is None:
+            child = self._local.child = [0.0]
+        return child
+
+    def wrap(self, name, fn, sync=True):
         @functools.wraps(fn)
         def traced(*args, **kwargs):
-            self.torch.cuda.synchronize()
-            self.depth += 1
-            self.child.append(0.0)
+            if sync:
+                self.torch.cuda.synchronize()
+            child = self._children()
+            child.append(0.0)
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
-                self.torch.cuda.synchronize()
+                if sync:
+                    self.torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
-                inner = self.child.pop()
-                self.depth -= 1
-                self.child[-1] += dt
-                self.records.append((name, self.depth, dt, dt - inner))
+                inner = child.pop()
+                child[-1] += dt
+                self.records.append((name, len(child) - 1, dt, dt - inner))
         return traced
 
 
-def _instrument(spans: Spans):
-    """Wrap the main path's layer boundaries where the run looks them up;
-    returns an undo list."""
+def _instrument(spans: Spans, chunked: bool):
+    """Wrap the run's layer boundaries where it looks them up; returns an
+    undo list. ``chunked`` leaves the kernels inside the pipeline unwrapped
+    and wraps the pipeline's steps without synchronising."""
     from repro_torch.kernels import ops
-    from repro_torch.streamsim import controller, engine, store
+    from repro_torch.streamsim import controller, engine, producer, store
+    from repro_torch.streamsim.nsa import ChunkHandles
 
     targets = [
         (controller.Controller, "prepare", "posd.prepare"),
@@ -100,11 +125,28 @@ def _instrument(spans: Spans):
         (controller.Controller, "save_fidelity",
          "controller.save_fidelity"),
     ]
+    unsynced = []
+    if chunked:
+        targets = [t for t in targets if not t[2].startswith("kernel.")] + [
+            (controller.Controller, "_prepare_multiday",
+             "posd.prepare_multiday")]
+        unsynced = [
+            (engine, "run_sweep_chunked", "engine.run_sweep_chunked"),
+            (engine.ChunkedSweepRunner, "_prep_device", "chunk.prep_device"),
+            (engine.ChunkedSweepRunner, "_dispatch_chunk", "chunk.dispatch"),
+            (engine.ChunkedSweepRunner, "_host_leg", "chunk.host_leg"),
+            (ChunkHandles, "wait", "chunk.event_wait"),
+            (engine, "materialize_sweep_chunk", "chunk.materialize"),
+            (store.StreamStore, "append_chunk", "store.append_chunk"),
+            (store.StreamStore, "finalize_chunks", "store.finalize_chunks"),
+            (producer.MultiQueueProducer, "_run_chunked", "replay.chunked"),
+        ]
     undo = []
-    for owner, attr, name in targets:
-        orig = getattr(owner, attr)
-        undo.append((owner, attr, orig))
-        setattr(owner, attr, spans.wrap(name, orig))
+    for group, sync in ((targets, True), (unsynced, False)):
+        for owner, attr, name in group:
+            orig = getattr(owner, attr)
+            undo.append((owner, attr, orig))
+            setattr(owner, attr, spans.wrap(name, orig, sync=sync))
     return undo
 
 
@@ -114,30 +156,50 @@ def _consumer(queue):
     return {"records_seen": sum(len(b) for b in queue)}
 
 
+def _multiday_original(args, workdir: Path):
+    """Prepare the multi-day original once; returns ``(its store key, its
+    directory)`` for :func:`_run` to copy into each fresh store."""
+    from repro_torch.streamsim import Controller
+    ctl = Controller(str(workdir), device=DEVICE)
+    ctl._prepare_multiday(args.dataset, args.scale, args.seed, MULTIDAY_S)
+    key = f"{args.dataset}__orig__d{MULTIDAY_S}"
+    return key, ctl.store._dir(key)
+
+
 def _run(args, workdir: Path):
     """One run in a fresh store; returns ``(wall s, report or the list of
-    reports)``."""
+    reports, the executed result)``."""
     import torch
 
     from repro_torch.streamsim import Controller
     ctl = Controller(str(workdir), device=DEVICE)
+    if args.multiday:
+        key, src = args.original
+        shutil.copytree(src, ctl.store._dir(key))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if args.sweep:
+    if args.multiday:
+        rep = ctl.run_many((args.dataset,), (args.max_range,), _consumer,
+                           scale=args.scale, seed=args.seed, backend="torch",
+                           chunk_s=CHUNK_S, duration_s=MULTIDAY_S)
+    elif args.sweep or args.chunked:
         rep = ctl.run_many(SWEEP_DATASETS, SWEEP_RANGES, _consumer,
-                           scale=args.scale, seed=args.seed, backend="torch")
+                           scale=args.scale, seed=args.seed, backend="torch",
+                           chunk_s=CHUNK_S if args.chunked else 0)
     else:
         rep = ctl.run(args.dataset, args.max_range, _consumer,
                       scale=args.scale, seed=args.seed, backend="torch")
     torch.cuda.synchronize()
     if ctl.last_result.mode != "device":
         raise AssertionError("the run fell back to host mode")
-    return time.perf_counter() - t0, rep
+    return time.perf_counter() - t0, rep, ctl.last_result
 
 
 def _summary(rep) -> dict:
     if isinstance(rep, list):
         return {"scenarios": len(rep),
+                "feed_hwm_chunks": max(r.consumer_metrics.get(
+                    "feed_hwm_chunks", 0) for r in rep),
                 "original_rows": {r.dataset: r.original_rows for r in rep},
                 "simulated_rows": sum(r.simulated_rows for r in rep),
                 "preprocess_s": {r.dataset: r.preprocess_s for r in rep},
@@ -170,9 +232,17 @@ def main() -> int:
     p.add_argument("--scale", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=3)
-    p.add_argument("--sweep", action="store_true",
-                   help="trace run_many over the paper grid instead of run")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--sweep", action="store_true",
+                      help="trace run_many over the paper grid instead of "
+                           "run")
+    mode.add_argument("--chunked", action="store_true",
+                      help="trace the paper grid through the chunked "
+                           "pipeline (chunk_s=600)")
+    mode.add_argument("--multiday", action="store_true",
+                      help="trace nine days of --dataset, chunked")
     args = p.parse_args()
+    chunked = args.chunked or args.multiday
 
     import torch
     if not torch.cuda.is_available():
@@ -182,19 +252,25 @@ def main() -> int:
     from repro_torch.kernels import _build
     _build.build_all()
 
-    out = {"card": torch.cuda.get_device_name(0), "args": vars(args)}
+    out = {"card": torch.cuda.get_device_name(0), "args": dict(vars(args))}
     with tempfile.TemporaryDirectory(prefix="trace_") as tmp:
         tmp = Path(tmp)
+        if args.multiday:
+            t0 = time.perf_counter()
+            args.original = _multiday_original(args, tmp / "original")
+            out["multiday_posd_s"] = time.perf_counter() - t0
         _run(args, tmp / "warm")                 # warm-up: CUDA context etc.
-        plain = [_run(args, tmp / f"plain{i}")[0] for i in range(args.reps)]
-        out["plain_run_s"] = plain
+        plain = [_run(args, tmp / f"plain{i}") for i in range(args.reps)]
+        out["plain_run_s"] = [w for w, _, _ in plain]
+        if chunked:
+            out["plain_pipeline_s"] = [r.pipeline_s for _, _, r in plain]
 
         per_rep = []
         for i in range(args.reps):
             spans = Spans(torch)
-            undo = _instrument(spans)
+            undo = _instrument(spans, chunked)
             try:
-                wall, rep = _run(args, tmp / f"spans{i}")
+                wall, rep, _ = _run(args, tmp / f"spans{i}")
             finally:
                 for owner, attr, orig in undo:
                     setattr(owner, attr, orig)
@@ -218,7 +294,7 @@ def main() -> int:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall, _ = _run(args, tmp / "profiled")
+            wall, _, _ = _run(args, tmp / "profiled")
         dev = [e for e in prof.events()
                if getattr(e, "device_type", None) is not None and
                e.device_type.name == "CUDA"]
