@@ -7,7 +7,7 @@ card.
 Phases, each of which raises on failure (nothing catches it):
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the CUDA kernels of B1-B7 from ``src/repro_torch/csrc`` (one
+2. build the CUDA kernels of B1-B8 from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card:
    - B1-B3 at the run-path shapes of the userbehavior day (10.63 M
@@ -31,8 +31,14 @@ Phases, each of which raises on failure (nothing catches it):
      row), the fidelity shape, widths 0, 1 and 1025 and a 604 800-entry row
      whose seeded total ends just under 2^31 - 1 — exact, tail included,
      and ``init = 0`` equal to B4 bit for bit;
+   - B8 (flash_decode) on the consumer LM's heads in f32 (G = 3, D = 64)
+     and llama3-8b's in bf16 (G = 4, D = 128), ragged lengths with 1, S a
+     multiple of no block, lengths past S, and junk past each length
+     (bit-equal output) — within 2e-5 (f32) and 5e-2 (bf16) of the plain
+     version;
    timing kernel, plain version and the one-call library yardstick (CUDA
-   events, median of several runs);
+   events, median of several runs; B8 at B = 16, S = 32 768 with
+   llama3-8b's heads, against ``scaled_dot_product_attention``);
 4. drive ``Controller(tmp, device="cuda").run("userbehavior", 3600, ...,
    scale=1.0, backend="torch")`` with every launch count set to 0 just
    before and read just after, and check it against the port's own
@@ -54,9 +60,21 @@ Phases, each of which raises on failure (nothing catches it):
    run on the same original, then drive B7 through
    ``ops.trend_scan_chunk`` over the finalized count row in 54 chunks and
    hold the concatenated trend to B4's bit for bit;
-8. print the ``report``, ``sweep``, ``chunked``, ``multiday`` and
-   ``kernels`` JSON lines and, last, the ``{"ok": true, "device": ...}``
-   line.
+8. drive ``python -m repro_torch.launch.serve`` at its defaults (the
+   paper's consumer LM at full width, 12 layers in f32, sogouq compressed
+   to 120 s at scale 0.01, 8 slots): every arrival finishes and B8 runs
+   exactly once per decode step and layer;
+9. drive ``Controller(tmp).run("sogouq", 120, consumer=ServingTask(...))``
+   with llama3-8b at its published width (32 layers, d 4096, 32/8 heads,
+   head_dim 128, bf16, seeded random weights on the card, 8 slots of 512
+   positions): every request finishes, B8 runs once per decode step and
+   layer, and B8 matches its plain version on the inputs of layers 0 and
+   31 of a real decode step; prints the logits of that step through B8
+   and through the plain version, prefill and decode step times, tokens/s
+   and peak memory, then frees the weights;
+10. print the ``report``, ``sweep``, ``chunked``, ``multiday``, ``serve``,
+   ``serve_llama3`` and ``kernels`` JSON lines and, last, the
+   ``{"ok": true, "device": ...}`` line.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -173,8 +191,9 @@ def _moments_err(name: str, got, want) -> float:
 
 
 def _wrappers():
-    """The seven kernel wrappers, each with its ``launches`` count."""
+    """The eight kernel wrappers, each with its ``launches`` count."""
     from repro_torch.kernels.compact import compact
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.metrics_fused import (stream_metrics,
                                                    stream_metrics_carry)
     from repro_torch.kernels.stream_sample import stream_sample
@@ -184,7 +203,8 @@ def _wrappers():
             "metrics_fused": stream_metrics, "trend_scan": trend_scan,
             "pair_stats": pair_stats,
             "stream_metrics_carry": stream_metrics_carry,
-            "trend_scan_carry": trend_scan_carry}
+            "trend_scan_carry": trend_scan_carry,
+            "flash_decode": flash_decode}
 
 
 def _zero_launches():
@@ -679,6 +699,131 @@ def check_carry_kernels(device: str, seed: int, cases,
     return rows
 
 
+# ----------------------------------------------------------- B8 (phase 3)
+#: the JAX flash-decode tests' tolerances (rtol = atol)
+DECODE_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+#: B8's timing shape: the decode_32k cache length of configs/__init__.py
+#: with llama3-8b's heads, the batch cut from 128 to 16 (one layer's K and
+#: V are then 2.15 GB)
+DECODE_TIMING = dict(B=16, S=32_768, H=32, Kh=8, D=128)
+
+
+def _decode_inputs(gen, B, S, H, Kh, D, dtype, lengths, device):
+    import torch
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
+               for shape in ((B, H, D), (B, S, Kh, D), (B, S, Kh, D)))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+def _decode_err(name: str, got, want, dtype: str) -> float:
+    import torch
+    tol = DECODE_TOL[dtype]
+    if got.dtype != want.dtype or got.shape != want.shape or not \
+            torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: kernel and plain version differ by "
+                             f"{(got.float() - want.float()).abs().max()} "
+                             f"(tolerance {tol})")
+    return float((got.float() - want.float()).abs().max())
+
+
+def _decode_bound(lengths, S, H, Kh, D, itemsize):
+    """K and V bytes below each length (read once), q and the output, and
+    4 flops per (head, position, d) plus one exp per (head, position)."""
+    n = sum(min(int(x), S) for x in lengths)
+    B = len(lengths)
+    return _bound_ms(2 * n * Kh * D * itemsize + 2 * B * H * D * itemsize
+                     + 4 * B, n * H * (4 * D + 1))
+
+
+def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
+                        plain_reps: int = 3):
+    """Phase 3 for B8: the kernel against its plain version on the
+    consumer LM's heads in f32 (G = 3, D = 64) and llama3-8b's in bf16
+    (G = 4, D = 128), ragged lengths with 1, S a multiple of no block,
+    lengths past S, and junk past the length (bit-equal outputs); then the
+    timing row at :data:`DECODE_TIMING` with SDPA as the library
+    yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    cases = {
+        # name: (B, S, H, Kh, D, dtype, lengths)
+        "consumer_f32": (8, 64, 12, 4, 64, "float32",
+                         [1, 2, 9, 17, 33, 63, 64, 40]),
+        "llama3_bf16": (8, 512, 32, 8, 128, "bfloat16",
+                        [1, 16, 17, 31, 100, 256, 511, 512]),
+        "ragged_s_f32": (3, 1000, 12, 4, 64, "float32", [1, 999, 1000]),
+        "ragged_s_bf16": (5, 777, 32, 8, 128, "bfloat16",
+                          [1, 64, 65, 700, 777]),
+        "past_s": (4, 300, 32, 8, 128, "bfloat16", [301, 1000, 2 ** 30, 300]),
+        "mha_f32": (2, 130, 4, 4, 64, "float32", [130, 129]),
+    }
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for name, (B, S, H, Kh, D, dtype, lengths) in cases.items():
+        q, k, v, lens = _decode_inputs(gen, B, S, H, Kh, D, dtype, lengths,
+                                       device)
+        got = flash_decode(q, k, v, lens)
+        errs[dtype] = max(errs[dtype], _decode_err(
+            f"flash_decode/{name}", got, flash_decode_plain(q, k, v, lens),
+            dtype))
+        if name == "past_s":
+            full = flash_decode(q, k, v, torch.full_like(lens, S))
+            if not torch.equal(got, full):
+                raise AssertionError("flash_decode/past_s: lengths > S "
+                                     "differ from lengths = S")
+        # junk past the length (prefill padding) changes nothing
+        k2, v2 = k.clone(), v.clone()
+        for b, n in enumerate(lengths):
+            k2[b, min(n, S):] = 999.0
+            v2[b, min(n, S):] = -999.0
+        if not torch.equal(flash_decode(q, k2, v2, lens), got):
+            raise AssertionError(f"flash_decode/{name}: cache rows past "
+                                 "the length changed the output")
+    torch.cuda.synchronize()
+
+    def row(B, S, H, Kh, D, lengths, reps, plain):
+        q, k, v, lens = _decode_inputs(gen, B, S, H, Kh, D, "bfloat16",
+                                       lengths, device)
+        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(S, device=device)[None, :] <
+                lens[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+        want = flash_decode_plain(q, k, v, lens)
+        err = _decode_err(f"flash_decode/timing B={B} S={S}",
+                          flash_decode(q, k, v, lens), want, "bfloat16")
+        lib_err = float((sdpa()[:, :, 0].float() - want.float()).abs().max())
+        out = dict(ms=_time_ms(lambda: flash_decode(q, k, v, lens), reps),
+                   plain_ms=(_time_ms(lambda: flash_decode_plain(
+                       q, k, v, lens), plain_reps) if plain else None),
+                   library_ms=_time_ms(sdpa, reps),
+                   library_max_abs_err=lib_err, max_abs_err=err,
+                   shape=f"B={B} S={S} H={H} Kh={Kh} D={D} bf16 "
+                         f"kept={sum(min(x, S) for x in lengths)}")
+        out["bound_ms"], out["bound_by"] = _decode_bound(lengths, S, H, Kh,
+                                                         D, 2)
+        return out
+
+    t = DECODE_TIMING
+    timed = row(t["B"], t["S"], t["H"], t["Kh"], t["D"], [t["S"]] * t["B"],
+                timing_reps, True)
+    timed["max_abs_err_f32"] = errs["float32"]
+    timed["max_abs_err_bf16"] = max(errs["bfloat16"], timed["max_abs_err"])
+    timed["max_abs_err"] = max(timed["max_abs_err_f32"],
+                               timed["max_abs_err_bf16"])
+    # the serve_llama3 decode shape: 8 slots of 512 positions, ~20 used
+    timed["serve"] = row(8, 512, 32, 8, 128, [17, 20, 24, 28, 18, 21, 25, 30],
+                         timing_reps, True)
+    return {"flash_decode": timed}
+
+
 def _same_sim(store_a, store_b, key: str) -> None:
     a, b = store_a.get(key), store_b.get(key)
     cols_a = {"t": a.t, "scale_stamp": a.scale_stamp, **a.payload}
@@ -1095,6 +1240,206 @@ def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
     return launches, multiday
 
 
+# ------------------------------------------------- phase 8: serve (the CLI)
+def run_serve_path(workdir: Path, argv=()):
+    """Phase 8: ``repro_torch.launch.serve`` at its defaults (the paper's
+    consumer LM at full width, sogouq compressed to 120 s at scale 0.01,
+    8 slots, max_len 64) with the launch counts zeroed just before and
+    read just after: every arrival must finish, and B8 must run once per
+    decode step and layer."""
+    from repro_torch.configs.paper_stream import consumer_lm
+    from repro_torch.launch import serve
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    summary = serve.main(["--out", str(workdir / "serve_metrics.json"),
+                          *argv])
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    n_layers = consumer_lm().n_layers
+    if summary["finished"] != summary["arrivals"] or summary["arrivals"] < 1:
+        raise AssertionError(f"serve: {summary['finished']} of "
+                             f"{summary['arrivals']} arrivals finished")
+    _check_launches("serve", launches, {
+        "flash_decode": summary["decode_steps"] * n_layers}, exact=True)
+    return launches, dict(summary, wall_s=wall, layers=n_layers)
+
+
+# ------------------------------------- phase 9: llama3-8b under Controller.run
+SERVE_ARCH, SERVE_DATASET, SERVE_RANGE = "llama3-8b", "sogouq", 120
+SERVE_TASK = dict(slots=8, max_len=512, prompt_len=16, max_new_tokens=16,
+                  max_requests_per_bucket=4, reuse_engine=True)
+
+
+def _capture_decode(cfg, params, cache, toks, layers, plain: bool):
+    """One decode step from a copy of ``cache``; returns its logits and
+    the (q, k, v, lengths) B8 was given in ``layers``. With ``plain`` the
+    step runs B8's plain version in every layer instead of the kernel (the
+    swap is this script's, not an option of the package)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.models import transformer
+
+    real = ops.flash_decode
+    seen, calls = {}, [0]
+
+    def hook(q, k, v, lengths, **kw):
+        if calls[0] in layers:
+            seen[calls[0]] = tuple(t.clone() for t in (q, k, v, lengths))
+        calls[0] += 1
+        return flash_decode_plain(q, k, v, lengths) if plain else \
+            real(q, k, v, lengths, **kw)
+
+    work = transformer._tree_map(lambda t: t.clone(), cache)
+    ops.flash_decode = hook
+    try:
+        logits, _ = transformer.decode_step(cfg, params, work, toks)
+    finally:
+        ops.flash_decode = real
+    torch.cuda.synchronize()
+    return logits, seen
+
+
+def run_serve_llama3_path(device: str, seed: int, workdir: Path,
+                          cfg=None, reps: int = 10):
+    """Phase 9: ``Controller.run("sogouq", 120, consumer=ServingTask(...))``
+    on llama3-8b at its published width (32 layers, d 4096, 32/8 heads,
+    head_dim 128, bf16) with seeded random weights on the card, the launch
+    counts zeroed just before and read just after. Then, outside the
+    counted run: B8 against its plain version on the inputs captured from
+    the first and last layers of a real decode step, the logits of that
+    step through B8 and through the plain version (reported, not gated),
+    and prefill / decode step times. ``cfg`` replaces llama3-8b (a small
+    config rehearses the phase on the CPU)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.models import transformer
+    from repro_torch.streamsim import Controller, ServingTask
+
+    cfg = get_config(SERVE_ARCH) if cfg is None else cfg
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != cfg.n_params():
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, the "
+                             f"config says {cfg.n_params()}")
+    task = ServingTask(cfg, params, device=device, **SERVE_TASK)
+    torch.cuda.reset_peak_memory_stats()
+    ctl = Controller(str(workdir / "serve_llama3"), device=device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    rep = ctl.run(SERVE_DATASET, SERVE_RANGE, task, seed=seed)
+    run_s = time.perf_counter() - t0
+    launches = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m = rep.consumer_metrics
+    if ctl.last_result.mode != "device":
+        raise AssertionError(f"serve_llama3 ran in {ctl.last_result.mode} "
+                             "mode")
+    if m["serving_finished"] != m["task_records"] or m["task_records"] < 1:
+        raise AssertionError(f"serve_llama3: {m['serving_finished']} of "
+                             f"{m['task_records']} requests finished")
+    _check_launches("serve_llama3", launches, {
+        "flash_decode": m["serving_decode_steps"] * cfg.n_layers},
+        exact=True)
+    _check_launches("serve_llama3", launches, MIN_LAUNCHES, exact=False)
+
+    # outside the counted run: a batch of 8 ragged prompts from a seed
+    rng = np.random.default_rng(seed)
+    slots, p_len = SERVE_TASK["slots"], SERVE_TASK["prompt_len"]
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (slots, p_len),
+                                         dtype=np.int32)).to(device)
+    lens = torch.from_numpy(rng.integers(1, p_len + 1, slots,
+                                         dtype=np.int32)).to(device)
+    max_len = SERVE_TASK["max_len"]
+
+    def prefill():
+        return transformer.prefill(cfg, params, toks, lens, max_len)
+    prefill_ms = _host_ms(prefill, reps)
+    logits, cache = prefill()
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    last = cfg.n_layers - 1
+    lk, seen = _capture_decode(cfg, params, cache, nxt, (0, last), False)
+    lp, _ = _capture_decode(cfg, params, cache, nxt, (0, last), True)
+    b8_err = 0.0
+    for layer, (q, k, v, ln) in sorted(seen.items()):
+        b8_err = max(b8_err, _decode_err(
+            f"flash_decode/{cfg.name} layer {layer}", flash_decode(q, k, v, ln),
+            flash_decode_plain(q, k, v, ln), cfg.dtype))
+    top1 = float((torch.argmax(lk, -1) == torch.argmax(lp, -1)).float()
+                 .mean())
+
+    def decode():
+        transformer.decode_step(cfg, params, cache, nxt)
+    decode_ms = _host_ms(decode, reps)
+    report = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim_, "dtype": cfg.dtype, "params": n_params,
+        "init_s": init_s, "run_s": run_s,
+        "task_records": m["task_records"],
+        "serving_finished": m["serving_finished"],
+        "serving_tokens_out": m["serving_tokens_out"],
+        "serving_decode_steps": m["serving_decode_steps"],
+        "serving_queue_peak": m["serving_queue_peak"],
+        "task_wall_s": m["task_wall_s"],
+        "tokens_per_s": m["serving_tokens_out"] / m["task_wall_s"],
+        "simulated_rows": rep.simulated_rows, "produce_s": rep.produce_s,
+        "peak_gb": peak_gb, "prefill_ms": prefill_ms,
+        "prefill_shape": f"B={slots} P={p_len} max_len={max_len}",
+        "decode_step_ms": decode_ms,
+        "decode_tokens_per_s": slots * 1e3 / decode_ms,
+        "b8_layers_max_abs_err": b8_err,
+        "plain_swap_max_abs_logit_diff": float((lk - lp).abs().max()),
+        "plain_swap_top1_agreement": top1,
+    }
+    print(f"serve_llama3: prefill {prefill_ms:.3f} ms "
+          f"({report['prefill_shape']})")
+    print(f"serve_llama3: decode step {decode_ms:.3f} ms at {slots} slots, "
+          f"{report['decode_tokens_per_s']:.1f} tokens/s; "
+          f"end to end {report['tokens_per_s']:.1f} tokens/s")
+    print(f"serve_llama3: peak device memory {peak_gb:.2f} GB")
+    del task, params, cache, logits, lk, lp, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median wall time of ``fn()`` ending in a device synchronise, after
+    one warm-up (a step or request time, not a kernel time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1109,6 +1454,11 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
 
+    # f32 products in full f32 everywhere (the consumer LM and the
+    # yardsticks), whatever the installation's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     card = _card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1117,7 +1467,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"build: {len(_build.kernel_names())} sources (kernels B1-B7) in "
+    print(f"build: {len(_build.kernel_names())} sources (kernels B1-B8) in "
           f"{build_s:.1f} s")
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():
@@ -1130,6 +1480,7 @@ def main() -> int:
     rows.update(check_trend_kernels("cuda", MAIN_SCALE, MAIN_SEED))
     rows.update(check_carry_kernels("cuda", MAIN_SEED, cases))
     cases.clear()
+    rows.update(check_decode_kernel("cuda", MAIN_SEED))
     check_s = time.perf_counter() - t0
     print(f"kernel checks passed in {check_s:.1f} s")
 
@@ -1147,9 +1498,15 @@ def main() -> int:
         md_launches, multiday = run_multiday_path("cuda", MAIN_SCALE,
                                                   MAIN_SEED, Path(tmp))
         print(json.dumps({"multiday": multiday}), flush=True)
+        serve_launches, serve = run_serve_path(Path(tmp))
+        print(json.dumps({"serve": serve}), flush=True)
+        llama_launches, llama = run_serve_llama3_path("cuda", MAIN_SEED,
+                                                      Path(tmp))
+        print(json.dumps({"serve_llama3": llama}), flush=True)
 
     by_path = {"run": run_launches, "run_many": sweep_launches,
-               "run_many_chunked": chunked_launches, "multiday": md_launches}
+               "run_many_chunked": chunked_launches, "multiday": md_launches,
+               "serve": serve_launches, "serve_llama3": llama_launches}
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
                           "src/repro/kernels/stream_sample.py:146",
@@ -1169,9 +1526,13 @@ def main() -> int:
         "trend_scan_carry": ("src/repro_torch/csrc/trend_scan.cu",
                              "src/repro/kernels/trend_scan.py:167",
                              "multiday"),
+        "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:93",
+                         "serve_llama3"),
     }
     extra = ("sim", "sweep", "week", "S37", "max_scaled_err", "records",
-             "multiday", "fidelity")
+             "multiday", "fidelity", "serve", "max_abs_err_f32",
+             "max_abs_err_bf16", "library_max_abs_err")
     kernels = []
     for name, (source, tpu, path) in replaces.items():
         r = rows[name]

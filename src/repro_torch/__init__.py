@@ -9,6 +9,11 @@ Layers, named as in the JAX package ``repro`` they mirror:
 - ``repro_torch.core``      : public API facade over the pipeline.
 - ``repro_torch.kernels``   : hand-written CUDA kernels for Hopper
   (``csrc/*.cu``), each beside its plain PyTorch version.
+- ``repro_torch.models``, ``configs``, ``serving``, ``training``,
+  ``launch`` : the dense GQA consumer LMs (llama3-8b, the paper's consumer
+  LM, ...), the continuous-batching serving engine driven by the simulated
+  stream (``streamsim.ServingTask``) and its CLI
+  (``python -m repro_torch.launch.serve``).
 
 The package imports ``torch`` and numpy only. Entry points that take a
 ``device`` run on CUDA unless the caller passes ``device="cpu"``.

@@ -11,6 +11,8 @@
   prefix sums of count series (three-phase scan), B7, the same with each
   row's running total carried in and out, and B5, per-row sums and the Gram
   matrix of centered trends (one block per pair, f32, no TF32).
+- :mod:`repro_torch.kernels.flash_decode`  — B8, GQA decode attention over
+  a KV cache masked by lengths (split-KV flash-decoding, f32 accumulation).
 
 Each module holds the kernel's wrapper (CUDA tensors launch the kernel,
 CPU tensors run the plain version; each launch adds one to the wrapper's

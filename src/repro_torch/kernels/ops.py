@@ -1,7 +1,8 @@
 """Public wrappers over the port's kernels.
 
 Counterpart of ``repro/kernels/ops.py`` (the NSA, compaction, metrics,
-trend-scan, S×S trend-correlation, pairwise-trend and chunk-carry parts).
+trend-scan, S×S trend-correlation, pairwise-trend, chunk-carry and
+flash-decode parts).
 Each op builds the host-side tables and layouts,
 moves them to the requested device and calls a kernel wrapper, which
 launches the CUDA kernel for CUDA tensors and runs the kernel's plain
@@ -27,6 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.compact import compact
+from repro_torch.kernels.flash_decode import flash_decode \
+    as _flash_decode_kernel
 from repro_torch.kernels.metrics_fused import BUCKET_BLOCK, stream_metrics \
     as _stream_metrics_kernel
 from repro_torch.kernels.metrics_fused import stream_metrics_carry \
@@ -874,3 +877,15 @@ def trend_scan_chunk(q_chunk, window: int, *, tail=None, psum_carry=None,
     # round differently from the monolithic trend
     w_dev = torch.full((S, 1), float(w), dtype=torch.float32, device=dev)
     return win / w_dev, e0, new_tail, new_total
+
+
+# ------------------------------------------------------------ flash decode
+def flash_decode(q, k, v, lengths, *, block_s: int = 512):
+    """GQA decode attention (kernel B8): q (B, H, D) against the cache
+    k, v (B, S, Kh, D), softmax over ``s < min(lengths[b], S)``, f32
+    accumulation, output in q's dtype.
+
+    The kernel masks a ragged tail itself, so unlike the reference the
+    cache is not padded to a multiple of ``block_s``; ``block_s`` bounds
+    the cache positions one block reads."""
+    return _flash_decode_kernel(q, k, v, lengths, block_s=block_s)

@@ -9,7 +9,8 @@ Supporting pieces: synthetic datasets, the stream store ("database"), the
 Kafka-analogue bounded queues, volatility and trend metrics, the sweep plan
 and engine, the controller, seeded fault injection
 (:mod:`repro_torch.streamsim.faults`) and the retry/breaker/deadline
-primitives (:mod:`repro_torch.streamsim.resilience`).
+primitives (:mod:`repro_torch.streamsim.resilience`), and the stream-task
+contract with its serving workload (:mod:`repro_torch.streamsim.tasks`).
 """
 
 from repro_torch.streamsim.datasets import (  # noqa: F401
@@ -83,3 +84,10 @@ from repro_torch.streamsim.engine import (  # noqa: F401
     run_sweep_chunked,
 )
 from repro_torch.streamsim.controller import Controller  # noqa: F401
+from repro_torch.streamsim.tasks import (  # noqa: F401
+    LATENCY_BIN_US,
+    LATENCY_BINS,
+    ServingTask,
+    StreamTask,
+    output_series,
+)

@@ -60,7 +60,13 @@ def test_port_has_the_slice_modules():
                 "streamsim/producer.py", "streamsim/queue.py",
                 "streamsim/resilience.py", "streamsim/nsa.py",
                 "streamsim/store.py", "streamsim/plan.py",
-                "core/__init__.py"):
+                "core/__init__.py", "kernels/flash_decode.py",
+                "models/config.py", "models/layers.py",
+                "models/attention.py", "models/transformer.py",
+                "configs/__init__.py", "configs/llama3_8b.py",
+                "configs/paper_stream.py", "training/data.py",
+                "serving/engine.py", "serving/load.py",
+                "streamsim/tasks.py", "launch/serve.py"):
         assert mod in names
     import importlib
     for mod, attr in (("kernels.metrics_fused", "stream_metrics_carry"),
@@ -69,11 +75,14 @@ def test_port_has_the_slice_modules():
                       ("kernels.ops", "trend_scan_chunk"),
                       ("streamsim.nsa", "ChunkedNSA"),
                       ("streamsim.producer", "ChunkFeed"),
-                      ("streamsim.engine", "ChunkedSweepRunner")):
+                      ("streamsim.engine", "ChunkedSweepRunner"),
+                      ("kernels.ops", "flash_decode"),
+                      ("streamsim", "ServingTask"),
+                      ("models.transformer", "params_from_numpy")):
         assert hasattr(importlib.import_module(f"repro_torch.{mod}"), attr)
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "stream_sample.cu", "compact.cu", "metrics_fused.cu",
-        "trend_scan.cu", "pair_stats.cu"}
+        "trend_scan.cu", "pair_stats.cu", "flash_decode.cu"}
 
 
 _BLOCKED_RUN = r"""
@@ -106,6 +115,16 @@ with tempfile.TemporaryDirectory() as d:
 assert ctl.last_result.mode == "device" and ctl.last_result.pipeline_s
 assert all(r.consumer_metrics["n"] == r.simulated_rows > 0 and
            r.consumer_metrics["feed_chunks"] > 1 for r in reps)
+from repro_torch.configs import get_smoke
+from repro_torch.models import transformer
+from repro_torch.serving import Request, ServingEngine
+cfg = get_smoke("llama3-8b")
+eng = ServingEngine(cfg, transformer.init_params(cfg, 0, device="cpu"),
+                    slots=2, max_len=16, eos_id=-1, device="cpu")
+for i in range(3):
+    eng.submit(Request(rid=i, prompt=[1 + i, 2, 3], max_new_tokens=4))
+eng.drain()
+assert eng.metrics.finished == 3
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
           and sys.modules[m] is not None]
 assert not loaded, loaded

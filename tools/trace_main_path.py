@@ -3,15 +3,18 @@
 
     python3 tools/trace_main_path.py [--dataset userbehavior]
         [--max-range 3600] [--scale 1.0] [--seed 0] [--reps 3]
-        [--sweep | --chunked | --multiday]
+        [--sweep | --chunked | --multiday | --serve [--steps 20]]
 
 Drives ``repro_torch.streamsim.Controller(tmp, device="cuda").run(...,
 backend="torch")`` — or, with ``--sweep``, ``run_many`` over the paper's
 grid (sogouq, traffic, userbehavior × 600 ... 3600 s, the Tables 1-3 sweep
 with its Fig.-6 fidelity matrices); with ``--chunked``, the same grid
 through the chunked pipeline (``chunk_s=600``); with ``--multiday``, nine
-days of ``--dataset`` at ``--max-range`` per day, chunked — ``--reps``
-times, each in a fresh store (so every run does POSD and NSA; the
+days of ``--dataset`` at ``--max-range`` per day, chunked; with
+``--serve``, ``run("sogouq", 120, consumer=ServingTask(...))`` serving
+llama3-8b at its published width (seeded bf16 weights, 8 slots of 512
+positions, 16-token prompts, 16 new tokens, 4 requests per bucket) —
+``--reps`` times, each in a fresh store (so every run does POSD and NSA; the
 multi-day original is prepared once and copied into each store, so its
 runs leave POSD out), in three modes:
 
@@ -28,7 +31,15 @@ runs leave POSD out), in three modes:
   ``store.append_chunk`` and ``replay.chunked`` (the producer walk, on its
   own thread); their kernels are left to the profile;
 - ``profile``: one run under ``torch.profiler`` for the device's busy time
-  (the union of kernel and copy intervals) and so its idle share.
+  (the union of kernel and copy intervals) and so its idle share. With
+  ``--serve`` the profile covers one prefill of 8 prompts and ``--steps``
+  decode steps at 8 busy slots instead of the whole run (thousands of
+  launches per step would swamp the profiler), with the host's enqueue
+  time per step beside the device's busy time.
+
+With ``--serve`` the spans also wrap ``transformer.prefill``,
+``transformer.decode_step``, the logits head ``transformer.unembed`` and
+kernel B8 (``ops.flash_decode``).
 
 Prints one JSON object. Needs a CUDA device; fails without one.
 """
@@ -53,6 +64,9 @@ SWEEP_DATASETS = ("sogouq", "traffic", "userbehavior")
 SWEEP_RANGES = (600, 1200, 1800, 2400, 3000, 3600)
 CHUNK_S = 600
 MULTIDAY_S = 9 * 86_400
+SERVE_ARCH, SERVE_DATASET, SERVE_RANGE = "llama3-8b", "sogouq", 120
+SERVE_TASK = dict(slots=8, max_len=512, prompt_len=16, max_new_tokens=16,
+                  max_requests_per_bucket=4, reuse_engine=True)
 
 
 class Spans:
@@ -91,11 +105,13 @@ class Spans:
         return traced
 
 
-def _instrument(spans: Spans, chunked: bool):
+def _instrument(spans: Spans, chunked: bool, serve: bool = False):
     """Wrap the run's layer boundaries where it looks them up; returns an
     undo list. ``chunked`` leaves the kernels inside the pipeline unwrapped
-    and wraps the pipeline's steps without synchronising."""
+    and wraps the pipeline's steps without synchronising; ``serve`` adds
+    the serving engine's model calls and kernel B8."""
     from repro_torch.kernels import ops
+    from repro_torch.models import transformer
     from repro_torch.streamsim import controller, engine, producer, store
     from repro_torch.streamsim.nsa import ChunkHandles
 
@@ -125,6 +141,13 @@ def _instrument(spans: Spans, chunked: bool):
         (controller.Controller, "save_fidelity",
          "controller.save_fidelity"),
     ]
+    if serve:
+        targets += [
+            (transformer, "prefill", "serve.prefill"),
+            (transformer, "decode_step", "serve.decode_step"),
+            (transformer, "unembed", "serve.unembed"),
+            (ops, "flash_decode", "kernel.flash_decode"),
+        ]
     unsynced = []
     if chunked:
         targets = [t for t in targets if not t[2].startswith("kernel.")] + [
@@ -182,6 +205,9 @@ def _run(args, workdir: Path):
         rep = ctl.run_many((args.dataset,), (args.max_range,), _consumer,
                            scale=args.scale, seed=args.seed, backend="torch",
                            chunk_s=CHUNK_S, duration_s=MULTIDAY_S)
+    elif args.serve:
+        rep = ctl.run(SERVE_DATASET, SERVE_RANGE, args.task, scale=args.scale,
+                      seed=args.seed)
     elif args.sweep or args.chunked:
         rep = ctl.run_many(SWEEP_DATASETS, SWEEP_RANGES, _consumer,
                            scale=args.scale, seed=args.seed, backend="torch",
@@ -205,10 +231,63 @@ def _summary(rep) -> dict:
                 "preprocess_s": {r.dataset: r.preprocess_s for r in rep},
                 "nsa_s": max(r.nsa_s for r in rep),
                 "produce_s": max(r.produce_s for r in rep)}
+    if "serving_decode_steps" in rep.consumer_metrics:
+        m = rep.consumer_metrics
+        return {"simulated_rows": rep.simulated_rows,
+                "preprocess_s": rep.preprocess_s, "nsa_s": rep.nsa_s,
+                "produce_s": rep.produce_s,
+                **{k: m[k] for k in ("task_records", "serving_finished",
+                                     "serving_tokens_out",
+                                     "serving_decode_steps",
+                                     "serving_queue_peak", "task_wall_s")}}
     return {"original_rows": rep.original_rows,
             "simulated_rows": rep.simulated_rows,
             "preprocess_s": rep.preprocess_s,
             "nsa_s": rep.nsa_s, "produce_s": rep.produce_s}
+
+
+def _serve_profile(args):
+    """Profile one prefill of 8 prompts and ``args.steps`` decode steps of
+    the served model at 8 busy slots; returns the host's enqueue seconds
+    per step, the wall, the device's busy seconds and the top events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer
+    cfg, params = args.cfg, args.params
+    rng = np.random.default_rng(args.seed)
+    slots, p_len = SERVE_TASK["slots"], SERVE_TASK["prompt_len"]
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (slots, p_len),
+                                         dtype=np.int32)).to(DEVICE)
+    lens = torch.full((slots,), p_len, dtype=torch.int32, device=DEVICE)
+
+    def window():
+        logits, cache = transformer.prefill(cfg, params, toks, lens,
+                                            SERVE_TASK["max_len"])
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        enqueue = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            logits, cache = transformer.decode_step(cfg, params, cache, nxt)
+            enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return enqueue
+
+    window()                                      # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        enqueue = window()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_enqueue = window()
+    plain_wall = time.perf_counter() - t0
+    return wall, prof, {"steps": args.steps,
+                        "plain_window_s": plain_wall,
+                        "plain_enqueue_per_step_s": float(
+                            np.median(plain_enqueue)),
+                        "profiled_enqueue_per_step_s": float(
+                            np.median(enqueue))}
 
 
 def _busy_seconds(events) -> float:
@@ -241,6 +320,11 @@ def main() -> int:
                            "pipeline (chunk_s=600)")
     mode.add_argument("--multiday", action="store_true",
                       help="trace nine days of --dataset, chunked")
+    mode.add_argument("--serve", action="store_true",
+                      help="trace run(sogouq, 120) serving llama3-8b "
+                           "through ServingTask")
+    p.add_argument("--steps", type=int, default=20,
+                   help="decode steps in the --serve profile window")
     args = p.parse_args()
     chunked = args.chunked or args.multiday
 
@@ -253,6 +337,15 @@ def main() -> int:
     _build.build_all()
 
     out = {"card": torch.cuda.get_device_name(0), "args": dict(vars(args))}
+    if args.serve:
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer
+        from repro_torch.streamsim import ServingTask
+        args.cfg = get_config(SERVE_ARCH)
+        args.params = transformer.init_params(args.cfg, args.seed,
+                                              device=DEVICE)
+        args.task = ServingTask(args.cfg, args.params, device=DEVICE,
+                                **SERVE_TASK)
     with tempfile.TemporaryDirectory(prefix="trace_") as tmp:
         tmp = Path(tmp)
         if args.multiday:
@@ -268,7 +361,7 @@ def main() -> int:
         per_rep = []
         for i in range(args.reps):
             spans = Spans(torch)
-            undo = _instrument(spans, chunked)
+            undo = _instrument(spans, chunked, args.serve)
             try:
                 wall, rep, _ = _run(args, tmp / f"spans{i}")
             finally:
@@ -292,9 +385,13 @@ def main() -> int:
         out["report"] = _summary(per_rep[-1][2])
 
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall, _, _ = _run(args, tmp / "profiled")
+        if args.serve:
+            wall, prof, window = _serve_profile(args)
+            out["serve_window"] = window
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall, _, _ = _run(args, tmp / "profiled")
         dev = [e for e in prof.events()
                if getattr(e, "device_type", None) is not None and
                e.device_type.name == "CUDA"]
