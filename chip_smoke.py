@@ -18,7 +18,8 @@ Phases, each of which raises on failure (nothing catches it):
    - B4 (trend_scan) at the fidelity shape of max_range 3600 (the three
      originals' and sims' count rows), a ragged batch of lengths
      {0, 1, 1023, 1024, 1025, 86 400}, unpadded widths 0 and 1025, and one
-     604 800-long row whose total sits just under 2^31 - 1 — exact;
+     604 800-long row whose total sits just under 2^31 - 1 — exact, two
+     calls in a row bit-identical, a smaller call after a larger one;
    - B5 (pair_stats) at the fidelity shape of max_range 3600 and at
      S = 37, K = 86 528 — ``|G - G_plain| <= 1e-4 sqrt(G_aa G_bb)``;
    - B6 (stream_metrics_carry) at chunk 0 of the 1-day grid (18 rows: the
@@ -30,12 +31,16 @@ Phases, each of which raises on failure (nothing catches it):
    - B7 (trend_scan_carry) at the multi-day chunk shape (one 659-entry
      row), the fidelity shape, widths 0, 1 and 1025 and a 604 800-entry row
      whose seeded total ends just under 2^31 - 1 — exact, tail included,
-     and ``init = 0`` equal to B4 bit for bit;
+     ``init = 0`` equal to B4 bit for bit, two calls in a row
+     bit-identical, a smaller call after a larger one;
    - B8 (flash_decode) on the consumer LM's heads in f32 (G = 3, D = 64)
      and llama3-8b's in bf16 (G = 4, D = 128), ragged lengths with 1, S a
      multiple of no block, lengths past S, and junk past each length
-     (bit-equal output) — within 2e-5 (f32) and 5e-2 (bf16) of the plain
-     version;
+     (999s, NaN and +inf: bit-equal output) — within 2e-5 (f32) and 5e-2
+     (bf16) of the plain version, two calls in a row bit-identical, the
+     serve shape after the decode_32k shape unchanged;
+   - one device kernel per call of B4, B7 and B8 (``torch.profiler`` over
+     five calls at the timing shapes; copies and fills not counted);
    timing kernel, plain version and the one-call library yardstick (CUDA
    events, median of several runs; B8 at B = 16, S = 32 768 with
    llama3-8b's heads, against ``scaled_dot_product_attention``);
@@ -222,6 +227,50 @@ def _check_launches(path: str, launches, expected, exact: bool) -> None:
         if (got != want) if exact else (got < want):
             raise AssertionError(f"{name} launched {got} times on {path}, "
                                  f"expected {'' if exact else '>= '}{want}")
+
+
+def _same_twice(name: str, fn) -> None:
+    """Two back-to-back calls of ``fn`` give bit-identical outputs (the
+    kernels keep tickets and status words in a per-stream workspace)."""
+    import torch
+    a, b = fn(), fn()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two calls in a row differ")
+
+
+def _kernels_per_call(name: str, fn, calls: int = 5) -> float:
+    """Device kernels per call of ``fn`` under ``torch.profiler`` (copies
+    and fills not counted), after one call outside the window that sizes
+    any workspace; fails unless it is exactly one. A kernel counts once
+    whether the profiler saw its launch on the host (``cudaLaunchKernel``
+    and kin) or its run on the device: the larger of the two counts is
+    taken, since the device's asynchronous record of a kernel can be
+    missing from a window where its launch is not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, launches = [], 0
+    for e in prof.events():
+        if getattr(e, "device_type", None) is not None and \
+                e.device_type.name == "CUDA":
+            if not e.name.startswith(("Memcpy", "Memset")):
+                kernels.append(e.name)
+        elif e.name.startswith(("cudaLaunch", "cuLaunch")):
+            launches += 1
+    per_call = max(len(kernels), launches) / calls
+    if per_call != 1.0:
+        raise AssertionError(f"{name}: {len(kernels)} device kernels and "
+                             f"{launches} kernel launches in {calls} calls "
+                             f"({sorted(set(kernels))}), expected one per "
+                             "call")
+    return per_call
 
 
 # ----------------------------------------------------------- phase 3: kernels
@@ -478,8 +527,12 @@ def check_trend_kernels(device: str, scale: float, seed: int,
     }
     for case, q in scan_cases.items():
         _exact(f"trend_scan/{case}", trend_scan(q), trend_scan_plain(q))
+        _same_twice(f"trend_scan/{case}", lambda: trend_scan(q))
     if int(trend_scan(scan_cases["week"])[0, -1]) != 604_800 * 3550:
         raise AssertionError("trend_scan/week: wrong total")
+    # a smaller call after a larger one reuses the larger workspace
+    _exact("trend_scan/fidelity after week", trend_scan(q_fid),
+           trend_scan_plain(q_fid))
 
     z_fid = _centered_trends(q_fid, lengths, 60)
     big = rng.normal(0.0, 40.0, (37, 86_528)).astype(np.float32)
@@ -499,7 +552,9 @@ def check_trend_kernels(device: str, scale: float, seed: int,
                                                  dtype=torch.int32),
                             timing_reps),
         max_abs_err=0.0, shape=f"S={S} N={N} (fidelity, max_range "
-                               f"{max(SWEEP_RANGES)})")}
+                               f"{max(SWEEP_RANGES)})",
+        kernels_per_call=_kernels_per_call("trend_scan",
+                                           lambda: trend_scan(q_fid)))}
     rows["trend_scan"]["bound_ms"], rows["trend_scan"]["bound_by"] = \
         _bound_ms(S * N * 8, S * N)
     q_week = scan_cases["week"]
@@ -672,12 +727,21 @@ def check_carry_kernels(device: str, seed: int, cases,
         psum_p, tail_p = trend_scan_carry_plain(q, init)
         _exact(f"trend_scan_carry/{case}/psum", psum, psum_p)
         _exact(f"trend_scan_carry/{case}/tail", tail, tail_p)
+        _same_twice(f"trend_scan_carry/{case}",
+                    lambda: trend_scan_carry(q, init))
         if q.shape[1]:
             z, _ = trend_scan_carry(q, torch.zeros_like(init))
             _exact(f"trend_scan_carry/{case}/b4", z, trend_scan(q))
     _, tail = trend_scan_carry(*b7["near_limit"])
     if int(tail[0]) != 2 ** 31 - 6:
         raise AssertionError("trend_scan_carry/near_limit: wrong tail")
+    # a smaller call after a larger one reuses the larger workspace
+    psum, tail = trend_scan_carry(*b7["multiday_ext"])
+    psum_p, tail_p = trend_scan_carry_plain(*b7["multiday_ext"])
+    _exact("trend_scan_carry/multiday_ext after near_limit/psum", psum,
+           psum_p)
+    _exact("trend_scan_carry/multiday_ext after near_limit/tail", tail,
+           tail_p)
 
     def b7_row(case):
         q, init = b7[case]
@@ -694,8 +758,11 @@ def check_carry_kernels(device: str, seed: int, cases,
                                                      S * N)
         return out
 
-    rows["trend_scan_carry"] = dict(b7_row("multiday_ext"), max_abs_err=0.0,
-                                    fidelity=b7_row("fidelity"))
+    rows["trend_scan_carry"] = dict(
+        b7_row("multiday_ext"), max_abs_err=0.0, fidelity=b7_row("fidelity"),
+        kernels_per_call=_kernels_per_call(
+            "trend_scan_carry",
+            lambda: trend_scan_carry(*b7["multiday_ext"])))
     return rows
 
 
@@ -776,19 +843,26 @@ def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
             if not torch.equal(got, full):
                 raise AssertionError("flash_decode/past_s: lengths > S "
                                      "differ from lengths = S")
-        # junk past the length (prefill padding) changes nothing
-        k2, v2 = k.clone(), v.clone()
-        for b, n in enumerate(lengths):
-            k2[b, min(n, S):] = 999.0
-            v2[b, min(n, S):] = -999.0
-        if not torch.equal(flash_decode(q, k2, v2, lens), got):
-            raise AssertionError(f"flash_decode/{name}: cache rows past "
-                                 "the length changed the output")
+        _same_twice(f"flash_decode/{name}",
+                    lambda: flash_decode(q, k, v, lens))
+        # junk past the length (prefill padding, or any bits the engine's
+        # cache holds there, NaN and inf included) changes nothing
+        for junk_k, junk_v in ((999.0, -999.0), (float("nan"), float("inf")),
+                               (float("inf"), float("nan"))):
+            k2, v2 = k.clone(), v.clone()
+            for b, n in enumerate(lengths):
+                k2[b, min(n, S):] = junk_k
+                v2[b, min(n, S):] = junk_v
+            if not torch.equal(flash_decode(q, k2, v2, lens), got):
+                raise AssertionError(f"flash_decode/{name}: cache rows past "
+                                     f"the length ({junk_k}, {junk_v}) "
+                                     "changed the output")
     torch.cuda.synchronize()
 
-    def row(B, S, H, Kh, D, lengths, reps, plain):
-        q, k, v, lens = _decode_inputs(gen, B, S, H, Kh, D, "bfloat16",
-                                       lengths, device)
+    def row(inputs, reps, plain):
+        q, k, v, lens = inputs
+        (B, H, D), (S, Kh) = q.shape, k.shape[1:3]
+        lengths = lens.tolist()
         qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(S, device=device)[None, :] <
                 lens[:, None])[:, None, None, :]
@@ -809,18 +883,28 @@ def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
                          f"kept={sum(min(x, S) for x in lengths)}")
         out["bound_ms"], out["bound_by"] = _decode_bound(lengths, S, H, Kh,
                                                          D, 2)
+        out["kernels_per_call"] = _kernels_per_call(
+            f"flash_decode/B={B} S={S}", lambda: flash_decode(q, k, v, lens))
         return out
 
     t = DECODE_TIMING
-    timed = row(t["B"], t["S"], t["H"], t["Kh"], t["D"], [t["S"]] * t["B"],
+    # the serve_llama3 decode shape: 8 slots of 512 positions, ~20 used
+    serve_in = _decode_inputs(gen, 8, 512, t["H"], t["Kh"], t["D"],
+                              "bfloat16", [17, 20, 24, 28, 18, 21, 25, 30],
+                              device)
+    serve_out = flash_decode(*serve_in)
+    timed = row(_decode_inputs(gen, t["B"], t["S"], t["H"], t["Kh"], t["D"],
+                               "bfloat16", [t["S"]] * t["B"], device),
                 timing_reps, True)
     timed["max_abs_err_f32"] = errs["float32"]
     timed["max_abs_err_bf16"] = max(errs["bfloat16"], timed["max_abs_err"])
     timed["max_abs_err"] = max(timed["max_abs_err_f32"],
                                timed["max_abs_err_bf16"])
-    # the serve_llama3 decode shape: 8 slots of 512 positions, ~20 used
-    timed["serve"] = row(8, 512, 32, 8, 128, [17, 20, 24, 28, 18, 21, 25, 30],
-                         timing_reps, True)
+    # a smaller call after a larger one reuses the larger workspace
+    if not torch.equal(flash_decode(*serve_in), serve_out):
+        raise AssertionError("flash_decode: the serve shape after the "
+                             "decode_32k shape differs from before it")
+    timed["serve"] = row(serve_in, timing_reps, True)
     return {"flash_decode": timed}
 
 
@@ -1271,15 +1355,43 @@ SERVE_TASK = dict(slots=8, max_len=512, prompt_len=16, max_new_tokens=16,
                   max_requests_per_bucket=4, reuse_engine=True)
 
 
-def _capture_decode(cfg, params, cache, toks, layers, plain: bool):
+def _decode_attention_f64(q, k, v, lengths):
+    """B8's function in float64 (a witness for near-ties in the logits:
+    the plain version's math with the rounding of f32 taken away),
+    returned in q's dtype."""
+    import torch
+    B, H, D = q.shape
+    S, Kh = k.shape[1], k.shape[2]
+    qd = q.reshape(B, Kh, H // Kh, D).double()
+    scores = torch.einsum("bhgd,bshd->bhgs", qd, k.double()) / D ** 0.5
+    mask = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(scores, dim=-1).nan_to_num(0.0)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.double())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _decode_attention_sdpa(q, k, v, lengths):
+    """B8's function through ``scaled_dot_product_attention`` (a second
+    witness, with its own order of rounding)."""
+    import torch
+    import torch.nn.functional as F
+    S = k.shape[1]
+    mask = (torch.arange(S, device=q.device)[None, :] <
+            lengths[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def _capture_decode(cfg, params, cache, toks, layers, attn=None):
     """One decode step from a copy of ``cache``; returns its logits and
-    the (q, k, v, lengths) B8 was given in ``layers``. With ``plain`` the
-    step runs B8's plain version in every layer instead of the kernel (the
+    the (q, k, v, lengths) B8 was given in ``layers``. With ``attn`` the
+    step runs that function in every layer instead of the kernel (the
     swap is this script's, not an option of the package)."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.models import transformer
 
     real = ops.flash_decode
@@ -1289,8 +1401,8 @@ def _capture_decode(cfg, params, cache, toks, layers, plain: bool):
         if calls[0] in layers:
             seen[calls[0]] = tuple(t.clone() for t in (q, k, v, lengths))
         calls[0] += 1
-        return flash_decode_plain(q, k, v, lengths) if plain else \
-            real(q, k, v, lengths, **kw)
+        return real(q, k, v, lengths, **kw) if attn is None else \
+            attn(q, k, v, lengths)
 
     work = transformer._tree_map(lambda t: t.clone(), cache)
     ops.flash_decode = hook
@@ -1310,8 +1422,9 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
     counts zeroed just before and read just after. Then, outside the
     counted run: B8 against its plain version on the inputs captured from
     the first and last layers of a real decode step, the logits of that
-    step through B8 and through the plain version (reported, not gated),
-    and prefill / decode step times. ``cfg`` replaces llama3-8b (a small
+    step through B8 and through the plain version (reported, not gated)
+    with two witnesses of the same step (B8's function in f64 and through
+    SDPA), and prefill / decode step times. ``cfg`` replaces llama3-8b (a small
     config rehearses the phase on the CPU)."""
     import gc
 
@@ -1368,8 +1481,9 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
     logits, cache = prefill()
     nxt = torch.argmax(logits, -1).to(torch.int32)
     last = cfg.n_layers - 1
-    lk, seen = _capture_decode(cfg, params, cache, nxt, (0, last), False)
-    lp, _ = _capture_decode(cfg, params, cache, nxt, (0, last), True)
+    lk, seen = _capture_decode(cfg, params, cache, nxt, (0, last))
+    lp, _ = _capture_decode(cfg, params, cache, nxt, (0, last),
+                            flash_decode_plain)
     b8_err = 0.0
     for layer, (q, k, v, ln) in sorted(seen.items()):
         b8_err = max(b8_err, _decode_err(
@@ -1377,6 +1491,31 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
             flash_decode_plain(q, k, v, ln), cfg.dtype))
     top1 = float((torch.argmax(lk, -1) == torch.argmax(lp, -1)).float()
                  .mean())
+    # where the two top tokens differ, how far apart the two paths put
+    # them: a flip within the paths' logit difference is a near-tie
+    # (plain's lead over B8's token in the plain logits, and B8's lead in
+    # its own)
+    lk2, lp2 = lk.reshape(-1, lk.shape[-1]), lp.reshape(-1, lp.shape[-1])
+    tk, tp = torch.argmax(lk2, -1), torch.argmax(lp2, -1)
+    flipped = (tk != tp).nonzero().flatten().tolist()
+    flip_gaps = [[float(lp2[i, tp[i]] - lp2[i, tk[i]]),
+                  float(lk2[i, tk[i]] - lk2[i, tp[i]])] for i in flipped]
+    # witnesses: the same step through B8's function in f64 and through
+    # SDPA; each one's top-1 agreement with the plain path, and on the
+    # rows where B8 and the plain version differ, whose token it picks
+    witnesses = {}
+    for wname, fn in (("f64", _decode_attention_f64),
+                      ("sdpa", _decode_attention_sdpa)):
+        lw, _ = _capture_decode(cfg, params, cache, nxt, (), fn)
+        tw = torch.argmax(lw.reshape(-1, lw.shape[-1]), -1)
+        witnesses[wname] = {
+            "top1_vs_plain": float((tw == tp).float().mean()),
+            "top1_vs_b8": float((tw == tk).float().mean()),
+            "max_abs_logit_diff_vs_plain": float((lw - lp).abs().max()),
+            "flipped_rows_pick": ["b8" if tw[i] == tk[i] else "plain"
+                                  if tw[i] == tp[i] else "other"
+                                  for i in flipped]}
+        del lw
 
     def decode():
         transformer.decode_step(cfg, params, cache, nxt)
@@ -1401,6 +1540,8 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
         "b8_layers_max_abs_err": b8_err,
         "plain_swap_max_abs_logit_diff": float((lk - lp).abs().max()),
         "plain_swap_top1_agreement": top1,
+        "plain_swap_flip_gaps": flip_gaps,
+        "plain_swap_witnesses": witnesses,
     }
     print(f"serve_llama3: prefill {prefill_ms:.3f} ms "
           f"({report['prefill_shape']})")
@@ -1532,7 +1673,7 @@ def main() -> int:
     }
     extra = ("sim", "sweep", "week", "S37", "max_scaled_err", "records",
              "multiday", "fidelity", "serve", "max_abs_err_f32",
-             "max_abs_err_bf16", "library_max_abs_err")
+             "max_abs_err_bf16", "library_max_abs_err", "kernels_per_call")
     kernels = []
     for name, (source, tpu, path) in replaces.items():
         r = rows[name]

@@ -16,20 +16,33 @@
 //
 // The TPU kernels walked each row's time tiles in order and carried the
 // running total in SMEM from one grid step to the next. Hopper runs blocks
-// in parallel and in no order, and one block per row would leave most of
-// the 132 SMs idle at the fidelity shapes (S = 6 rows of 87 040), so the
-// scan is split into three launches, the pattern of csrc/compact.cu:
-//   1. scan_tile_sums: one block per 2048-entry tile sums its counts;
-//   2. scan_tile_offsets: one block per row turns the tile sums into
-//      exclusive tile offsets (its own warp-shuffle scan), starting from the
-//      row's seed;
-//   3. scan_tiles: one block per tile re-reads its counts, scans them
-//      inside the block and adds the tile's offset.
+// in parallel and in no order, so the carry crosses blocks through device
+// memory instead, in one launch: a single-pass scan with decoupled
+// look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", NVIDIA 2016).
+//   - Each block draws the next 2048-entry tile (row-major over the rows'
+//     tiles) from an atomic counter, so every tile it waits on belongs to a
+//     block that is already running.
+//   - It scans its tile in registers and shared memory and publishes the
+//     tile's total as an AGGREGATE status word; tile 0 of a row publishes
+//     its INCLUSIVE prefix (the seed plus its total) at once.
+//   - Warp 0 then walks back over the row's preceding tiles 32 at a time,
+//     summing aggregates until it meets an inclusive prefix, publishes its
+//     own inclusive prefix and hands the exclusive one to the block.
+//   - The row's last tile writes tail[r] (B7).
+// A status word is 64 bits: the call's epoch (30 bits), the flag (2) and
+// the 32-bit unsigned value, written and read whole, so a word from an
+// earlier call (another epoch) reads as not yet published and the status
+// array needs no clearing between calls. The block that draws the last
+// ticket resets the counter for the next call on the stream. An empty
+// chunk (N = 0) still writes tail = init, in the same single launch.
 //
-// What bounds it: bytes. Each count is read twice (counted once in the
-// bound) and each prefix sum written once, 8 B per entry; the tile arrays
-// are N/2048 ints per row. Each thread reads its 8 consecutive counts as
-// two 16-byte loads where the row allows it, and writes them the same way.
+// What bounds it: at the main-path shapes (one 659-entry row; 6 rows of
+// 87 040) launch latency, which one launch instead of three divides by
+// three; at large N bytes: each count read once and each prefix sum
+// written once, 8 B per entry, with 16-byte loads and stores where the
+// row allows it. The look-back reads one 8-byte word per preceding tile,
+// most of them already inclusive.
 //
 // Exactness: integer adds only. The prefix sums are exact while a row's
 // total (seed included) stays below 2^31, which the ops layer checks before
@@ -45,7 +58,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kItems = 8;                    // counts per thread
 constexpr int kTile = kThreads * kItems;     // 2048 entries per block
-constexpr int kScanThreads = 1024;
+constexpr unsigned kAggregate = 1u;          // status flags
+constexpr unsigned kInclusive = 2u;
+constexpr unsigned kEpochMask = (1u << 30) - 1u;
 
 // Exclusive block-wide scan of one value per thread; *total gets the block
 // sum. Safe to call repeatedly in a loop (it syncs before returning).
@@ -97,72 +112,118 @@ __device__ __forceinline__ void load_items(const int* row, long long n,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scan_tile_sums(const int* __restrict__ q, int n, int n_tiles, bool vec_ok,
-               unsigned* __restrict__ tile_sums) {
-  const int r = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int* row = q + static_cast<size_t>(r) * n;
-  const long long i0 =
-      static_cast<long long>(tile) * kTile + threadIdx.x * kItems;
-  unsigned v[kItems];
-  load_items(row, n, i0, vec_ok, v);
-  unsigned c = 0;
+__device__ __forceinline__ void publish(unsigned long long* word,
+                                        unsigned epoch, unsigned flag,
+                                        unsigned value) {
+  const unsigned long long w = (static_cast<unsigned long long>(epoch) << 34) |
+                               (static_cast<unsigned long long>(flag) << 32) |
+                               value;
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* word) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(w) : "l"(word) : "memory");
+  return w;
+}
+
+// The flag of a status word, 0 when it was written by another call.
+__device__ __forceinline__ unsigned flag_of(unsigned long long w,
+                                            unsigned epoch) {
+  return static_cast<unsigned>(w >> 34) == epoch
+             ? static_cast<unsigned>(w >> 32) & 3u : 0u;
+}
+
+// The exclusive prefix of tile j > 0 of a row: warp 0 sums the published
+// aggregates of tiles j-1, j-2, ... down to the nearest inclusive prefix.
+__device__ __forceinline__ unsigned look_back(
+    const unsigned long long* row_status, int j, unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  unsigned prefix = 0u;
+  for (int k = j - 1;; k -= 32) {
+    const int idx = k - lane;          // lane 0 is the nearest predecessor
+    unsigned long long w = 0ull;
+    unsigned flag = kInclusive;        // lanes before tile 0 never count
+    do {
+      if (idx >= 0) {
+        w = peek(row_status + idx);
+        flag = flag_of(w, epoch);
+      }
+    } while (__any_sync(0xffffffffu, flag == 0u));
+    const unsigned inclusive = __ballot_sync(0xffffffffu, flag == kInclusive);
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    unsigned v = (lane <= stop && idx >= 0) ? static_cast<unsigned>(w) : 0u;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) c += v[j];
-  unsigned total;
-  block_exclusive_scan<kThreads>(c, &total);
-  if (threadIdx.x == 0)
-    tile_sums[static_cast<size_t>(r) * n_tiles + tile] = total;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    prefix += v;
+    if (inclusive) return prefix;
+  }
 }
 
 // kCarry = false: each row's running total starts at 0 (B4); kCarry = true:
 // it starts at init[r] and row r's final total goes to tail[r] (B7).
 template <bool kCarry>
-__global__ void __launch_bounds__(kScanThreads)
-scan_tile_offsets(const unsigned* __restrict__ tile_sums, int n_tiles,
-                  const int* __restrict__ init,
-                  unsigned* __restrict__ tile_offsets,
-                  int* __restrict__ tail) {
-  const int r = blockIdx.x;
-  const unsigned* sums = tile_sums + static_cast<size_t>(r) * n_tiles;
-  unsigned* off = tile_offsets + static_cast<size_t>(r) * n_tiles;
-  unsigned carry = 0u;
-  if constexpr (kCarry) carry = static_cast<unsigned>(init[r]);
-  for (int base = 0; base < n_tiles; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const unsigned v = i < n_tiles ? sums[i] : 0u;
-    unsigned chunk;
-    const unsigned excl = block_exclusive_scan<kScanThreads>(v, &chunk);
-    if (i < n_tiles) off[i] = carry + excl;
-    carry += chunk;
-  }
-  if constexpr (kCarry) {
-    if (threadIdx.x == 0) tail[r] = static_cast<int>(carry);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
-scan_tiles(const int* __restrict__ q, int n, int n_tiles, bool vec_ok,
-           const unsigned* __restrict__ tile_offsets,
-           int* __restrict__ psum) {
-  const int r = blockIdx.y;
-  const int tile = blockIdx.x;
+scan_lookback(const int* __restrict__ q, const int* __restrict__ init,
+              int rows, int n, int n_tiles, bool vec_ok, unsigned epoch,
+              unsigned long long* __restrict__ status,
+              unsigned* __restrict__ counter, int* __restrict__ psum,
+              int* __restrict__ tail) {
+  if (n == 0) {                        // B7 on an empty chunk: tail = init
+    const int r = blockIdx.x * kThreads + threadIdx.x;
+    if (kCarry && r < rows) tail[r] = init[r];
+    return;
+  }
+  __shared__ unsigned s_tile, s_prefix;
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(counter, 1u);
+    if (t == static_cast<unsigned>(rows) * n_tiles - 1u)
+      atomicExch(counter, 0u);         // the last ticket of this call
+    s_tile = t;
+  }
+  __syncthreads();
+  const unsigned t = s_tile;
+  const int r = static_cast<int>(t / n_tiles);
+  const int j = static_cast<int>(t % n_tiles);
   const size_t row_off = static_cast<size_t>(r) * n;
-  const long long i0 =
-      static_cast<long long>(tile) * kTile + threadIdx.x * kItems;
+  const long long i0 = static_cast<long long>(j) * kTile + threadIdx.x * kItems;
   unsigned v[kItems];
   load_items(q + row_off, n, i0, vec_ok, v);
   unsigned c = 0;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) c += v[j];
+  for (int i = 0; i < kItems; ++i) c += v[i];
   unsigned total;
-  unsigned acc = block_exclusive_scan<kThreads>(c, &total) +
-                 tile_offsets[static_cast<size_t>(r) * n_tiles + tile];
+  const unsigned excl = block_exclusive_scan<kThreads>(c, &total);
+
+  unsigned long long* row_status = status + static_cast<size_t>(r) * n_tiles;
+  if (threadIdx.x < 32) {
+    unsigned prefix = 0u;
+    if (j == 0) {
+      if constexpr (kCarry) prefix = static_cast<unsigned>(init[r]);
+      if (threadIdx.x == 0 && n_tiles > 1)
+        publish(row_status, epoch, kInclusive, prefix + total);
+    } else {
+      if (threadIdx.x == 0) publish(row_status + j, epoch, kAggregate, total);
+      prefix = look_back(row_status, j, epoch);
+      if (threadIdx.x == 0 && j + 1 < n_tiles)
+        publish(row_status + j, epoch, kInclusive, prefix + total);
+    }
+    if (threadIdx.x == 0) {
+      s_prefix = prefix;
+      if (kCarry && j == n_tiles - 1)
+        tail[r] = static_cast<int>(prefix + total);
+    }
+  }
+  __syncthreads();
+
+  unsigned acc = s_prefix + excl;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    acc += v[j];
-    v[j] = acc;                               // inclusive prefix
+  for (int i = 0; i < kItems; ++i) {
+    acc += v[i];
+    v[i] = acc;                        // inclusive prefix
   }
   int* out = psum + row_off;
   if (vec_ok && i0 + kItems <= n) {
@@ -174,61 +235,63 @@ scan_tiles(const int* __restrict__ q, int n, int n_tiles, bool vec_ok,
         static_cast<int>(v[6]), static_cast<int>(v[7]));
   } else {
 #pragma unroll
-    for (int j = 0; j < kItems; ++j)
-      if (i0 + j < n) out[i0 + j] = static_cast<int>(v[j]);
+    for (int i = 0; i < kItems; ++i)
+      if (i0 + i < n) out[i0 + i] = static_cast<int>(v[i]);
   }
 }
 
-}  // namespace
-
-extern "C" int trend_scan_tile_entries() { return kTile; }
-
-namespace {
-
 template <bool kCarry>
-int launch(const void* q, const void* init, int rows, int n,
-           void* tile_sums, void* tile_offsets, void* psum, void* tail,
+int launch(const void* q, const void* init, int rows, int n, void* status,
+           void* counter, unsigned epoch, void* psum, void* tail,
            void* stream) {
   if (rows == 0 || (n == 0 && !kCarry)) return 0;
+  if (epoch == 0u || epoch > kEpochMask)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n + kTile - 1) / kTile;
   const bool vec_ok = (n % 4 == 0) &&
                       (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
                       (reinterpret_cast<uintptr_t>(psum) % 16 == 0);
-  const auto* qi = static_cast<const int*>(q);
-  const dim3 grid(n_tiles, rows);
-  if (n > 0)
-    scan_tile_sums<<<grid, kThreads, 0, st>>>(
-        qi, n, n_tiles, vec_ok, static_cast<unsigned*>(tile_sums));
-  // B7 runs this phase even for empty rows, so that tail = init is written
-  scan_tile_offsets<kCarry><<<rows, kScanThreads, 0, st>>>(
-      static_cast<const unsigned*>(tile_sums), n_tiles,
-      static_cast<const int*>(init), static_cast<unsigned*>(tile_offsets),
+  const unsigned blocks = n > 0
+      ? static_cast<unsigned>(rows) * n_tiles
+      : static_cast<unsigned>((rows + kThreads - 1) / kThreads);
+  scan_lookback<kCarry><<<blocks, kThreads, 0, st>>>(
+      static_cast<const int*>(q), static_cast<const int*>(init), rows, n,
+      n_tiles, vec_ok, epoch, static_cast<unsigned long long*>(status),
+      static_cast<unsigned*>(counter), static_cast<int*>(psum),
       static_cast<int*>(tail));
-  if (n > 0)
-    scan_tiles<<<grid, kThreads, 0, st>>>(
-        qi, n, n_tiles, vec_ok, static_cast<const unsigned*>(tile_offsets),
-        static_cast<int*>(psum));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// B4. q, psum (R, N) int32 contiguous; tile_sums, tile_offsets (R, n_tiles)
-// int32 scratch with n_tiles = ceil(N / 2048).
-extern "C" int trend_scan_launch(const void* q, int rows, int n,
-                                 void* tile_sums, void* tile_offsets,
-                                 void* psum, void* stream) {
-  return launch<false>(q, nullptr, rows, n, tile_sums, tile_offsets, psum,
+extern "C" {
+
+// Entries per tile: the status array holds one 8-byte word per tile.
+int trend_scan_tile_entries() { return kTile; }
+
+// Largest epoch a call may pass (epochs run 1 .. this, then the caller
+// clears the status array once and starts again at 1).
+unsigned trend_scan_max_epoch() { return kEpochMask; }
+
+// B4. q, psum (R, N) int32 contiguous; status (R, ceil(N / 2048)) 8-byte
+// words and counter (one unsigned) from a per-stream workspace, zeroed
+// when it was allocated; epoch this call's number, 1 .. max_epoch, other
+// than the previous call's on this workspace.
+int trend_scan_launch(const void* q, int rows, int n, void* status,
+                      void* counter, unsigned epoch, void* psum,
+                      void* stream) {
+  return launch<false>(q, nullptr, rows, n, status, counter, epoch, psum,
                        nullptr, stream);
 }
 
 // B7. As B4, with row r's running total seeded from init[r] (R,) int32 and
 // its final total written to tail[r] (R,) int32.
-extern "C" int trend_scan_carry_launch(const void* q, const void* init,
-                                       int rows, int n, void* tile_sums,
-                                       void* tile_offsets, void* psum,
-                                       void* tail, void* stream) {
-  return launch<true>(q, init, rows, n, tile_sums, tile_offsets, psum, tail,
+int trend_scan_carry_launch(const void* q, const void* init, int rows, int n,
+                            void* status, void* counter, unsigned epoch,
+                            void* psum, void* tail, void* stream) {
+  return launch<true>(q, init, rows, n, status, counter, epoch, psum, tail,
                       stream);
 }
+
+}  // extern "C"

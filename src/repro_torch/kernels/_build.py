@@ -149,5 +149,18 @@ def stream_handle(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def per_stream(cache: dict, device, make):
+    """``(cache[device, current stream], stream handle)``: scratch that a
+    kernel keeps between calls, one per CUDA stream so that calls on two
+    streams never share it; ``make(device)`` builds it on first use."""
+    import torch
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    ws = cache.get(key)
+    if ws is None:
+        ws = cache[key] = make(device)
+    return ws, ctypes.c_void_p(stream.cuda_stream)
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())

@@ -3,8 +3,8 @@
 Counterpart of ``repro/kernels/flash_decode.py::flash_decode_pallas`` and
 its oracle ``repro/kernels/ref.py::flash_decode_ref``:
 :func:`flash_decode` launches ``csrc/flash_decode.cu`` (split-KV
-flash-decoding) for CUDA tensors and runs :func:`flash_decode_plain` for
-CPU tensors.
+flash-decoding in one launch, the splits merged inside the kernel) for
+CUDA tensors and runs :func:`flash_decode_plain` for CPU tensors.
 
 Contract of both: q (B, H, D), k and v (B, S, Kh, D) with H = Kh * G,
 lengths (B,) int32. For each (b, h), a softmax of ``q·k / sqrt(D)`` over
@@ -27,6 +27,8 @@ from repro_torch.kernels import _build
 
 #: head dimensions the CUDA kernel is built for
 HEAD_DIMS = (64, 128)
+#: blocks per SM the split aims for over a full cache
+BLOCKS_PER_SM = 8
 
 
 def flash_decode_plain(q, k, v, lengths):
@@ -55,7 +57,7 @@ def flash_decode_plain(q, k, v, lengths):
 def _entry():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("flash_decode", "flash_decode_launch",
-                       [i, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p])
+                       [i, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,23 +73,52 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_size(B: int, Kh: int, S: int, block_s: int, device) -> int:
-    """Cache positions per split: ``block_s`` rounded up to whole tiles,
-    halved (down to one tile) until the (split, KV head, sequence) grid
-    has at least two blocks per SM over a full cache."""
-    tile = _limits()[0]
-    chunk = max(tile, -(-block_s // tile) * tile)
-    target = 2 * _sm_count(torch.device(device).index or 0)
-    while chunk > tile and B * Kh * -(-S // chunk) < target:
+def split_size(B: int, Kh: int, S: int, sm_count: int, tile: int) -> int:
+    """Cache positions per split: the whole cache in whole tiles of
+    ``tile`` positions (the kernel's stage), halved (down to one tile)
+    until the (split, KV head, sequence) grid has at least
+    :data:`BLOCKS_PER_SM` blocks per SM over a full cache, about four waves
+    of the two blocks an SM holds at once."""
+    chunk = -(-S // tile) * tile
+    while chunk > tile and B * Kh * -(-S // chunk) < BLOCKS_PER_SM * sm_count:
         chunk = max(tile, chunk // 2 // tile * tile)
     return chunk
+
+
+class _Workspace:
+    """B8's scratch on one CUDA stream, grown when a call needs more: the
+    splits' partial ``(m, l)`` and ``acc`` (f32, no initial value needed)
+    and one ticket per (sequence, KV head), zeroed once when allocated;
+    every call leaves the tickets at zero."""
+
+    def __init__(self, device):
+        self.device = device
+        self.partials = torch.empty(0, dtype=torch.float32, device=device)
+        self.tickets = torch.zeros(0, dtype=torch.int32, device=device)
+
+    def take(self, n_partials: int, n_tickets: int):
+        if self.partials.numel() < n_partials:
+            self.partials = torch.empty(
+                max(n_partials, 2 * self.partials.numel()),
+                dtype=torch.float32, device=self.device)
+        if self.tickets.numel() < n_tickets:
+            self.tickets = torch.zeros(
+                max(n_tickets, 2 * self.tickets.numel()), dtype=torch.int32,
+                device=self.device)
+        return self.partials, self.tickets
+
+
+#: one workspace per (device, CUDA stream)
+_workspaces = {}
 
 
 def flash_decode(q, k, v, lengths, *, block_s: int = 512):
     """B8 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (same contract as :func:`flash_decode_plain`).
-    ``block_s`` bounds the cache positions one block of the kernel reads.
-    Each kernel launch adds one to ``flash_decode.launches``."""
+    ``block_s`` is the reference's block knob, kept for its signature: the
+    kernel's split follows from the shapes and the SM count
+    (:func:`split_size`), and the result does not depend on it. One launch
+    per call; each adds one to ``flash_decode.launches``."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths)
     if q.device.type != "cuda":
@@ -120,20 +151,23 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512):
             not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, k, v and lengths must be contiguous tensors on "
                          "one device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries")
     dev = q.device
-    chunk = split_size(B, Kh, S, block_s, dev)
+    chunk = split_size(B, Kh, S, _sm_count(dev.index or 0), _limits()[0])
     n_splits = -(-S // chunk)
-    ws_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32,
-                        device=dev)
-    ws_acc = torch.empty((B, H, n_splits, D), dtype=torch.float32,
-                         device=dev)
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    n_ml = B * H * n_splits * 2
     p = _build.ptr
     with torch.cuda.device(dev):
+        ws, stream = _build.per_stream(_workspaces, dev, _Workspace)
+        partials, tickets = ws.take(n_ml + B * H * n_splits * D, B * Kh)
+        ws_ml = partials.data_ptr()
         code = _entry()(0 if q.dtype == torch.float32 else 1, p(q), p(k),
                         p(v), p(lengths), B, S, Kh, H // Kh, D, chunk,
-                        n_splits, p(ws_ml), p(ws_acc), p(out),
-                        _build.stream_handle(dev))
+                        n_splits, ctypes.c_void_p(ws_ml),
+                        ctypes.c_void_p(ws_ml + 4 * n_ml), p(tickets),
+                        p(out), stream)
     _build.check(code, "flash_decode")
     flash_decode.launches += 1
     return out

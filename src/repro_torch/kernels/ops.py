@@ -886,6 +886,7 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512):
     accumulation, output in q's dtype.
 
     The kernel masks a ragged tail itself, so unlike the reference the
-    cache is not padded to a multiple of ``block_s``; ``block_s`` bounds
-    the cache positions one block reads."""
+    cache is not padded to a multiple of ``block_s``; the kernel picks its
+    split from the shapes and the SM count, so ``block_s`` (the
+    reference's knob) does not change the result."""
     return _flash_decode_kernel(q, k, v, lengths, block_s=block_s)

@@ -4,7 +4,8 @@ Counterparts of ``repro/kernels/trend_scan.py``:
 
 - :func:`trend_scan` (B4, ``trend_scan_pallas``): per-row inclusive int32
   prefix sums of ``(S, N)`` count series. It launches
-  ``csrc/trend_scan.cu`` for CUDA tensors and runs
+  ``csrc/trend_scan.cu`` (one launch: a single-pass scan with decoupled
+  look-back, its scratch cached per CUDA stream) for CUDA tensors and runs
   :func:`trend_scan_plain` for CPU tensors. Exact while a row's total
   stays below 2³¹ (the ops layer guards that before the call).
 - :func:`trend_scan_carry` (B7, ``trend_scan_carry_pallas``): the same scan
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -43,40 +45,79 @@ def trend_scan_plain(q):
 def _scan_entry():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("trend_scan", "trend_scan_launch",
-                       [p, i, i, p, p, p, p])
+                       [p, i, i, p, p, ctypes.c_uint, p, p])
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_tile() -> int:
-    """Entries per block of the tile-sum and scan phases, read from the
-    library so the scratch is sized as the kernel indexes it."""
-    return _build.bind("trend_scan", "trend_scan_tile_entries", [])()
+def _scan_limits():
+    """(entries per tile, largest epoch), read from the library so the
+    status array is sized as the kernel indexes it."""
+    return (_build.bind("trend_scan", "trend_scan_tile_entries", [])(),
+            _build.bind("trend_scan", "trend_scan_max_epoch", [])())
 
 
-def trend_scan(q):
-    """B4 on the counts' device: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor (same contract as
-    :func:`trend_scan_plain`). Each kernel launch adds one to
-    ``trend_scan.launches``."""
-    if q.device.type == "cpu":
-        return trend_scan_plain(q)
-    if q.device.type != "cuda":
-        raise ValueError(f"trend_scan runs on cuda or cpu, not {q.device}")
+class _ScanWorkspace:
+    """The look-back scan's scratch on one CUDA stream: one 8-byte status
+    word per tile and the tile counter, zeroed once when allocated and
+    grown when a call needs more tiles. Each call takes the next epoch
+    (1, 2, ...), which makes the words of earlier calls unreadable to it;
+    when the epochs run out the words are cleared once and the count
+    starts again. The lock keeps two threads that share the stream from
+    taking one epoch."""
+
+    def __init__(self, device):
+        self.device = device
+        self.words = torch.zeros(0, dtype=torch.int64, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.epoch = 0
+        self.lock = threading.Lock()
+
+    def take(self, n_words: int):
+        with self.lock:
+            if self.words.numel() < n_words:
+                self.words = torch.zeros(
+                    max(n_words, 2 * self.words.numel()), dtype=torch.int64,
+                    device=self.device)
+            self.epoch += 1
+            if self.epoch > _scan_limits()[1]:
+                self.words.zero_()
+                self.epoch = 1
+            return self.words, self.counter, self.epoch
+
+
+#: one workspace per (device, CUDA stream), shared by B4 and B7
+_workspaces = {}
+
+
+def _check_counts(q, what):
+    """The counts' shape ``(S, N)``, after the checks both scans share."""
     if q.dtype != torch.int32 or q.ndim != 2 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous 2-D int32 tensor, got "
                          f"{q.dtype} {tuple(q.shape)}")
     S, n = q.shape
     if S > 65535 or S * n >= 2 ** 31:
-        raise ValueError(f"batch {S} x {n} too large for one launch")
+        raise ValueError(f"{what}: batch {S} x {n} too large for one launch")
+    return S, n
+
+
+def trend_scan(q):
+    """B4 on the counts' device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor (same contract as
+    :func:`trend_scan_plain`). One launch per call; each adds one to
+    ``trend_scan.launches``."""
+    if q.device.type == "cpu":
+        return trend_scan_plain(q)
+    if q.device.type != "cuda":
+        raise ValueError(f"trend_scan runs on cuda or cpu, not {q.device}")
+    S, n = _check_counts(q, "trend_scan")
     dev = q.device
     psum = torch.empty((S, n), dtype=torch.int32, device=dev)
-    n_tiles = max(-(-n // _scan_tile()), 1)
-    tile_sums = torch.empty((S, n_tiles), dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty_like(tile_sums)
     p = _build.ptr
     with torch.cuda.device(dev):
-        code = _scan_entry()(p(q), S, n, p(tile_sums), p(tile_offsets),
-                             p(psum), _build.stream_handle(dev))
+        ws, stream = _build.per_stream(_workspaces, dev, _ScanWorkspace)
+        words, counter, epoch = ws.take(S * -(-n // _scan_limits()[0]))
+        code = _scan_entry()(p(q), S, n, p(words), p(counter), epoch,
+                             p(psum), stream)
     _build.check(code, "trend_scan")
     trend_scan.launches += 1
     return psum
@@ -107,41 +148,35 @@ def trend_scan_carry_plain(q, init):
 def _scan_carry_entry():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("trend_scan", "trend_scan_carry_launch",
-                       [p, p, i, i, p, p, p, p, p])
+                       [p, p, i, i, p, p, ctypes.c_uint, p, p, p])
 
 
 def trend_scan_carry(q, init):
     """B7 on the counts' device: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor (same contract as
-    :func:`trend_scan_carry_plain`). Each kernel launch adds one to
-    ``trend_scan_carry.launches``."""
+    :func:`trend_scan_carry_plain`). One launch per call, an empty chunk
+    included; each adds one to ``trend_scan_carry.launches``."""
     if q.device.type == "cpu":
         return trend_scan_carry_plain(q, init)
     if q.device.type != "cuda":
         raise ValueError(f"trend_scan_carry runs on cuda or cpu, not "
                          f"{q.device}")
-    if q.dtype != torch.int32 or q.ndim != 2 or not q.is_contiguous():
-        raise ValueError(f"q must be a contiguous 2-D int32 tensor, got "
-                         f"{q.dtype} {tuple(q.shape)}")
-    S, n = q.shape
+    S, n = _check_counts(q, "trend_scan_carry")
     if init.dtype != torch.int32 or tuple(init.shape) != (S,) or \
             init.device != q.device or not init.is_contiguous():
         raise ValueError("init must be a contiguous (S,) int32 tensor on "
                          "the counts' device")
-    if S > 65535 or S * n >= 2 ** 31:
-        raise ValueError(f"batch {S} x {n} too large for one launch")
     dev = q.device
     psum = torch.empty((S, n), dtype=torch.int32, device=dev)
     tail = torch.empty(S, dtype=torch.int32, device=dev)
-    n_tiles = max(-(-n // _scan_tile()), 1)
-    tile_sums = torch.empty((S, n_tiles), dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty_like(tile_sums)
     p = _build.ptr
     with torch.cuda.device(dev):
-        code = _scan_carry_entry()(p(q), p(init), S, n, p(tile_sums),
-                                   p(tile_offsets), p(psum), p(tail),
-                                   _build.stream_handle(dev))
-    _build.check(code, "trend_scan")
+        ws, stream = _build.per_stream(_workspaces, dev, _ScanWorkspace)
+        words, counter, epoch = ws.take(S * -(-n // _scan_limits()[0]))
+        code = _scan_carry_entry()(p(q), p(init), S, n, p(words),
+                                   p(counter), epoch, p(psum), p(tail),
+                                   stream)
+    _build.check(code, "trend_scan_carry")
     trend_scan_carry.launches += 1
     return psum, tail
 

@@ -20,7 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_decode import (flash_decode,
-                                              flash_decode_plain)
+                                              flash_decode_plain, split_size)
 
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 
@@ -134,3 +134,147 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_decode(q, k, k, torch.zeros(1, dtype=torch.int32,
                                           device="meta"))
+
+
+# ------------------------------------------- the kernel's algorithm, on the CPU
+# The CUDA kernel cannot run here; its algorithm can. The model below is
+# the kernel's order of work: each split of `chunk` positions runs four
+# warps over 64-position tiles, each warp an online softmax (m, l, acc)
+# over its 16 positions of every tile; the warps merge in order; a row
+# whose length needs one split normalises at once, a row with several
+# merges the splits' partials in split order and normalises once.
+_TILE, _WARPS = 64, 4
+
+
+def _merge(parts):
+    """(m, l, acc) partials merged by their maxima, in the order given."""
+    m = np.max([p[0] for p in parts], axis=0)
+    ms = np.where(m == -np.inf, np.float32(0), m)
+    l = np.zeros_like(parts[0][1])
+    acc = np.zeros_like(parts[0][2])
+    for pm, pl, pacc in parts:
+        e = np.exp(pm - ms)
+        l = l + pl * e
+        acc = acc + pacc * e[..., None]
+    return m, l, acc
+
+
+def _normalise(l, acc):
+    return np.where(l[..., None] > 0, acc / np.where(l > 0, l, 1)[..., None],
+                    np.float32(0))
+
+
+def _split_merge_model(q, k, v, lengths, chunk, always_merge=False):
+    """f32 numpy model of B8's split-and-merge; ``always_merge`` sends a
+    one-split row through the merge too."""
+    B, H, D = q.shape
+    S, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    qf = q.reshape(B, Kh, G, D).astype(np.float32)
+    scale = np.float32(1.0) / np.sqrt(np.float32(D))
+    out = np.zeros((B, Kh, G, D), np.float32)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), S)
+        splits = []
+        for s0 in range(0, n, chunk):
+            s1 = min(s0 + chunk, n)
+            warps = []
+            for w in range(_WARPS):
+                m = np.full((Kh, G), -np.inf, np.float32)
+                l = np.zeros((Kh, G), np.float32)
+                acc = np.zeros((Kh, G, D), np.float32)
+                for t0 in range(s0, s1, _TILE):
+                    pos = np.arange(t0 + 16 * w, t0 + 16 * w + 16)
+                    valid = pos < s1          # rows past s1: zero-filled
+                    rows = np.minimum(pos, S - 1)
+                    kk = np.where(valid[:, None, None], k[b, rows], 0)
+                    vv = np.where(valid[:, None, None], v[b, rows], 0)
+                    s = np.einsum("hgd,jhd->hgj", qf[b],
+                                  kk.astype(np.float32)) * scale
+                    s = np.where(valid, s, -np.inf).astype(np.float32)
+                    m_new = np.maximum(m, s.max(axis=-1))
+                    ms = np.where(m_new == -np.inf, np.float32(0), m_new)
+                    corr = np.exp(m - ms)
+                    p = np.exp(s - ms[..., None])
+                    l = l * corr + p.sum(axis=-1)
+                    acc = acc * corr[..., None] + np.einsum(
+                        "hgj,jhd->hgd", p, vv.astype(np.float32))
+                    m = m_new
+                warps.append((m, l, acc))
+            splits.append(_merge(warps))
+        if len(splits) == 1 and not always_merge:
+            _, l, acc = splits[0]
+        elif splits:
+            _, l, acc = _merge(splits)
+        else:
+            continue                          # length 0: zeros
+        out[b] = _normalise(l, acc)
+    return out.reshape(B, H, D)
+
+
+#: lengths 0, 1 and at the split boundaries of every split size below
+_MODEL_LENGTHS = [0, 1, 63, 64, 65, 511, 512, 513, 600]
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("chunk", [64, 128, 512])
+def test_split_merge_model_matches_plain_and_reference(chunk, G):
+    """The kernel's split-and-merge, modelled in f32, against the plain
+    version and the JAX oracle within the f32 tolerance."""
+    kh, d, s = 2, 64, 600
+    b, h = len(_MODEL_LENGTHS), kh * G
+    q, k, v = _inputs(chunk + G, b, h, kh, d, s)
+    lens = np.array(_MODEL_LENGTHS, np.int32)
+    got = _split_merge_model(q, k, v, lens, chunk)
+    plain = flash_decode_plain(_torch(q), _torch(k), _torch(v),
+                               torch.from_numpy(lens))
+    np.testing.assert_allclose(got, _np(plain), rtol=TOL["float32"],
+                               atol=TOL["float32"])
+    assert not got[0].any()                   # length 0 gives zeros
+    want = np.asarray(jref.flash_decode_ref(
+        jnp.asarray(q[1:]), jnp.asarray(k[1:]), jnp.asarray(v[1:]),
+        jnp.asarray(lens[1:])))
+    np.testing.assert_allclose(got[1:], want, rtol=TOL["float32"],
+                               atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("G", [3, 4])
+def test_one_split_skips_the_merge_with_the_same_result(G):
+    """A row whose length needs one split writes acc / l at once; sent
+    through the merge instead it gives the same bits."""
+    kh, d, s, chunk = 4, 64, 512, 512
+    lens = np.array([1, 63, 64, 65, 300, 512], np.int32)
+    q, k, v = _inputs(G, len(lens), kh * G, kh, d, s)
+    direct = _split_merge_model(q, k, v, lens, chunk)
+    merged = _split_merge_model(q, k, v, lens, chunk, always_merge=True)
+    np.testing.assert_array_equal(direct, merged)
+
+
+@pytest.mark.parametrize("B,Kh,S,chunk", [
+    (8, 8, 512, 64),          # serve_llama3's decode shape: one tile a split
+    (16, 8, 32_768, 2048),    # decode_32k (batch 16): 16 splits, 2048 blocks
+    (8, 4, 64, 64),           # the consumer LM's serve shape
+    (1, 1, 100, 64),          # one sequence, one head: down to one tile
+])
+def test_split_size_at_the_main_path_shapes(B, Kh, S, chunk):
+    """The split follows from the shapes, the SM count (132, an H100
+    SXM's) and the kernel's 64-position stage alone."""
+    assert split_size(B, Kh, S, 132, _TILE) == chunk
+    assert chunk % _TILE == 0
+
+
+@pytest.mark.parametrize("junk_k,junk_v", [
+    (999.0, -999.0), (np.nan, np.inf), (np.inf, np.nan)])
+def test_split_merge_model_ignores_junk_past_the_length(junk_k, junk_v):
+    """Whatever bits lie past a row's length, NaN and inf included, the
+    kernel's order of work (zero-filled rows past the length, their scores
+    -inf) gives the same bits as with clean rows there."""
+    b, h, kh, d, s, chunk = 4, 8, 2, 64, 200, 64
+    q, k, v = _inputs(13, b, h, kh, d, s)
+    lens = np.array([0, 70, 128, 199], np.int32)
+    clean = _split_merge_model(q, k, v, lens, chunk)
+    k2, v2 = k.copy(), v.copy()
+    for i, n in enumerate(lens.tolist()):
+        k2[i, n:], v2[i, n:] = junk_k, junk_v
+    np.testing.assert_array_equal(
+        _split_merge_model(q, k2, v2, lens, chunk), clean)

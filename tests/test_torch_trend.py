@@ -23,10 +23,14 @@ import torch
 import repro.streamsim.metrics as jmetrics
 import repro_torch.streamsim.metrics as tmetrics
 from repro.kernels import ops as jops
-from repro.kernels.trend_scan import pair_stats_pallas, trend_scan_pallas
+from repro.kernels.trend_scan import (pair_stats_pallas,
+                                     trend_scan_carry_pallas,
+                                     trend_scan_pallas)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.trend_scan import (pair_stats, pair_stats_plain,
-                                            trend_scan, trend_scan_plain)
+                                            trend_scan,
+                                            trend_scan_carry_plain,
+                                            trend_scan_plain)
 
 CPU = "cpu"
 
@@ -353,3 +357,71 @@ class TestMetricsLayer:
         np.testing.assert_array_equal(
             tmetrics.trend(small_stream, 60, backend="torch", device=CPU),
             tmetrics.trend(small_stream, 60, backend="numpy"))
+
+
+# ---------------------------------- B4 / B7's look-back scan, on the CPU
+# The CUDA kernel cannot run here; its algorithm can. The model below is
+# the kernel's single pass: every 2048-entry tile sums its counts (its
+# aggregate); tile 0 of a row publishes its inclusive prefix seeded by
+# init; every later tile walks back over its predecessors, summing
+# aggregates until it meets a published inclusive prefix, and publishes
+# its own; the row's last tile gives the tail. Which predecessors have
+# published their inclusive prefix when a tile looks back depends on
+# timing on the card, so the model draws it at random: the answer must
+# not depend on it. All adds in uint32, as in the kernel.
+_SCAN_TILE = 2048
+
+
+def _lookback_model(q, init, seed):
+    rng = np.random.default_rng(seed)
+    S, n = q.shape
+    n_tiles = -(-n // _SCAN_TILE)
+    psum = np.zeros((S, n), np.uint32)
+    tail = init.astype(np.uint32).copy()
+    for r in range(S):
+        agg = [q[r, j * _SCAN_TILE:(j + 1) * _SCAN_TILE].astype(
+            np.uint32).sum(dtype=np.uint32) for j in range(n_tiles)]
+        inclusive = {}
+        for j in range(n_tiles):
+            prefix = np.uint32(init[r]) if j == 0 else np.uint32(0)
+            k = j - 1
+            while j > 0:
+                if k in inclusive and (k == 0 or rng.random() < 0.5):
+                    prefix += inclusive[k]
+                    break
+                prefix += agg[k]
+                k -= 1
+            inclusive[j] = prefix + agg[j]
+            lo = j * _SCAN_TILE
+            block = q[r, lo:lo + _SCAN_TILE].astype(np.uint32)
+            psum[r, lo:lo + _SCAN_TILE] = prefix + np.cumsum(block,
+                                                             dtype=np.uint32)
+        if n_tiles:
+            tail[r] = inclusive[n_tiles - 1]
+    return psum.view(np.int32), tail.view(np.int32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 87_040])
+def test_lookback_model_matches_plain_and_pallas(n):
+    """The look-back scan, modelled, against B7's plain version and the
+    JAX Pallas kernel (interpret mode, the width padded with zeros to its
+    1024-entry tiles) bit for bit: seeds 0, random, and one just below
+    2^31 minus the row's total; tails included."""
+    rng = np.random.default_rng(n)
+    q = rng.poisson(9.0, (3, n)).astype(np.int32)
+    total = int(q[2].sum())
+    init = np.array([0, rng.integers(0, 10 ** 6), 2 ** 31 - 1 - total - 3],
+                    np.int32)
+    psum, tail = _lookback_model(q, init, seed=n)
+    p_t, t_t = trend_scan_carry_plain(torch.from_numpy(q),
+                                      torch.from_numpy(init))
+    np.testing.assert_array_equal(psum, p_t.numpy())
+    np.testing.assert_array_equal(tail, t_t.numpy())
+    assert tail[2] == 2 ** 31 - 4
+    width = max(-(-n // 1024) * 1024, 1024)
+    qj = np.zeros((3, width), np.int32)
+    qj[:, :n] = q
+    p_j, t_j = trend_scan_carry_pallas(jnp.asarray(qj), jnp.asarray(init),
+                                       interpret=True)
+    np.testing.assert_array_equal(psum, np.asarray(p_j)[:, :n])
+    np.testing.assert_array_equal(tail, np.asarray(t_j))
