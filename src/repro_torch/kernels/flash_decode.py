@@ -9,9 +9,14 @@ CUDA tensors and runs :func:`flash_decode_plain` for CPU tensors.
 Contract of both: q (B, H, D), k and v (B, S, Kh, D) with H = Kh * G,
 lengths (B,) int32. For each (b, h), a softmax of ``q·k / sqrt(D)`` over
 the cache positions ``s < min(lengths[b], S)``, then the weighted sum of
-v, accumulated in float32 and returned in q's dtype. Positions at or past
-a row's length are never read, whatever they hold; a length above S means
-the whole cache, and a row of length 0 gives zeros.
+v, accumulated in float32 and returned in q's dtype. A length above S
+means the whole cache, and a row of length 0 gives zeros.
+
+Positions at or past a row's length: the CUDA kernel never reads them, so
+its output does not depend on what they hold, NaN and inf included. The
+plain version keeps ``ref.flash_decode_ref``'s semantics: it computes
+scores over the whole cache and masks them, so finite values there do not
+matter, but a NaN or inf there gives NaN, as in the reference.
 
 Each kernel launch adds one to ``flash_decode.launches``.
 """

@@ -205,6 +205,11 @@ class Controller:
                  chunk_s: int = 0,
                  duration_s: int = 0,
                  service: bool = False,
+                 lease_ttl_s: float = 60.0,
+                 service_poll_s: float = 0.2,
+                 lease_batch: int = 1,
+                 worker_id: Optional[str] = None,
+                 service_deadline_s: Optional[float] = None,
                  autotune: Optional[str] = None
                  ) -> List[SimulationReport]:
         """The Tables 1-3 scenario sweep (datasets × time ranges), planned
@@ -277,8 +282,12 @@ class Controller:
             (``ScenarioSpec.span_s``). Requires ``chunk_s > 0``.
         service : bool, default False
             Not ported yet (the sweep-service slice): ``True`` raises
-            ``NotImplementedError`` after the argument checks; the
-            service's lease knobs come with it.
+            ``NotImplementedError`` after the argument checks.
+        lease_ttl_s, service_poll_s, lease_batch, worker_id, \
+service_deadline_s :
+            The service's lease knobs, taken with the reference's defaults;
+            any other value raises ``NotImplementedError`` (the
+            sweep-service slice).
         autotune : None or "off"
             Anything else raises ``NotImplementedError`` (the tile-tuning
             slice).
@@ -313,6 +322,16 @@ class Controller:
             raise NotImplementedError(
                 "run_many(service=True) is not ported yet; it comes with the "
                 "sweep-service slice")
+        lease = {"lease_ttl_s": (lease_ttl_s, 60.0),
+                 "service_poll_s": (service_poll_s, 0.2),
+                 "lease_batch": (lease_batch, 1),
+                 "worker_id": (worker_id, None),
+                 "service_deadline_s": (service_deadline_s, None)}
+        for name, (value, default) in lease.items():
+            if value != default:
+                raise NotImplementedError(
+                    f"run_many({name}={value!r}) is not ported yet; the "
+                    "lease knobs come with the sweep-service slice")
         ops.check_autotune(autotune)
         originals, t_pre = self._prepare_all(datasets, scale, seed,
                                              duration_s)

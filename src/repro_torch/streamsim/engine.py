@@ -174,10 +174,16 @@ class DeviceSweepResult:
     ``mode`` is ``"device"`` (kernel chain) or ``"host"`` (the numpy
     composition, also the wholesale domain fallback). ``device`` is the
     report-reduction device (the first shard device; unused in host mode).
+    ``autotune`` is ``None`` or ``"off"`` (the fixed tiles); anything else
+    raises ``NotImplementedError``.
     """
 
     def __init__(self, plan: SweepPlan, originals: Dict[str, Stream],
-                 store, backend: str, mode: str, device=None):
+                 store, backend: str, mode: str, device=None,
+                 autotune: Optional[str] = None):
+        from repro_torch.kernels import ops
+
+        ops.check_autotune(autotune)
         self.plan = plan
         self.originals = originals
         self.store = store
@@ -566,10 +572,10 @@ def execute_sweep(plan: SweepPlan, originals: Dict[str, Stream], store, *,
     result = None
     if device_ok:
         result = _execute_device(plan, originals, store, backend,
-                                 multiple_mode, device)
+                                 multiple_mode, device, autotune)
     if result is None:
         result = _execute_host(plan, originals, store, backend,
-                               multiple_mode, device)
+                               multiple_mode, device, autotune)
     result.checkpoint = checkpoint
     if checkpoint is not None and result.mode == "host" and store:
         # host mode persists its sims eagerly inside _execute_host
@@ -579,14 +585,14 @@ def execute_sweep(plan: SweepPlan, originals: Dict[str, Stream], store, *,
 
 
 def _execute_device(plan, originals, store, backend, multiple_mode,
-                    device) -> Optional[DeviceSweepResult]:
+                    device, autotune=None) -> Optional[DeviceSweepResult]:
     """The kernel path; returns None when a domain error demands the
     wholesale host fallback."""
     from repro_torch.kernels import ops
 
     devices = _shard_devices(device)
     result = DeviceSweepResult(plan, originals, store, backend, "device",
-                               device=devices[0])
+                               device=devices[0], autotune=autotune)
     total_nsa = 0.0
     try:
         for shard in plan.shards:
@@ -594,7 +600,8 @@ def _execute_device(plan, originals, store, backend, multiple_mode,
             dev = devices[shard.device_index % len(devices)]
             t0 = time.perf_counter()
             ss_kept, idx, totals, _ = nsa_sweep_device(
-                originals, pairs, multiple_mode=multiple_mode, device=dev)
+                originals, pairs, multiple_mode=multiple_mode, device=dev,
+                autotune=autotune)
             hist, mom = ops.stream_metrics_batched_device(
                 ss_kept, totals, shard.max_range)
             mom_host = mom.cpu().numpy().astype(np.float64)  # O(rows)
@@ -618,13 +625,13 @@ def _execute_device(plan, originals, store, backend, multiple_mode,
 
 
 def _execute_host(plan, originals, store, backend, multiple_mode,
-                  device) -> DeviceSweepResult:
+                  device, autotune=None) -> DeviceSweepResult:
     """The host path: per-scenario numpy NSA, one batched metrics call.
     The metrics keep the caller's backend (a domain error in NSA alone does
     not demote in-domain torch metrics); only ``backend="numpy"`` gives
     f64 host statistics throughout."""
     result = DeviceSweepResult(plan, originals, store, backend, "host",
-                               device=device)
+                               device=device, autotune=autotune)
     t0 = time.perf_counter()
     for spec in plan.local_missing:
         result.host_sims[spec.scenario] = nsa(
@@ -1082,6 +1089,7 @@ class ChunkedSweepRunner:
         self.backend = backend
         self.multiple_mode = multiple_mode
         self.device = device
+        self.autotune = autotune
         self.checkpoint = checkpoint
         self.chunk_s = int(plan.chunk_s)
         self._specs = {s.scenario: s for s in plan.scenarios}
@@ -1119,7 +1127,8 @@ class ChunkedSweepRunner:
             dev = devices[shard.device_index % len(devices)]
             cn = ChunkedNSA(self.originals,
                             [(s.dataset, s.span_s) for s in shard.specs],
-                            multiple_mode=self.multiple_mode, device=dev)
+                            multiple_mode=self.multiple_mode, device=dev,
+                            autotune=self.autotune)
             self._shard_states.append({
                 "shard": shard,
                 "nsa": cn,
@@ -1253,7 +1262,8 @@ class ChunkedSweepRunner:
         result = DeviceSweepResult(
             plan, self.originals, self.store, self.backend, "device",
             device=self._shard_states[0]["nsa"].device
-            if self._shard_states else _shard_devices(self.device)[0])
+            if self._shard_states else _shard_devices(self.device)[0],
+            autotune=self.autotune)
         result.checkpoint = self.checkpoint
         t0 = time.perf_counter()
         for spec in plan.cached:
@@ -1322,7 +1332,8 @@ class ChunkedSweepRunner:
     def _run_host(self, feeds) -> DeviceSweepResult:
         plan = self.plan
         result = DeviceSweepResult(plan, self.originals, self.store,
-                                   self.backend, "host", device=self.device)
+                                   self.backend, "host", device=self.device,
+                                   autotune=self.autotune)
         result.checkpoint = self.checkpoint
         t0 = time.perf_counter()
         for spec in plan.local_missing:

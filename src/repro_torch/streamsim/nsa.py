@@ -173,7 +173,7 @@ def nsa(stream: Stream, max_range: int, *, keep: str = "systematic",
             handles = nsa_sweep_device({stream.name: stream},
                                        [(stream.name, max_range)],
                                        multiple_mode=multiple_mode,
-                                       device=device)
+                                       device=device, autotune=autotune)
         except ops.PallasDomainError:
             pass  # stream outside the kernel's exactness domain
         else:
@@ -194,13 +194,16 @@ def nsa(stream: Stream, max_range: int, *, keep: str = "systematic",
 
 def nsa_sweep_device(streams: Dict[str, Stream],
                      pairs: Sequence[Tuple[str, int]], *,
-                     multiple_mode: str = "time", device=None):
+                     multiple_mode: str = "time", device=None,
+                     autotune: Optional[str] = None):
     """The device leg of a range-padded sweep — NO host gather.
 
     Runs ONE ``stream_sample`` launch (B1) plus ONE batched compaction (B2)
     for the scenario rows ``pairs`` (each a ``(stream name, max_range)``;
     the streams must be non-empty) on ``device`` (``None`` means CUDA),
-    then gathers each row's kept stamps on the device.
+    then gathers each row's kept stamps on the device. ``autotune`` is
+    ``None`` or ``"off"`` (the fixed tiles); anything else raises
+    ``NotImplementedError`` (tile tuning is not ported).
 
     Returns
     -------
@@ -223,6 +226,7 @@ def nsa_sweep_device(streams: Dict[str, Stream],
 
     from repro_torch.kernels import ops
 
+    ops.check_autotune(autotune)
     ts = [streams[name].t for name, _ in pairs]
     mults = [_multiple(len(streams[name]), streams[name].time_range, mr,
                        multiple_mode) for name, mr in pairs]
@@ -343,6 +347,9 @@ class ChunkedNSA:
         As in :func:`nsa`.
     device : torch device, optional
         Where the tables live and the kernels run (``None`` means CUDA).
+    autotune : None or "off"
+        Anything else raises ``NotImplementedError`` (tile tuning is not
+        ported).
 
     Raises
     ------
@@ -354,11 +361,13 @@ class ChunkedNSA:
 
     def __init__(self, streams: Dict[str, Stream],
                  pairs: Sequence[Tuple[str, int]], *,
-                 multiple_mode: str = "time", device=None):
+                 multiple_mode: str = "time", device=None,
+                 autotune: Optional[str] = None):
         import torch
 
         from repro_torch.kernels import ops
 
+        ops.check_autotune(autotune)
         self.pairs = [(name, int(rng)) for name, rng in pairs]
         if not self.pairs:
             raise ValueError("need at least one scenario row")

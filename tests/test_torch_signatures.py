@@ -1,0 +1,153 @@
+"""Signatures of the port's sweep entry points against the JAX package's.
+
+A keyword the reference takes must be taken by the port too: a knob the
+port has not ported yet raises ``NotImplementedError`` for any value other
+than the reference's default, never ``TypeError``. The comparison of the
+signatures is made here, in the test only; the port imports nothing of
+the reference.
+"""
+
+import importlib
+import inspect
+
+import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
+import numpy as np
+import pytest
+
+import repro.streamsim as J
+import repro_torch.streamsim as T
+from repro.streamsim import engine as jengine
+from repro_torch.streamsim import engine as tengine
+
+# the packages export a function ``nsa`` that hides the module of that name
+jnsa = importlib.import_module("repro.streamsim.nsa")
+tnsa = importlib.import_module("repro_torch.streamsim.nsa")
+
+CPU = "cpu"
+SCALE, SEED = 0.002, 9
+
+#: the sweep service's lease knobs, each at a value other than its default
+LEASE_KNOBS = {"lease_ttl_s": 5.0, "service_poll_s": 1.0, "lease_batch": 2,
+               "worker_id": "w0", "service_deadline_s": 30.0}
+
+
+def _drain(queue):
+    return {"records_seen": sum(len(b) for b in queue)}
+
+
+def _params(fn):
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+def test_run_many_signature_is_the_references():
+    """Keyword for keyword: names, order, kinds and defaults."""
+    assert _params(T.Controller.run_many) == _params(J.Controller.run_many)
+
+
+@pytest.mark.parametrize("port,ref", [
+    (tnsa.nsa_sweep_device, jnsa.nsa_sweep_device),
+    (tnsa.ChunkedNSA.__init__, jnsa.ChunkedNSA.__init__),
+    (tengine.DeviceSweepResult.__init__, jengine.DeviceSweepResult.__init__),
+    (tengine.execute_sweep, jengine.execute_sweep),
+    (tengine.ChunkedSweepRunner.__init__, jengine.ChunkedSweepRunner.__init__),
+], ids=["nsa_sweep_device", "ChunkedNSA", "DeviceSweepResult",
+        "execute_sweep", "ChunkedSweepRunner"])
+def test_autotune_keyword_is_the_references(port, ref):
+    want = inspect.signature(ref).parameters["autotune"]
+    got = inspect.signature(port).parameters["autotune"]
+    assert want.default is None
+    assert (got.kind, got.default) == (want.kind, want.default)
+
+
+@pytest.mark.parametrize("name", sorted(LEASE_KNOBS))
+def test_lease_knob_other_than_default_raises(tmp_path, name):
+    c = T.Controller(str(tmp_path), device=CPU)
+    with pytest.raises(NotImplementedError, match=name):
+        c.run_many(["traffic"], [20], _drain, scale=SCALE, seed=SEED,
+                   backend="torch", **{name: LEASE_KNOBS[name]})
+    assert c.list_metrics() == []
+
+
+def test_lease_knobs_at_their_defaults_change_nothing(tmp_path):
+    defaults = {name: inspect.signature(J.Controller.run_many)
+                .parameters[name].default for name in LEASE_KNOBS}
+    kw = dict(scale=SCALE, seed=SEED, backend="torch")
+    (a,) = T.Controller(str(tmp_path / "a"), device=CPU).run_many(
+        ["traffic"], [20], _drain, **kw)
+    (b,) = T.Controller(str(tmp_path / "b"), device=CPU).run_many(
+        ["traffic"], [20], _drain, **kw, **defaults)
+    assert a.simulated_rows == b.simulated_rows > 0
+    assert a.consumer_metrics == b.consumer_metrics
+    assert a.simulated_volatility == b.simulated_volatility
+
+
+def test_argument_checks_come_before_the_lease_raise(tmp_path):
+    c = T.Controller(str(tmp_path), device=CPU)
+    with pytest.raises(ValueError, match="duration_s"):
+        c.run_many(["traffic"], [20], _drain, duration_s=86_400,
+                   lease_batch=2)
+    with pytest.raises(NotImplementedError, match="service=True"):
+        c.run_many(["traffic"], [20], _drain, service=True, lease_batch=2)
+
+
+@pytest.fixture(scope="module")
+def originals():
+    return {"traffic": T.preprocess(T.make_stream("traffic", scale=SCALE,
+                                                  seed=SEED))}
+
+
+def _plan(originals, store):
+    return T.plan_sweep(store, ["traffic"], [20], {"traffic": len(
+        originals["traffic"])}, n_devices=1, host_index=0, n_hosts=1,
+        force=True)
+
+
+def _sweep_device(originals, autotune):
+    return tnsa.nsa_sweep_device(originals, [("traffic", 20)], device=CPU,
+                                 autotune=autotune)
+
+
+def _chunked_nsa(originals, autotune):
+    return T.ChunkedNSA(originals, [("traffic", 20)], device=CPU,
+                        autotune=autotune)
+
+
+def _sweep_result(originals, autotune):
+    return T.DeviceSweepResult(_plan(originals, None), originals, None,
+                               "torch", "device", device=CPU,
+                               autotune=autotune)
+
+
+@pytest.mark.parametrize("make", [_sweep_device, _chunked_nsa,
+                                  _sweep_result],
+                         ids=["nsa_sweep_device", "ChunkedNSA",
+                              "DeviceSweepResult"])
+@pytest.mark.parametrize("autotune,raises", [
+    (None, None), ("off", None), ("cached", NotImplementedError),
+    ("force", NotImplementedError)])
+def test_autotune_modes(originals, make, autotune, raises):
+    if raises is not None:
+        with pytest.raises(raises, match="autotune"):
+            make(originals, autotune)
+        return
+    out = make(originals, autotune)
+    if make is _sweep_device:
+        ss_kept, idx, totals, lengths = out
+        ref_ss, ref_idx, ref_totals, _ = _sweep_device(originals, None)
+        assert np.array_equal(totals, ref_totals) and totals[0] > 0
+        assert np.array_equal(idx.numpy(), ref_idx.numpy())
+    elif make is _chunked_nsa:
+        h = out.chunk(0, 20)
+        assert int(h.totals.sum()) == int(h.kept.sum()) > 0
+    else:
+        assert out.mode == "device"
+
+
+def test_execute_sweep_threads_autotune(originals):
+    res = T.execute_sweep(_plan(originals, None), originals, None,
+                          backend="torch", device=CPU, autotune="off")
+    assert res.mode == "device"
+    with pytest.raises(NotImplementedError, match="autotune"):
+        T.execute_sweep(_plan(originals, None), originals, None,
+                        backend="torch", device=CPU, autotune="force")
