@@ -15,6 +15,12 @@ Phases, each of which raises on failure (nothing catches it):
      range), a ragged 4-row batch at max_range 60/600/1800/3600, a
      zero-span stream and a single-record stream — exact for integer
      outputs, 1e-5 relative for the moments;
+   - B1 and B2 at their edges, bit-equal to their plain versions: rows of
+     1003 records (not a multiple of the vector width), inputs in views
+     that start off a 16-byte boundary, all-zero and all-ones masks, rows
+     under one tile, random masks at 1 %, 50 % and 99 % over 18 rows, an
+     18-row mask of more tiles than the card holds blocks at once, two
+     calls in a row bit-identical and a smaller call after a larger one;
    - B4 (trend_scan) at the fidelity shape of max_range 3600 (the three
      originals' and sims' count rows), a ragged batch of lengths
      {0, 1, 1023, 1024, 1025, 86 400}, unpadded widths 0 and 1025, and one
@@ -39,11 +45,13 @@ Phases, each of which raises on failure (nothing catches it):
      (999s, NaN and +inf: bit-equal output) — within 2e-5 (f32) and 5e-2
      (bf16) of the plain version, two calls in a row bit-identical, the
      serve shape after the decode_32k shape unchanged;
-   - one device kernel per call of B4, B7 and B8 (``torch.profiler`` over
-     five calls at the timing shapes; copies and fills not counted);
+   - one device kernel per call of B1, B2 (its sentinel fill included),
+     B4, B7 and B8 (``torch.profiler`` over five calls at the timing
+     shapes; copies and fills not counted);
    timing kernel, plain version and the one-call library yardstick (CUDA
-   events, median of several runs; B8 at B = 16, S = 32 768 with
-   llama3-8b's heads, against ``scaled_dot_product_attention``);
+   events, median of several runs; B2 against ``torch.cumsum`` and, on
+   one row, ``torch.nonzero``; B8 at B = 16, S = 32 768 with llama3-8b's
+   heads, against ``scaled_dot_product_attention``);
 4. drive ``Controller(tmp, device="cuda").run("userbehavior", 3600, ...,
    scale=1.0, backend="torch")`` with every launch count set to 0 just
    before and read just after, and check it against the port's own
@@ -64,7 +72,9 @@ Phases, each of which raises on failure (nothing catches it):
    chunk rounds), check it against the port's ``backend="numpy"`` chunked
    run on the same original, then drive B7 through
    ``ops.trend_scan_chunk`` over the finalized count row in 54 chunks and
-   hold the concatenated trend to B4's bit for bit;
+   hold the concatenated trend to B4's bit for bit; B1 and B2 are then
+   held to their plain versions and timed on the inputs one of those
+   chunks gave B1 (the shape of 54 of their 63 launches);
 8. drive ``python -m repro_torch.launch.serve`` at its defaults (the
    paper's consumer LM at full width, 12 layers in f32, sogouq compressed
    to 120 s at scale 0.01, 8 slots): every arrival finishes and B8 runs
@@ -77,9 +87,9 @@ Phases, each of which raises on failure (nothing catches it):
    31 of a real decode step; prints the logits of that step through B8
    and through the plain version, prefill and decode step times, tokens/s
    and peak memory, then frees the weights;
-10. print the ``report``, ``sweep``, ``chunked``, ``multiday``, ``serve``,
-   ``serve_llama3`` and ``kernels`` JSON lines and, last, the
-   ``{"ok": true, "device": ...}`` line.
+10. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
+   ``multiday``, ``serve``, ``serve_llama3`` and ``kernels`` JSON lines
+   and, last, the ``{"ok": true, "device": ...}`` line.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -142,6 +152,9 @@ MULTIDAY_LAUNCHES = {"stream_sample": MULTIDAY_CHUNKS,
                      "metrics_fused": 1, "trend_scan": 1, "pair_stats": 1,
                      "trend_scan_carry": MULTIDAY_CHUNKS}
 TREND_WINDOW = 60
+#: the nine-day chunk whose B1 inputs are kept for the chunk-shape timings
+#: of B1 and B2: [1800, 2400) s of the first day
+MULTIDAY_TIMED_CHUNK = 3
 
 
 def _card_line() -> str:
@@ -155,12 +168,14 @@ def _card_line() -> str:
 def _time_ms(fn, reps: int) -> float:
     """Median device time of ``fn()`` over ``reps`` runs after one warm-up,
     each run between its own pair of CUDA events and started with a cold
-    L2: a 64 MiB buffer, larger than the 50 MB L2, is read before each run,
-    outside the timed span (read, not written, so no dirty lines are left
-    to be written back inside the span)."""
+    L2: a 256 MiB buffer, larger than the 50 MB L2, is read before each
+    run, outside the timed span (read, not written, so no dirty lines are
+    left to be written back inside the span). The read keeps the card busy
+    for ~80 us, in which the host queues ``fn``'s launch, so the wrapper's
+    host time stays out of the span unless it is longer than that."""
     import torch
     fn()
-    flush = torch.ones(16 << 20, dtype=torch.int32, device="cuda")
+    flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -358,6 +373,8 @@ def check_kernels(device: str, scale: float, seed: int,
         if case in ("main", "sweep"):
             timed[case] = _b123_timings(b1_in, keep, tot, kept, buckets,
                                         timing_reps, plain_reps)
+        if case == "main":
+            main_b1, main_keep = b1_in, keep
         if keep_cases is not None and case in ("main", "ragged", "sweep"):
             keep_cases[case] = dict(ss=ss, lengths=b1_in[-1], kept=kept,
                                     totals=tot)
@@ -378,6 +395,10 @@ def check_kernels(device: str, scale: float, seed: int,
     row = ss_o[0, :int(len_o[0])]
     rows = {name: dict(timed["main"][name], sweep=timed["sweep"][name])
             for name in ("stream_sample", "compact")}
+    rows["stream_sample"]["kernels_per_call"] = _kernels_per_call(
+        "stream_sample", lambda: stream_sample(*main_b1))
+    rows["compact"]["kernels_per_call"] = _kernels_per_call(
+        "compact", lambda: compact(main_keep))
     rows["metrics_fused"] = dict(
         ms=_time_ms(lambda: stream_metrics(ss_o, len_o, buckets),
                     timing_reps),
@@ -396,15 +417,14 @@ def check_kernels(device: str, scale: float, seed: int,
     return rows
 
 
-def _b123_timings(b1_in, keep, tot, kept, buckets: int, timing_reps: int,
-                  plain_reps: int):
-    """Kernel, plain and library times of B1, B2 and B3 (on the kept
-    stamps) at one case's shapes, each with its bound."""
+def _b12_timings(b1_in, keep, tot, timing_reps: int, plain_reps: int):
+    """Kernel, plain and library times of B1 and B2 at one case's shapes,
+    each with its bound. B2's library call is ``torch.cumsum`` (the scan
+    alone); on a one-row mask ``torch.nonzero`` is timed as well
+    (``library_nonzero_ms``). Neither is called by the port."""
     import torch
 
     from repro_torch.kernels.compact import compact, compact_plain
-    from repro_torch.kernels.metrics_fused import (stream_metrics,
-                                                   stream_metrics_plain)
     from repro_torch.kernels.stream_sample import (stream_sample,
                                                    stream_sample_plain)
     S, N = b1_in[0].shape
@@ -424,6 +444,21 @@ def _b123_timings(b1_in, keep, tot, kept, buckets: int, timing_reps: int,
         shape=f"R={S} N={N} kept={int(tot.sum())}")
     out["compact"]["bound_ms"], out["compact"]["bound_by"] = \
         _bound_ms(S * N * (1 + 4) + S * 4, S * N * 4)
+    if S == 1:
+        out["compact"]["library_nonzero_ms"] = _time_ms(
+            lambda: torch.nonzero(keep[0]), timing_reps)
+    return out
+
+
+def _b123_timings(b1_in, keep, tot, kept, buckets: int, timing_reps: int,
+                  plain_reps: int):
+    """Kernel, plain and library times of B1, B2 and B3 (on the kept
+    stamps) at one case's shapes, each with its bound."""
+    import torch
+
+    from repro_torch.kernels.metrics_fused import (stream_metrics,
+                                                   stream_metrics_plain)
+    out = _b12_timings(b1_in, keep, tot, timing_reps, plain_reps)
     Sk, Nk = kept.shape
     row = kept[0, :int(tot[0])]
     out["metrics_fused"] = dict(
@@ -437,6 +472,105 @@ def _b123_timings(b1_in, keep, tot, kept, buckets: int, timing_reps: int,
         _bound_ms(Sk * Nk * 4 + Sk * 4 + Sk * buckets * 4 + Sk * 8,
                   Sk * Nk * 3 + Sk * buckets * 4)
     return out
+
+
+def check_sample_compact_edges(device: str, scale: float, seed: int):
+    """Phase 3 for B1's and B2's edges, each bit-equal to its plain
+    version: rows whose length is not a multiple of the vector width,
+    views that start off a 16-byte boundary, all-zero and all-ones masks,
+    rows under one tile, random masks at 1 %, 50 % and 99 % over 18 rows of
+    many tiles, a mask of more tiles than the card holds blocks at once (a
+    deadlock would hang here), two calls in a row bit-identical and a
+    smaller call after a larger one. Returns what it checked."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.compact import compact, compact_plain
+    from repro_torch.kernels.stream_sample import (stream_sample,
+                                                   stream_sample_plain)
+    from repro_torch.streamsim.nsa import _multiple
+
+    streams, _, _ = _streams(scale, seed)
+    rng = np.random.default_rng(seed)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def b1_inputs(ts, ranges):
+        mults = [_multiple(len(t), float(t[-1] - t[0]), mr, "time")
+                 for t, mr in zip(ts, ranges)]
+        return [up(x) for x in ops.stream_sample_inputs(ts, ranges, mults)]
+
+    def off_boundary(x, shift):
+        """``x`` copied into a buffer ``shift`` elements in: the same
+        values in a contiguous view whose data starts off a 16-byte
+        boundary."""
+        buf = torch.empty(x.numel() + shift, dtype=x.dtype, device=device)
+        view = buf[shift:].view(x.shape)
+        view.copy_(x)
+        if view.data_ptr() % 16 == 0 or not view.is_contiguous():
+            raise AssertionError("off_boundary: view is aligned")
+        return view
+
+    def same_b1(case, args):
+        ss, keep = stream_sample(*args)
+        ss_p, keep_p = stream_sample_plain(*args)
+        _exact(f"stream_sample/{case}/ss", ss, ss_p)
+        _exact(f"stream_sample/{case}/keep", keep, keep_p)
+        _same_twice(f"stream_sample/{case}", lambda: stream_sample(*args))
+
+    def same_b2(case, mask):
+        idx, tot = compact(mask)
+        idx_p, tot_p = compact_plain(mask)
+        _exact(f"compact/{case}/idx", idx, idx_p)
+        _exact(f"compact/{case}/totals", tot, tot_p)
+        _same_twice(f"compact/{case}", lambda: compact(mask))
+
+    # B1: three real streams cut to 1003 records (N not a multiple of 8),
+    # and the run-shape inputs with t off a 16-byte boundary
+    ts = [streams[d].t[:1003] for d in SWEEP_DATASETS]
+    short = b1_inputs(ts, [600, 1800, 3600])
+    short[0] = short[0][:, :1003].contiguous()
+    same_b1("n1003", short)
+    main = b1_inputs([streams[MAIN_DATASET].t], [MAIN_RANGE])
+    same_b1("t_off_boundary", [off_boundary(main[0], 3), *main[1:]])
+    same_b1("main_after_n1003", main)
+
+    # B2
+    def bits(shape, p):
+        return up(rng.random(shape) < p)
+
+    tile = 16_384                      # B2's larger tile
+    card = torch.cuda.get_device_properties(torch.device(device)) \
+        if torch.device(device).type == "cuda" else None
+    # blocks the card holds at once: at most 2048 threads per SM over
+    # 256-thread blocks
+    resident = 8 * card.multi_processor_count if card is not None else 0
+    wave = (18, 1 << 21)
+    if wave[0] * -(-wave[1] // tile) <= resident:
+        raise AssertionError("compact/multi_wave: grid fits in one wave")
+    masks = {
+        "n4099": bits((3, 4099), 0.5),
+        "under_tile": bits((5, 1000), 0.3),
+        "all_zero": torch.zeros((4, 70_001), dtype=torch.bool,
+                                device=device),
+        "all_ones": torch.ones((4, 70_001), dtype=torch.bool,
+                               device=device),
+        "p01": bits((18, 300_000), 0.01),
+        "p50": bits((18, 300_000), 0.5),
+        "p99": bits((18, 300_000), 0.99),
+        "multi_wave": bits(wave, 0.04),
+        "width0": torch.zeros((3, 0), dtype=torch.bool, device=device),
+    }
+    masks["off_boundary"] = off_boundary(bits((1, 100_000), 0.3), 3)
+    for case, mask in masks.items():
+        same_b2(case, mask)
+    # a smaller call after the largest reuses its workspace
+    same_b2("under_tile_after_multi_wave", masks["under_tile"])
+    return {"stream_sample": ["n1003", "t_off_boundary", "main_after_n1003"],
+            "compact": [*masks, "under_tile_after_multi_wave"],
+            "compact_resident_blocks": resident,
+            "compact_multi_wave_tiles": wave[0] * -(-wave[1] // tile)}
 
 
 # ------------------------------------------------------- B4 and B5 (phase 3)
@@ -1237,6 +1371,30 @@ def run_chunked_path(device: str, scale: float, seed: int, workdir: Path,
 
 
 # ---------------------------------------------- phase 7: nine days, chunked
+class _KeepArgs:
+    """A stand-in for a kernel wrapper that passes every call on to it and
+    keeps the arguments of call number ``index``. Its ``launches`` is the
+    wrapper's own count, which the wrapper updates through the module
+    name the stand-in occupies."""
+
+    def __init__(self, fn, index: int):
+        self.fn, self.index, self.calls, self.args = fn, index, 0, []
+
+    def __call__(self, *args):
+        if self.calls == self.index:
+            self.args.extend(args)
+        self.calls += 1
+        return self.fn(*args)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
 def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
     """Phase 7: nine days of the userbehavior stream through the chunked
     pipeline, held to the port's numpy backend on the same original; then
@@ -1249,14 +1407,26 @@ def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
     from repro_torch.kernels import ops
     from repro_torch.streamsim import Controller, StreamStore
 
+    import repro_torch.kernels.stream_sample as b1_module
+
     ctl = Controller(str(workdir / "md_torch"), device=device)
     consumer = _SweepConsumer()
     kw = dict(scale=scale, seed=seed, chunk_s=CHUNK_S, duration_s=MULTIDAY_S)
+    # keep the B1 inputs of one chunk (references, no copy) for the
+    # chunk-shape timings; the hook passes every call on unchanged
+    real = b1_module.stream_sample
+    hook = _KeepArgs(real, MULTIDAY_TIMED_CHUNK)
+    chunk_in = hook.args
+
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
+    b1_module.stream_sample = hook
     t0 = time.perf_counter()
-    (rep,) = ctl.run_many((MAIN_DATASET,), (MAIN_RANGE,), consumer,
-                          backend="torch", **kw)
+    try:
+        (rep,) = ctl.run_many((MAIN_DATASET,), (MAIN_RANGE,), consumer,
+                              backend="torch", **kw)
+    finally:
+        b1_module.stream_sample = real
     run_s = time.perf_counter() - t0
     launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -1321,7 +1491,25 @@ def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
         "tolerances": {"stats": STAT_TOL, "sims": "byte-equal",
                        "trend_chunks_vs_b4": "bit-equal"},
     }
-    return launches, multiday
+    return launches, multiday, chunk_in
+
+
+def check_chunk_shape(b1_in, timing_reps: int = 20, plain_reps: int = 3):
+    """B1 and B2 at the shape of a nine-day chunk (the inputs one chunk of
+    :func:`run_multiday_path` gave B1): bit-equal to their plain versions;
+    returns their timing rows."""
+    from repro_torch.kernels.compact import compact, compact_plain
+    from repro_torch.kernels.stream_sample import (stream_sample,
+                                                   stream_sample_plain)
+    ss, keep = stream_sample(*b1_in)
+    ss_p, keep_p = stream_sample_plain(*b1_in)
+    _exact("stream_sample/chunk/ss", ss, ss_p)
+    _exact("stream_sample/chunk/keep", keep, keep_p)
+    idx, tot = compact(keep)
+    idx_p, tot_p = compact_plain(keep)
+    _exact("compact/chunk/idx", idx, idx_p)
+    _exact("compact/chunk/totals", tot, tot_p)
+    return _b12_timings(b1_in, keep, tot, timing_reps, plain_reps)
 
 
 # ------------------------------------------------- phase 8: serve (the CLI)
@@ -1618,6 +1806,8 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = {}
     rows = check_kernels("cuda", MAIN_SCALE, MAIN_SEED, keep_cases=cases)
+    edges = check_sample_compact_edges("cuda", MAIN_SCALE, MAIN_SEED)
+    print(json.dumps({"b1_b2_edges": edges}), flush=True)
     rows.update(check_trend_kernels("cuda", MAIN_SCALE, MAIN_SEED))
     rows.update(check_carry_kernels("cuda", MAIN_SEED, cases))
     cases.clear()
@@ -1636,9 +1826,12 @@ def main() -> int:
         chunked_launches, chunked = run_chunked_path(
             "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp), mono)
         print(json.dumps({"chunked": chunked}), flush=True)
-        md_launches, multiday = run_multiday_path("cuda", MAIN_SCALE,
-                                                  MAIN_SEED, Path(tmp))
+        md_launches, multiday, chunk_in = run_multiday_path(
+            "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp))
         print(json.dumps({"multiday": multiday}), flush=True)
+        for name, row in check_chunk_shape(chunk_in).items():
+            rows[name]["chunk"] = row
+        chunk_in.clear()
         serve_launches, serve = run_serve_path(Path(tmp))
         print(json.dumps({"serve": serve}), flush=True)
         llama_launches, llama = run_serve_llama3_path("cuda", MAIN_SEED,
@@ -1671,9 +1864,10 @@ def main() -> int:
                          "src/repro/kernels/flash_decode.py:93",
                          "serve_llama3"),
     }
-    extra = ("sim", "sweep", "week", "S37", "max_scaled_err", "records",
-             "multiday", "fidelity", "serve", "max_abs_err_f32",
-             "max_abs_err_bf16", "library_max_abs_err", "kernels_per_call")
+    extra = ("sim", "sweep", "chunk", "week", "S37", "max_scaled_err",
+             "records", "multiday", "fidelity", "serve", "max_abs_err_f32",
+             "max_abs_err_bf16", "library_max_abs_err", "library_nonzero_ms",
+             "kernels_per_call")
     kernels = []
     for name, (source, tpu, path) in replaces.items():
         r = rows[name]

@@ -1,5 +1,5 @@
 // Fused, batched NSA inner loop for Hopper: normalize -> scale stamp ->
-// systematic keep bit, one thread per record.
+// systematic keep bit, eight records per thread.
 //
 // Replaces the TPU kernel repro/kernels/stream_sample.py::_kernel
 // (stream_sample_pallas). Same contract, record for record:
@@ -10,16 +10,33 @@
 //   ss   = clip(g, 0, n_buckets - 1)
 //   keep = (rank * k) % max(c, 1) < k,  rank = i - starts[ss]   (int32)
 // and keep = 0 for i >= lengths[s] (padded lanes; the TPU path masked them
-// after the kernel).
+// after the kernel). ss is written for every lane.
 //
 // What bounds it: bytes. Per record it reads one f32 timestamp and writes
 // one int32 stamp and one byte of keep bit, 9 B; the three per-row tables
-// (3 x max_range x 4 B, 43 KB at max_range 3600) stay in L2 and are read
-// through the read-only cache (__ldg). The arithmetic is a handful of
-// integer and float ops per record. The design therefore does one
-// coalesced pass with no shared memory: consecutive threads take
-// consecutive records, the keep bit is written as one byte instead of the
-// TPU kernel's int32 lane.
+// (3 x max_range x 4 B, 43 KB at max_range 3600) stay in L1 and L2 and are
+// read through the read-only cache (__ldg). To run at the card's 3.35 TB/s
+// with ~0.7 us of memory latency, Little's law wants ~2.3 MB in flight,
+// ~18 KB per SM. One record per thread, as the first port had it, gives
+// at most 2048 threads x 4 B = 8 KB per SM, which capped it near 42 % of
+// the bound. The design:
+//   - each thread takes 8 consecutive records (consecutive threads take
+//     consecutive groups, so a warp's accesses stay contiguous) and issues
+//     both 16-byte loads of t before the first table lookup: 32 B in
+//     flight per thread, 64 KB per SM;
+//   - the stamps leave as two 16-byte stores, the keep bits as one 8-byte
+//     word;
+//   - sorted t puts neighbouring records in the same bucket almost always,
+//     so the thread keeps the last bucket's (start, count, k) in registers
+//     and reads a table only when the guess or the snapped bucket moves:
+//     a few lookups per 8 records instead of 40.
+// What is left between it and the bound: the two dependent table lookups
+// after each group's loads, which miss a cold L2, and at a one-wave shape
+// (a ~2 M-record chunk) the launch itself.
+// A row whose length is not a multiple of 8, or a t, ss or keep pointer
+// not aligned for those widths (a view with a storage offset), takes the
+// kernel's scalar path instead, chosen at launch: the same arithmetic,
+// one 4-byte load and store per record.
 //
 // Exactness: the float ops use the _rn intrinsics so the compiler cannot
 // contract them into an FMA (the reference rounds after every op), the
@@ -29,11 +46,18 @@
 // Build without --use_fast_math.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kItems = 8;                    // records per thread
+constexpr int kTile = kThreads * kItems;     // 2048 records per block
+static_assert(kItems == 8, "two 16-byte loads of t, one 8-byte keep word");
 
+// kVec: n % kItems == 0 and the pointers aligned, so every thread's group
+// is whole and loads and stores as vectors.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 stream_sample_kernel(const float* __restrict__ t,
                      const int* __restrict__ starts,
@@ -45,9 +69,23 @@ stream_sample_kernel(const float* __restrict__ t,
                      unsigned char* __restrict__ keep_out,
                      int n, int width) {
   const int s = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const size_t off = static_cast<size_t>(s) * n + i;
+  const long long i0 =
+      static_cast<long long>(blockIdx.x * kThreads + threadIdx.x) * kItems;
+  if (i0 >= n) return;
+  const size_t off = static_cast<size_t>(s) * n + i0;
+
+  float tv[kItems];
+  if (kVec) {
+    const float4 a = *reinterpret_cast<const float4*>(t + off);
+    const float4 b = *reinterpret_cast<const float4*>(t + off + 4);
+    tv[0] = a.x; tv[1] = a.y; tv[2] = a.z; tv[3] = a.w;
+    tv[4] = b.x; tv[5] = b.y; tv[6] = b.z; tv[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      tv[j] = (i0 + j < n) ? t[off + j] : 0.0f;
+  }
+
   const int* st = starts + static_cast<size_t>(s) * width;
   const int* ct = counts + static_cast<size_t>(s) * width;
   const int* kt = ktab + static_cast<size_t>(s) * width;
@@ -55,28 +93,63 @@ stream_sample_kernel(const float* __restrict__ t,
   const float inv_span = __ldg(scalars + 3 * s + 1);
   const float nb_f = __ldg(scalars + 3 * s + 2);
   const int nb = static_cast<int>(nb_f);  // exact: n_buckets < 2^24
+  const int len = __ldg(lengths + s);
 
-  // paper formula (1), floored to the simulated second
-  float x = __fmul_rn(__fmul_rn(__fsub_rn(t[off], t_min), inv_span), nb_f);
-  x = fminf(fmaxf(floorf(x), 0.0f), static_cast<float>(nb - 1));
-  int g = static_cast<int>(x);
+  int ss[kItems];
+  unsigned char keep[kItems];
+  // the last snapped bucket and its table entries (-1: none yet)
+  int cb = -1, c_start = 0, c_count = 0, c_k = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = static_cast<int>(i0 + j);   // < n on every stored lane
+    // paper formula (1), floored to the simulated second
+    float x = __fmul_rn(__fmul_rn(__fsub_rn(tv[j], t_min), inv_span), nb_f);
+    x = fminf(fmaxf(floorf(x), 0.0f), static_cast<float>(nb - 1));
+    const int g = static_cast<int>(x);
 
-  // snap the f32 guess to the bucket that holds record i
-  const int s_g = __ldg(st + g);
-  const int c_g = __ldg(ct + g);
-  g += static_cast<int>(i >= s_g + c_g) - static_cast<int>(i < s_g);
-  g = min(max(g, 0), nb - 1);
-  ss_out[off] = g;
-
-  unsigned char keep = 0;
-  if (i < __ldg(lengths + s)) {
-    const int start = __ldg(st + g);
-    const int c = __ldg(ct + g);
-    const int k = __ldg(kt + g);
-    const int rank = i - start;
-    keep = ((rank * k) % max(c, 1)) < k;
+    // snap the f32 guess to the bucket that holds record i
+    int s_g = c_start, c_g = c_count;
+    if (g != cb) {
+      s_g = __ldg(st + g);
+      c_g = __ldg(ct + g);
+    }
+    int b = g + static_cast<int>(i >= s_g + c_g) - static_cast<int>(i < s_g);
+    b = min(max(b, 0), nb - 1);
+    if (b != cb) {
+      if (b == g) {
+        c_start = s_g;
+        c_count = c_g;
+      } else {
+        c_start = __ldg(st + b);
+        c_count = __ldg(ct + b);
+      }
+      c_k = __ldg(kt + b);
+      cb = b;
+    }
+    ss[j] = b;
+    keep[j] = i < len &&
+              ((i - c_start) * c_k) % max(c_count, 1) < c_k;
   }
-  keep_out[off] = keep;
+
+  if (kVec) {
+    int4* o = reinterpret_cast<int4*>(ss_out + off);
+    o[0] = make_int4(ss[0], ss[1], ss[2], ss[3]);
+    o[1] = make_int4(ss[4], ss[5], ss[6], ss[7]);
+    uint2 w;
+    w.x = keep[0] | (keep[1] << 8) | (keep[2] << 16) |
+          (static_cast<unsigned>(keep[3]) << 24);
+    w.y = keep[4] | (keep[5] << 8) | (keep[6] << 16) |
+          (static_cast<unsigned>(keep[7]) << 24);
+    *reinterpret_cast<uint2*>(keep_out + off) = w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      if (i0 + j < n) {
+        ss_out[off + j] = ss[j];
+        keep_out[off + j] = keep[j];
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -87,9 +160,15 @@ extern "C" int stream_sample_launch(const void* t, const void* starts,
                                     void* ss_out, void* keep_out, int rows,
                                     int n, int width, void* stream) {
   if (rows == 0 || n == 0) return 0;
-  const dim3 grid((n + kThreads - 1) / kThreads, rows);
-  stream_sample_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const bool vec_ok = (n % kItems == 0) &&
+                      (reinterpret_cast<uintptr_t>(t) % 16 == 0) &&
+                      (reinterpret_cast<uintptr_t>(ss_out) % 16 == 0) &&
+                      (reinterpret_cast<uintptr_t>(keep_out) % 8 == 0);
+  const dim3 grid((n + kTile - 1) / kTile, rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = vec_ok ? stream_sample_kernel<true>
+                       : stream_sample_kernel<false>;
+  kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(t), static_cast<const int*>(starts),
       static_cast<const int*>(counts), static_cast<const int*>(ktab),
       static_cast<const float*>(scalars), static_cast<const int*>(lengths),

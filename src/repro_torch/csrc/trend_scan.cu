@@ -30,12 +30,11 @@
 //     summing aggregates until it meets an inclusive prefix, publishes its
 //     own inclusive prefix and hands the exclusive one to the block.
 //   - The row's last tile writes tail[r] (B7).
-// A status word is 64 bits: the call's epoch (30 bits), the flag (2) and
-// the 32-bit unsigned value, written and read whole, so a word from an
-// earlier call (another epoch) reads as not yet published and the status
-// array needs no clearing between calls. The block that draws the last
-// ticket resets the counter for the next call on the stream. An empty
-// chunk (N = 0) still writes tail = init, in the same single launch.
+// The status words carry the call's epoch, so the status array needs no
+// clearing between calls (csrc/lookback.cuh, shared with B2). The block
+// that draws the last ticket resets the counter for the next call on the
+// stream. An empty chunk (N = 0) still writes tail = init, in the same
+// single launch.
 //
 // What bounds it: at the main-path shapes (one 659-entry row; 6 rows of
 // 87 040) launch latency, which one launch instead of three divides by
@@ -53,48 +52,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+using namespace lookback;
 
 constexpr int kThreads = 256;
 constexpr int kItems = 8;                    // counts per thread
 constexpr int kTile = kThreads * kItems;     // 2048 entries per block
-constexpr unsigned kAggregate = 1u;          // status flags
-constexpr unsigned kInclusive = 2u;
-constexpr unsigned kEpochMask = (1u << 30) - 1u;
-
-// Exclusive block-wide scan of one value per thread; *total gets the block
-// sum. Safe to call repeatedly in a loop (it syncs before returning).
-template <int kBlock>
-__device__ __forceinline__ unsigned block_exclusive_scan(unsigned v,
-                                                         unsigned* total) {
-  static_assert(kBlock % 32 == 0 && kBlock <= 1024, "block size");
-  constexpr int kWarps = kBlock / 32;
-  __shared__ unsigned warp_sums[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  unsigned x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    unsigned w = lane < kWarps ? warp_sums[lane] : 0u;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < kWarps) warp_sums[lane] = w;   // inclusive warp prefixes
-  }
-  __syncthreads();
-  const unsigned before = wid > 0 ? warp_sums[wid - 1] : 0u;
-  *total = warp_sums[kWarps - 1];
-  __syncthreads();
-  return before + x - v;
-}
 
 // This thread's 8 counts (0 past the row end).
 __device__ __forceinline__ void load_items(const int* row, long long n,
@@ -109,57 +75,6 @@ __device__ __forceinline__ void load_items(const int* row, long long n,
 #pragma unroll
     for (int j = 0; j < kItems; ++j)
       v[j] = (i0 + j < n) ? static_cast<unsigned>(row[i0 + j]) : 0u;
-  }
-}
-
-__device__ __forceinline__ void publish(unsigned long long* word,
-                                        unsigned epoch, unsigned flag,
-                                        unsigned value) {
-  const unsigned long long w = (static_cast<unsigned long long>(epoch) << 34) |
-                               (static_cast<unsigned long long>(flag) << 32) |
-                               value;
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(w)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long peek(
-    const unsigned long long* word) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(w) : "l"(word) : "memory");
-  return w;
-}
-
-// The flag of a status word, 0 when it was written by another call.
-__device__ __forceinline__ unsigned flag_of(unsigned long long w,
-                                            unsigned epoch) {
-  return static_cast<unsigned>(w >> 34) == epoch
-             ? static_cast<unsigned>(w >> 32) & 3u : 0u;
-}
-
-// The exclusive prefix of tile j > 0 of a row: warp 0 sums the published
-// aggregates of tiles j-1, j-2, ... down to the nearest inclusive prefix.
-__device__ __forceinline__ unsigned look_back(
-    const unsigned long long* row_status, int j, unsigned epoch) {
-  const int lane = threadIdx.x & 31;
-  unsigned prefix = 0u;
-  for (int k = j - 1;; k -= 32) {
-    const int idx = k - lane;          // lane 0 is the nearest predecessor
-    unsigned long long w = 0ull;
-    unsigned flag = kInclusive;        // lanes before tile 0 never count
-    do {
-      if (idx >= 0) {
-        w = peek(row_status + idx);
-        flag = flag_of(w, epoch);
-      }
-    } while (__any_sync(0xffffffffu, flag == 0u));
-    const unsigned inclusive = __ballot_sync(0xffffffffu, flag == kInclusive);
-    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
-    unsigned v = (lane <= stop && idx >= 0) ? static_cast<unsigned>(w) : 0u;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    prefix += v;
-    if (inclusive) return prefix;
   }
 }
 

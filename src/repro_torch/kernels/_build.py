@@ -58,8 +58,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+    """The library's path: named by a hash of the source, every header of
+    ``csrc/`` (which any source may include) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(repr(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
@@ -160,6 +163,39 @@ def per_stream(cache: dict, device, make):
     if ws is None:
         ws = cache[key] = make(device)
     return ws, ctypes.c_void_p(stream.cuda_stream)
+
+
+class LookbackWorkspace:
+    """The scratch of a look-back kernel (``csrc/lookback.cuh``) on one
+    CUDA stream: one 8-byte status word per tile and the tile counter,
+    zeroed once when allocated and grown when a call needs more tiles.
+    Each call takes the next epoch (1, 2, ...), which makes the words of
+    earlier calls unreadable to it; past ``max_epoch`` the words are
+    cleared once and the count starts again. The lock keeps two threads
+    that share the stream from taking one epoch."""
+
+    def __init__(self, device, max_epoch: int):
+        import torch
+        self.device = device
+        self.max_epoch = max_epoch
+        self.words = torch.zeros(0, dtype=torch.int64, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.epoch = 0
+        self.lock = threading.Lock()
+
+    def take(self, n_words: int):
+        """``(status words, counter, epoch)`` for one call."""
+        import torch
+        with self.lock:
+            if self.words.numel() < n_words:
+                self.words = torch.zeros(
+                    max(n_words, 2 * self.words.numel()), dtype=torch.int64,
+                    device=self.device)
+            self.epoch += 1
+            if self.epoch > self.max_epoch:
+                self.words.zero_()
+                self.epoch = 1
+            return self.words, self.counter, self.epoch
 
 
 def ptr(t) -> ctypes.c_void_p:

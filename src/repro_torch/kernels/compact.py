@@ -2,9 +2,11 @@
 
 Counterpart of ``repro/kernels/compact.py::compact_positions_batched_pallas``
 plus the XLA scatter after it (``repro/kernels/ops.py``
-``compact_mask_batched_device``): the CUDA kernel fuses the scatter into
-the scan. :func:`compact` launches ``csrc/compact.cu`` for CUDA tensors and
-runs :func:`compact_plain` for CPU tensors.
+``compact_mask_batched_device``). :func:`compact` launches
+``csrc/compact.cu`` for CUDA tensors: one launch per call that scans the
+mask, writes the kept indices and fills the sentinel (a single pass with
+decoupled look-back, its scratch cached per CUDA stream). It runs
+:func:`compact_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -41,22 +43,31 @@ def compact_plain(mask):
 def _entry():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("compact", "compact_launch",
-                       [p, i, i, p, p, p, p, p])
+                       [p, i, i, p, p, ctypes.c_uint, p, p, p])
 
 
 @functools.lru_cache(maxsize=None)
-def _tile() -> int:
-    """Records per block of the count and scatter phases, read from the
-    library so the tile-count scratch is always sized as the kernel
-    indexes it."""
-    return _build.bind("compact", "compact_tile_records", [])()
+def _limits():
+    """(records per small tile, largest epoch), read from the library:
+    one status word per small tile is enough for either tile size the
+    kernel picks."""
+    return (_build.bind("compact", "compact_tile_records", [])(),
+            _build.bind("compact", "compact_max_epoch", [])())
+
+
+def _workspace(device):
+    return _build.LookbackWorkspace(device, _limits()[1])
+
+
+#: one look-back workspace per (device, CUDA stream)
+_workspaces = {}
 
 
 def compact(mask):
     """B2 on the mask's device: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor (same contract as
-    :func:`compact_plain`). Each kernel launch adds one to
-    ``compact.launches``."""
+    :func:`compact_plain`). One launch per call, the sentinel fill
+    included; each adds one to ``compact.launches``."""
     if mask.device.type == "cpu":
         return compact_plain(mask)
     if mask.device.type != "cuda":
@@ -67,19 +78,17 @@ def compact(mask):
     if not mask.is_contiguous():
         raise ValueError("mask must be contiguous")
     R, n = mask.shape
-    if R > 65535 or R * n >= 2 ** 31:
+    if R * n >= 2 ** 31:
         raise ValueError(f"batch {R} x {n} too large for one launch")
-    n_tiles = -(-n // _tile())
     dev = mask.device
-    idx = torch.full((R, n), n, dtype=torch.int32, device=dev)
+    idx = torch.empty((R, n), dtype=torch.int32, device=dev)
     totals = torch.empty(R, dtype=torch.int32, device=dev)
-    tile_counts = torch.empty((R, max(n_tiles, 1)), dtype=torch.int32,
-                              device=dev)
-    tile_offsets = torch.empty_like(tile_counts)
     p = _build.ptr
     with torch.cuda.device(dev):
-        code = _entry()(p(mask), R, n, p(tile_counts), p(tile_offsets),
-                        p(idx), p(totals), _build.stream_handle(dev))
+        ws, stream = _build.per_stream(_workspaces, dev, _workspace)
+        words, counter, epoch = ws.take(R * -(-n // _limits()[0]))
+        code = _entry()(p(mask), R, n, p(words), p(counter), epoch, p(idx),
+                        p(totals), stream)
     _build.check(code, "compact")
     compact.launches += 1
     return idx, totals

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
@@ -56,33 +55,8 @@ def _scan_limits():
             _build.bind("trend_scan", "trend_scan_max_epoch", [])())
 
 
-class _ScanWorkspace:
-    """The look-back scan's scratch on one CUDA stream: one 8-byte status
-    word per tile and the tile counter, zeroed once when allocated and
-    grown when a call needs more tiles. Each call takes the next epoch
-    (1, 2, ...), which makes the words of earlier calls unreadable to it;
-    when the epochs run out the words are cleared once and the count
-    starts again. The lock keeps two threads that share the stream from
-    taking one epoch."""
-
-    def __init__(self, device):
-        self.device = device
-        self.words = torch.zeros(0, dtype=torch.int64, device=device)
-        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
-        self.epoch = 0
-        self.lock = threading.Lock()
-
-    def take(self, n_words: int):
-        with self.lock:
-            if self.words.numel() < n_words:
-                self.words = torch.zeros(
-                    max(n_words, 2 * self.words.numel()), dtype=torch.int64,
-                    device=self.device)
-            self.epoch += 1
-            if self.epoch > _scan_limits()[1]:
-                self.words.zero_()
-                self.epoch = 1
-            return self.words, self.counter, self.epoch
+def _workspace(device):
+    return _build.LookbackWorkspace(device, _scan_limits()[1])
 
 
 #: one workspace per (device, CUDA stream), shared by B4 and B7
@@ -114,7 +88,7 @@ def trend_scan(q):
     psum = torch.empty((S, n), dtype=torch.int32, device=dev)
     p = _build.ptr
     with torch.cuda.device(dev):
-        ws, stream = _build.per_stream(_workspaces, dev, _ScanWorkspace)
+        ws, stream = _build.per_stream(_workspaces, dev, _workspace)
         words, counter, epoch = ws.take(S * -(-n // _scan_limits()[0]))
         code = _scan_entry()(p(q), S, n, p(words), p(counter), epoch,
                              p(psum), stream)
@@ -171,7 +145,7 @@ def trend_scan_carry(q, init):
     tail = torch.empty(S, dtype=torch.int32, device=dev)
     p = _build.ptr
     with torch.cuda.device(dev):
-        ws, stream = _build.per_stream(_workspaces, dev, _ScanWorkspace)
+        ws, stream = _build.per_stream(_workspaces, dev, _workspace)
         words, counter, epoch = ws.take(S * -(-n // _scan_limits()[0]))
         code = _scan_carry_entry()(p(q), p(init), S, n, p(words),
                                    p(counter), epoch, p(psum), p(tail),

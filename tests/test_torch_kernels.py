@@ -137,6 +137,191 @@ class TestCompact:
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+# --------------------------------- B2's one-launch order of work, modelled
+# The CUDA kernel cannot run here; its order of work can. The model runs
+# ``grid`` blocks of csrc/compact.cu as generators, advanced one step at a
+# time in a random order (the card runs them in parallel and in no order):
+# each block draws tickets until none is left; for each tile it publishes
+# its aggregate, walks back over the row's earlier tiles summing aggregates
+# down to the nearest published inclusive prefix (waiting where a tile has
+# published nothing yet), publishes its own inclusive prefix and writes its
+# kept indices at that offset; the row's last tile writes the total. Only
+# once it finds no ticket left does a block fill its share of the
+# tile-sized spans of idx, each after waiting for its row's total (the
+# kernel's tiles are 4096 or 16384 records; the model's are smaller, so
+# that a row has many). The answer must not depend
+# on the order, every idx slot must be written exactly once, no block may
+# wait forever, and the last draw must leave the counter at 0.
+def _compact_lookback_model(mask, tile, grid, seed):
+    rng = np.random.default_rng(seed)
+    R, n = mask.shape
+    n_tiles = -(-n // tile)
+    n_work = R * n_tiles
+    grid = min(grid, n_work)
+    status = {}                        # (r, j) -> (flag, value)
+    state = {"counter": 0, "writes": np.zeros((R, n), np.int64)}
+    idx = np.full((R, n), -1, np.int64)
+    totals = np.full(R, -1, np.int64)
+
+    def write(r, lo, values):
+        idx[r, lo:lo + len(values)] = values
+        state["writes"][r, lo:lo + len(values)] += 1
+
+    def block(b):
+        while True:
+            t = state["counter"]
+            state["counter"] += 1
+            if t == n_work + grid - 1:
+                state["counter"] = 0   # the last draw of this call
+            yield
+            if t >= n_work:
+                break
+            r, j = divmod(t, n_tiles)
+            kept = j * tile + np.flatnonzero(mask[r, j * tile:(j + 1) * tile])
+            prefix = 0
+            if j > 0:
+                status[(r, j)] = ("aggregate", len(kept))
+                yield
+                k = j - 1
+                while True:
+                    if (r, k) not in status:
+                        yield              # tile k has published nothing
+                        continue
+                    flag, value = status[(r, k)]
+                    prefix += value
+                    if flag == "inclusive":
+                        break
+                    k -= 1
+                    yield
+            status[(r, j)] = ("inclusive", prefix + len(kept))
+            if j == n_tiles - 1:
+                totals[r] = prefix + len(kept)
+            yield
+            write(r, prefix, kept)
+            yield
+        for w in range(b, n_work, grid):
+            r, j = divmod(w, n_tiles)
+            while status.get((r, n_tiles - 1), ("",))[0] != "inclusive":
+                yield
+            total = status[(r, n_tiles - 1)][1]
+            lo, hi = max(j * tile, total), min((j + 1) * tile, n)
+            if lo < hi:
+                write(r, lo, np.full(hi - lo, n))
+            yield
+
+    running = [block(b) for b in range(grid)]
+    steps, limit = 0, 200 * (n_work * n_tiles + R * n + grid) + 10_000
+    while running:
+        k = int(rng.integers(len(running)))
+        try:
+            next(running[k])
+        except StopIteration:
+            running.pop(k)
+        steps += 1
+        assert steps < limit, "a block waited forever"
+    assert state["counter"] == 0, "the last draw did not reset the counter"
+    assert (state["writes"] == 1).all(), "an idx slot written != once"
+    return idx.astype(np.int32), totals.astype(np.int32)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.01, 0.5, 1.0])
+@pytest.mark.parametrize("R,n,tile,grid", [
+    (1, 5000, 64, 7),          # one row, more tiles than blocks
+    (3, 777, 32, 100),         # a ragged last tile, more blocks than tiles
+    (18, 1000, 16, 5),         # the sweep's 18 rows, few blocks
+    (2, 40, 64, 3)])           # N under one tile
+def test_compact_lookback_model_matches_plain_and_pallas(R, n, tile, grid,
+                                                         p):
+    """B2's one-launch scan and fill, modelled, against the plain version
+    and the JAX Pallas kernel plus its scatter (interpret mode), bit for
+    bit: idx with its sentinel tail, and totals."""
+    rng = np.random.default_rng(R * 1000 + n)
+    mask = rng.random((R, n)) < p
+    idx, totals = _compact_lookback_model(mask, tile, grid,
+                                          seed=int(p * 100) + n)
+    idx_p, tot_p = compact_plain(torch.from_numpy(mask))
+    np.testing.assert_array_equal(idx, idx_p.numpy())
+    np.testing.assert_array_equal(totals, tot_p.numpy())
+    idx_j, tot_j = jops.compact_mask_batched(jnp.asarray(mask))
+    np.testing.assert_array_equal(idx, np.asarray(idx_j))
+    np.testing.assert_array_equal(totals, tot_j)
+
+
+# ------------------------------------ B1's eight records per thread, modelled
+# csrc/stream_sample.cu gives each thread 8 consecutive records and keeps
+# the last snapped bucket's (start, count, k) in registers, reading the
+# tables only when the f32 guess or the snapped bucket moves. The model
+# below is that loop in numpy float32 (rounded after every op, as the _rn
+# intrinsics are), group by group, with the row's last group cut short
+# where N is not a multiple of 8 (the kernel's scalar path). It must equal
+# the plain version bit for bit, and read the tables far less often than
+# five times a record.
+_B1_ITEMS = 8
+
+
+def _stream_sample_model(t, starts, counts, ktab, scalars, lengths):
+    S, n = t.shape
+    ss = np.zeros((S, n), np.int32)
+    keep = np.zeros((S, n), bool)
+    reads = 0
+    for s in range(S):
+        t_min, inv_span, nb_f = (np.float32(x) for x in scalars[s])
+        nb = int(nb_f)
+        st, ct, kt = starts[s], counts[s], ktab[s]
+        for i0 in range(0, n, _B1_ITEMS):
+            cb = -1
+            c_start = c_count = c_k = 0
+            for i in range(i0, min(i0 + _B1_ITEMS, n)):
+                x = np.float32(np.float32(np.float32(t[s, i] - t_min)
+                                          * inv_span) * nb_f)
+                g = int(min(max(np.floor(x), np.float32(0)),
+                            np.float32(nb - 1)))
+                s_g, c_g = c_start, c_count
+                if g != cb:
+                    s_g, c_g = int(st[g]), int(ct[g])
+                    reads += 2
+                b = g + int(i >= s_g + c_g) - int(i < s_g)
+                b = min(max(b, 0), nb - 1)
+                if b != cb:
+                    if b == g:
+                        c_start, c_count = s_g, c_g
+                    else:
+                        c_start, c_count = int(st[b]), int(ct[b])
+                        reads += 2
+                    c_k = int(kt[b])
+                    reads += 1
+                    cb = b
+                ss[s, i] = b
+                keep[s, i] = i < lengths[s] and \
+                    ((i - c_start) * c_k) % max(c_count, 1) < c_k
+    return ss, keep, reads
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stream_sample_group_model_matches_plain(seed):
+    ts = _ragged_batch(seed)
+    ins = tops.stream_sample_inputs(ts, RANGES, _mults(ts, RANGES))
+    ss, keep, reads = _stream_sample_model(*ins)
+    ss_p, keep_p = stream_sample_plain(*(torch.from_numpy(x) for x in ins))
+    np.testing.assert_array_equal(ss, ss_p.numpy())
+    np.testing.assert_array_equal(keep, keep_p.numpy())
+    assert reads < 5 * ss.size / 2
+
+
+def test_stream_sample_group_model_short_rows():
+    """Rows of 1003 records, not a multiple of 8 (the kernel's scalar
+    path, the last group cut short): the model equals the plain version."""
+    ts = [t[:1003] for t in _ragged_batch(4)[:2]]
+    ins = list(tops.stream_sample_inputs(ts, [600, 3600],
+                                         _mults(ts, [600, 3600])))
+    ins[0] = np.ascontiguousarray(ins[0][:, :1003])
+    assert ins[0].shape[1] % _B1_ITEMS and (ins[-1] == 1003).all()
+    ss, keep, _ = _stream_sample_model(*ins)
+    ss_p, keep_p = stream_sample_plain(*(torch.from_numpy(x) for x in ins))
+    np.testing.assert_array_equal(ss, ss_p.numpy())
+    np.testing.assert_array_equal(keep, keep_p.numpy())
+
+
 # ------------------------------------------------------------------ B3
 def _assert_moments(got, want, rtol=1e-5):
     got = np.asarray(got, np.float64)
