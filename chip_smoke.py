@@ -73,8 +73,9 @@ Phases, each of which raises on failure (nothing catches it):
    run on the same original, then drive B7 through
    ``ops.trend_scan_chunk`` over the finalized count row in 54 chunks and
    hold the concatenated trend to B4's bit for bit; B1 and B2 are then
-   held to their plain versions and timed on the inputs one of those
-   chunks gave B1 (the shape of 54 of their 63 launches);
+   held to their plain versions and timed on B1's inputs for one of those
+   chunks, rebuilt by ``ChunkedNSA.sample_inputs`` (the shape of 54 of
+   their 63 launches), each beside its wrapper's host time;
 8. drive ``python -m repro_torch.launch.serve`` at its defaults (the
    paper's consumer LM at full width, 12 layers in f32, sogouq compressed
    to 120 s at scale 0.01, 8 slots): every arrival finishes and B8 runs
@@ -152,7 +153,7 @@ MULTIDAY_LAUNCHES = {"stream_sample": MULTIDAY_CHUNKS,
                      "metrics_fused": 1, "trend_scan": 1, "pair_stats": 1,
                      "trend_scan_carry": MULTIDAY_CHUNKS}
 TREND_WINDOW = 60
-#: the nine-day chunk whose B1 inputs are kept for the chunk-shape timings
+#: the nine-day chunk whose B1 inputs are rebuilt for the chunk-shape timings
 #: of B1 and B2: [1800, 2400) s of the first day
 MULTIDAY_TIMED_CHUNK = 3
 
@@ -165,17 +166,21 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int) -> float:
+def _time_ms(fn, reps: int, flush_bytes: int = 256 << 20) -> float:
     """Median device time of ``fn()`` over ``reps`` runs after one warm-up,
     each run between its own pair of CUDA events and started with a cold
-    L2: a 256 MiB buffer, larger than the 50 MB L2, is read before each
-    run, outside the timed span (read, not written, so no dirty lines are
-    left to be written back inside the span). The read keeps the card busy
-    for ~80 us, in which the host queues ``fn``'s launch, so the wrapper's
-    host time stays out of the span unless it is longer than that."""
+    L2: a buffer larger than the 50 MB L2 (256 MiB unless ``flush_bytes``
+    says otherwise) is read before each run, outside the timed span (read,
+    not written, so no dirty lines are left to be written back inside the
+    span). The read keeps the card busy while the host queues ``fn``'s
+    launch, so the wrapper's host time stays out of the span unless it is
+    longer than the read (:func:`_enqueue_ms` reports it). On an H100 a
+    64 MiB read gave the same times as 256 MiB in a quiet process, but
+    let host time into the span at the nine-day chunk shape after the
+    multi-day run, where the wrappers' host time is longest."""
     import torch
     fn()
-    flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
+    flush = torch.ones(flush_bytes // 4, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -187,6 +192,25 @@ def _time_ms(fn, reps: int) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _enqueue_ms(fn, reps: int) -> float:
+    """Median host time of one call of ``fn()`` after one warm-up: the
+    wrapper's own work up to its launch returning, each call made while
+    the card is still reading a 256 MiB buffer, so it never waits for the
+    device. Not part of :func:`_time_ms`'s span."""
+    import torch
+    fn()
+    flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.sum()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -371,8 +395,8 @@ def check_kernels(device: str, scale: float, seed: int,
                      torch.from_numpy(np.stack([q.sum(1), (q * q).sum(1)],
                                                axis=1)))
         if case in ("main", "sweep"):
-            timed[case] = _b123_timings(b1_in, keep, tot, kept, buckets,
-                                        timing_reps, plain_reps)
+            timed[case] = _b123_timings(b1_in, ss, keep, tot, kept,
+                                        buckets, timing_reps, plain_reps)
         if case == "main":
             main_b1, main_keep = b1_in, keep
         if keep_cases is not None and case in ("main", "ragged", "sweep"):
@@ -417,7 +441,27 @@ def check_kernels(device: str, scale: float, seed: int,
     return rows
 
 
-def _b12_timings(b1_in, keep, tot, timing_reps: int, plain_reps: int):
+def _b1_bound(b1_in, ss):
+    """B1's bound: per record a 4-byte read of t, a 4-byte stamp and a
+    keep byte written, ~30 operations; per row the scalars and length,
+    and of its three 4-byte tables only the buckets its records read,
+    from one below its least stamp to one above its greatest (the f32
+    guess lands within one bucket of the stamp), at most the table's
+    width: a nine-day chunk spans ~600 of its 32,400 buckets."""
+    S, N = b1_in[0].shape
+    span = (ss.amax(dim=1) - ss.amin(dim=1)).long() + 3
+    tables = int(3 * 4 * span.clamp(max=b1_in[1].shape[1]).sum())
+    return _bound_ms(S * N * (4 + 4 + 1) + tables + S * 16, S * N * 30)
+
+
+def _b2_bound(keep):
+    """B2's bound: each mask byte read once, each 4-byte index slot and
+    total written once, one scan step a record."""
+    R, N = keep.shape
+    return _bound_ms(R * N * (1 + 4) + R * 4, R * N * 4)
+
+
+def _b12_timings(b1_in, ss, keep, tot, timing_reps: int, plain_reps: int):
     """Kernel, plain and library times of B1 and B2 at one case's shapes,
     each with its bound. B2's library call is ``torch.cumsum`` (the scan
     alone); on a one-row mask ``torch.nonzero`` is timed as well
@@ -432,33 +476,35 @@ def _b12_timings(b1_in, keep, tot, timing_reps: int, plain_reps: int):
     out = {"stream_sample": dict(
         ms=_time_ms(lambda: stream_sample(*b1_in), timing_reps),
         plain_ms=_time_ms(lambda: stream_sample_plain(*b1_in), plain_reps),
+        host_ms=_enqueue_ms(lambda: stream_sample(*b1_in), timing_reps),
         library_ms=None, shape=f"S={S} N={N} W={W}")}
     out["stream_sample"]["bound_ms"], out["stream_sample"]["bound_by"] = \
-        _bound_ms(S * N * (4 + 4 + 1) + 3 * S * W * 4 + S * 16, S * N * 30)
+        _b1_bound(b1_in, ss)
     out["compact"] = dict(
         ms=_time_ms(lambda: compact(keep), timing_reps),
         plain_ms=_time_ms(lambda: compact_plain(keep), plain_reps),
+        host_ms=_enqueue_ms(lambda: compact(keep), timing_reps),
         library_ms=_time_ms(
             lambda: torch.cumsum(keep, dim=1, dtype=torch.int32),
             timing_reps),
         shape=f"R={S} N={N} kept={int(tot.sum())}")
     out["compact"]["bound_ms"], out["compact"]["bound_by"] = \
-        _bound_ms(S * N * (1 + 4) + S * 4, S * N * 4)
+        _b2_bound(keep)
     if S == 1:
         out["compact"]["library_nonzero_ms"] = _time_ms(
             lambda: torch.nonzero(keep[0]), timing_reps)
     return out
 
 
-def _b123_timings(b1_in, keep, tot, kept, buckets: int, timing_reps: int,
-                  plain_reps: int):
+def _b123_timings(b1_in, ss, keep, tot, kept, buckets: int,
+                  timing_reps: int, plain_reps: int):
     """Kernel, plain and library times of B1, B2 and B3 (on the kept
     stamps) at one case's shapes, each with its bound."""
     import torch
 
     from repro_torch.kernels.metrics_fused import (stream_metrics,
                                                    stream_metrics_plain)
-    out = _b12_timings(b1_in, keep, tot, timing_reps, plain_reps)
+    out = _b12_timings(b1_in, ss, keep, tot, timing_reps, plain_reps)
     Sk, Nk = kept.shape
     row = kept[0, :int(tot[0])]
     out["metrics_fused"] = dict(
@@ -1371,30 +1417,6 @@ def run_chunked_path(device: str, scale: float, seed: int, workdir: Path,
 
 
 # ---------------------------------------------- phase 7: nine days, chunked
-class _KeepArgs:
-    """A stand-in for a kernel wrapper that passes every call on to it and
-    keeps the arguments of call number ``index``. Its ``launches`` is the
-    wrapper's own count, which the wrapper updates through the module
-    name the stand-in occupies."""
-
-    def __init__(self, fn, index: int):
-        self.fn, self.index, self.calls, self.args = fn, index, 0, []
-
-    def __call__(self, *args):
-        if self.calls == self.index:
-            self.args.extend(args)
-        self.calls += 1
-        return self.fn(*args)
-
-    @property
-    def launches(self):
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, value):
-        self.fn.launches = value
-
-
 def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
     """Phase 7: nine days of the userbehavior stream through the chunked
     pipeline, held to the port's numpy backend on the same original; then
@@ -1405,28 +1427,17 @@ def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.streamsim import Controller, StreamStore
-
-    import repro_torch.kernels.stream_sample as b1_module
+    from repro_torch.streamsim import ChunkedNSA, Controller, StreamStore
 
     ctl = Controller(str(workdir / "md_torch"), device=device)
     consumer = _SweepConsumer()
     kw = dict(scale=scale, seed=seed, chunk_s=CHUNK_S, duration_s=MULTIDAY_S)
-    # keep the B1 inputs of one chunk (references, no copy) for the
-    # chunk-shape timings; the hook passes every call on unchanged
-    real = b1_module.stream_sample
-    hook = _KeepArgs(real, MULTIDAY_TIMED_CHUNK)
-    chunk_in = hook.args
 
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
-    b1_module.stream_sample = hook
     t0 = time.perf_counter()
-    try:
-        (rep,) = ctl.run_many((MAIN_DATASET,), (MAIN_RANGE,), consumer,
-                              backend="torch", **kw)
-    finally:
-        b1_module.stream_sample = real
+    (rep,) = ctl.run_many((MAIN_DATASET,), (MAIN_RANGE,), consumer,
+                          backend="torch", **kw)
     run_s = time.perf_counter() - t0
     launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -1464,6 +1475,13 @@ def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
     src_store = StreamStore(workdir / "md_torch")
     ref_store = StreamStore(workdir / "md_numpy")
     shutil.copytree(src_store._dir(key), ref_store._dir(key))
+    # B1's inputs for one chunk, as the run's ChunkedNSA built them, for
+    # the chunk-shape timings of B1 and B2
+    (spec,) = result.plan.scenarios
+    lo = MULTIDAY_TIMED_CHUNK * CHUNK_S
+    chunk_in, _ = ChunkedNSA({MAIN_DATASET: src_store.get(key)},
+                             [(spec.dataset, spec.span_s)],
+                             device=device).sample_inputs(lo, lo + CHUNK_S)
     t0 = time.perf_counter()
     (ref,) = Controller(str(workdir / "md_numpy"), device=device).run_many(
         (MAIN_DATASET,), (MAIN_RANGE,), _SweepConsumer(), backend="numpy",
@@ -1495,9 +1513,9 @@ def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
 
 
 def check_chunk_shape(b1_in, timing_reps: int = 20, plain_reps: int = 3):
-    """B1 and B2 at the shape of a nine-day chunk (the inputs one chunk of
-    :func:`run_multiday_path` gave B1): bit-equal to their plain versions;
-    returns their timing rows."""
+    """B1 and B2 at the shape of a nine-day chunk (B1's inputs for one
+    chunk of :func:`run_multiday_path`): bit-equal to their plain
+    versions; returns their timing rows."""
     from repro_torch.kernels.compact import compact, compact_plain
     from repro_torch.kernels.stream_sample import (stream_sample,
                                                    stream_sample_plain)
@@ -1509,7 +1527,7 @@ def check_chunk_shape(b1_in, timing_reps: int = 20, plain_reps: int = 3):
     idx_p, tot_p = compact_plain(keep)
     _exact("compact/chunk/idx", idx, idx_p)
     _exact("compact/chunk/totals", tot, tot_p)
-    return _b12_timings(b1_in, keep, tot, timing_reps, plain_reps)
+    return _b12_timings(b1_in, ss, keep, tot, timing_reps, plain_reps)
 
 
 # ------------------------------------------------- phase 8: serve (the CLI)
@@ -1831,7 +1849,7 @@ def main() -> int:
         print(json.dumps({"multiday": multiday}), flush=True)
         for name, row in check_chunk_shape(chunk_in).items():
             rows[name]["chunk"] = row
-        chunk_in.clear()
+        del chunk_in
         serve_launches, serve = run_serve_path(Path(tmp))
         print(json.dumps({"serve": serve}), flush=True)
         llama_launches, llama = run_serve_llama3_path("cuda", MAIN_SEED,
@@ -1867,7 +1885,7 @@ def main() -> int:
     extra = ("sim", "sweep", "chunk", "week", "S37", "max_scaled_err",
              "records", "multiday", "fidelity", "serve", "max_abs_err_f32",
              "max_abs_err_bf16", "library_max_abs_err", "library_nonzero_ms",
-             "kernels_per_call")
+             "kernels_per_call", "host_ms")
     kernels = []
     for name, (source, tpu, path) in replaces.items():
         r = rows[name]

@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "lookback.cuh"
 
 namespace {
@@ -204,25 +206,40 @@ struct Card {
   int sms = 0, resident_small = 0, resident_large = 0;
 };
 
+constexpr int kMaxDevices = 64;
+
 // The current device's SM count and how many blocks of each instance fit
-// on it at once, asked once per device.
-const Card& card() {
-  static Card cards[64];
+// on it at once, asked once per device and kept only when every query
+// succeeded; filled under a lock, so two host threads never race on it.
+// Returns the first failed query's code (the caller returns it to the
+// wrapper, which raises), never a card with no resident blocks.
+cudaError_t card(Card* out) {
+  static Card cards[kMaxDevices];
+  static std::mutex lock;
   int dev = 0;
-  cudaGetDevice(&dev);
-  Card& c = cards[dev < 64 ? dev : 63];
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> guard(lock);
+  Card& c = cards[dev];
   if (c.sms == 0) {
     int small = 0, large = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &small, compact_lookback<kSmallVecs>, kThreads, 0);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &large, compact_lookback<kLargeVecs>, kThreads, 0);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (small < 1 || large < 1 || sms < 1)
+      return cudaErrorInvalidConfiguration;
     c.resident_small = small * sms;
     c.resident_large = large * sms;
     c.sms = sms;
   }
-  return c;
+  *out = c;
+  return cudaSuccess;
 }
 
 template <int kVecs>
@@ -274,7 +291,9 @@ int compact_launch(const void* mask, int rows, int n, void* status,
         rows, static_cast<int*>(totals));
     return static_cast<int>(cudaGetLastError());
   }
-  const Card& c = card();
+  Card c;
+  const cudaError_t err = card(&c);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const auto* m = static_cast<const unsigned char*>(mask);
   const long long large_tiles =
       static_cast<long long>(rows) * ((n + kLargeTile - 1) / kLargeTile);

@@ -412,13 +412,15 @@ class ChunkedNSA:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def chunk(self, lo: int, hi: int) -> ChunkHandles:
-        """Launch B1 and B2 for absolute buckets ``[lo, hi)``; returns the
-        handles without waiting for the device."""
+    def sample_inputs(self, lo: int, hi: int):
+        """B1's six arguments for absolute buckets ``[lo, hi)``: the
+        record slice ``[starts[lo], starts[hi])`` of each row, padded to
+        whole tiles with the row's last timestamp, the full-width tables
+        rebased by the slice offset, and the slice lengths; plus the
+        offsets (host int64, one per row). Queues copies, no sync."""
         import torch
 
         from repro_torch.kernels import ops
-        from repro_torch.kernels.stream_sample import stream_sample
 
         lo, hi = int(lo), int(hi)
         if not 0 <= lo < hi <= self.width:
@@ -427,13 +429,7 @@ class ChunkedNSA:
         a = self._starts_np[:, lo]
         b = self.lengths if hi >= self.width else self._starts_np[:, hi]
         m = b - a
-        kept = self._kept_cum[:, hi] - self._kept_cum[:, lo]
-
-        def tiles(x):
-            return max(int(-(-int(x) // ops.TILE) * ops.TILE), ops.TILE)
-
-        Nc = tiles(m.max())
-        K = min(tiles(kept.max()), Nc)
+        Nc = _tiles(m.max(), ops.TILE)
         t_slice = torch.empty((len(self.pairs), Nc), dtype=torch.float32,
                               device=self.device)
         for r, off in enumerate(a.tolist()):
@@ -444,14 +440,33 @@ class ChunkedNSA:
         # rebase the bucket tables by the slice offset: local rank equals
         # global rank, so the keep bits match the monolithic launch
         starts_reb = self._starts - self._upload(a.astype(np.int32))[:, None]
-        ss, keep = stream_sample(t_slice, starts_reb, self._counts,
-                                 self._ktab, self._scal,
-                                 self._upload(m.astype(np.int32)))
+        return (t_slice, starts_reb, self._counts, self._ktab, self._scal,
+                self._upload(m.astype(np.int32))), a
+
+    def chunk(self, lo: int, hi: int) -> ChunkHandles:
+        """Launch B1 and B2 for absolute buckets ``[lo, hi)``; returns the
+        handles without waiting for the device."""
+        import torch
+
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.stream_sample import stream_sample
+
+        b1_in, a = self.sample_inputs(lo, hi)
+        lo, hi = int(lo), int(hi)
+        Nc = b1_in[0].shape[1]
+        kept = self._kept_cum[:, hi] - self._kept_cum[:, lo]
+        K = min(_tiles(kept.max(), ops.TILE), Nc)
+        ss, keep = stream_sample(*b1_in)
         idx, totals = ops.compact_mask_batched_device(keep)
         idx = idx[:, :K].contiguous()
         ss_kept = torch.gather(ss, 1, torch.clamp(idx, max=Nc - 1).long())
         return ChunkHandles(ss_kept=ss_kept, idx=idx, totals=totals,
                             rec_off=a, kept=kept, lo=lo, hi=hi)
+
+
+def _tiles(x, tile: int) -> int:
+    """``x`` rounded up to whole tiles, at least one."""
+    return max(int(-(-int(x) // tile) * tile), tile)
 
 
 def materialize_sweep_chunk(streams: Dict[str, Stream],

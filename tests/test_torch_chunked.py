@@ -30,6 +30,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.metrics_fused import (stream_metrics_carry,
                                                stream_metrics_carry_plain,
                                                stream_metrics_plain)
+from repro_torch.kernels.stream_sample import stream_sample_plain
 from repro_torch.kernels.trend_scan import (trend_scan_carry,
                                             trend_scan_carry_plain,
                                             trend_scan_plain)
@@ -331,6 +332,32 @@ class TestChunkedNSA:
                                   idx_m[r, :tot].numpy())
             assert np.array_equal(np.concatenate(got_ss[r]),
                                   ss_m[r, :tot].numpy())
+
+    @pytest.mark.parametrize("cs", [20, 100])
+    def test_sample_inputs_slice_the_whole_launch(self, cs):
+        """B1 on ``sample_inputs(lo, hi)`` gives, on each row's slice, the
+        stamps and keep bits of one launch over the whole rows."""
+        from repro_torch.kernels.stream_sample import stream_sample_plain
+
+        streams = {d: _mini(d) for d in DATASETS}
+        pairs = [(d, r) for d in DATASETS for r in RANGES]
+        cn = T.ChunkedNSA(streams, pairs, device=CPU)
+        ss_w, keep_w = stream_sample_plain(
+            cn._t, cn._starts, cn._counts, cn._ktab, cn._scal,
+            torch.from_numpy(cn.lengths.astype(np.int32)))
+        for lo in range(0, cn.width, cs):
+            hi = min(lo + cs, cn.width)
+            b1_in, a = cn.sample_inputs(lo, hi)
+            assert np.array_equal(a, cn._starts_np[:, lo])
+            assert b1_in[0].shape[1] % tops.TILE == 0
+            ss, keep = stream_sample_plain(*b1_in)
+            for r, (off, m) in enumerate(zip(a, b1_in[-1].tolist())):
+                assert np.array_equal(ss[r, :m], ss_w[r, off:off + m])
+                assert np.array_equal(keep[r, :m], keep_w[r, off:off + m])
+                assert not keep[r, m:].any()
+            h = cn.chunk(lo, hi)
+            assert np.array_equal(h.totals.numpy(),
+                                  keep.sum(dim=1, dtype=torch.int32).numpy())
 
     def test_bad_ranges_and_empty_streams(self):
         s = _mini()
