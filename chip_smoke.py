@@ -14,7 +14,12 @@ Phases, each of which raises on failure (nothing catches it):
      records), at the sweep's 18-row shard (every dataset at every
      range), a ragged 4-row batch at max_range 60/600/1800/3600, a
      zero-span stream and a single-record stream — exact for integer
-     outputs, 1e-5 relative for the moments;
+     outputs, 1e-5 relative for the moments (of the plain version's and
+     in f64);
+   - B3 on unsorted stamps: six rows of random latency-bin ids at 2048
+     buckets, a day of random stamps at 86,528 buckets (the global-atomic
+     branch), the original's sorted row beside a shuffled copy; two calls
+     in a row bit-identical, the run shape after the largest unchanged;
    - B1 and B2 at their edges, bit-equal to their plain versions: rows of
      1003 records (not a multiple of the vector width), inputs in views
      that start off a 16-byte boundary, all-zero and all-ones masks, rows
@@ -31,9 +36,11 @@ Phases, each of which raises on failure (nothing catches it):
    - B6 (stream_metrics_carry) at chunk 0 of the 1-day grid (18 rows: the
      kept stamps the chunked path hands it, and all 10,631,168 records of
      the slice), at a 1.77 M-record chunk of one row rebased by its first
-     bucket, and at ragged lengths with an all-padding row, under zero and
-     random carries — counts exact, the running sums within 1e-5 relative,
-     a zero carry equal to B3 bit for bit;
+     bucket, at ragged lengths with an all-padding row, on unsorted stamps
+     around a chunk (some below its base, some past it) and at width 0,
+     under zero and random carries — counts exact, the running sums within
+     1e-5 relative, a zero carry equal to B3 bit for bit, two calls in a
+     row bit-identical, the chunk shape after the largest unchanged;
    - B7 (trend_scan_carry) at the multi-day chunk shape (one 659-entry
      row), the fidelity shape, widths 0, 1 and 1025 and a 604 800-entry row
      whose seeded total ends just under 2^31 - 1 — exact, tail included,
@@ -46,8 +53,9 @@ Phases, each of which raises on failure (nothing catches it):
      (bf16) of the plain version, two calls in a row bit-identical, the
      serve shape after the decode_32k shape unchanged;
    - one device kernel per call of B1, B2 (its sentinel fill included),
-     B4, B7 and B8 (``torch.profiler`` over five calls at the timing
-     shapes; copies and fills not counted);
+     B3 and B6 (the histogram's zeroing and the moments included), B4, B7
+     and B8 (``torch.profiler`` over five calls at the timing shapes;
+     copies and fills not counted);
    timing kernel, plain version and the one-call library yardstick (CUDA
    events, median of several runs; B2 against ``torch.cumsum`` and, on
    one row, ``torch.nonzero``; B8 at B = 16, S = 32 768 with llama3-8b's
@@ -379,26 +387,15 @@ def check_kernels(device: str, scale: float, seed: int,
         _exact(f"compact/{case}/idx", idx, idx_p)
         _exact(f"compact/{case}/totals", tot, tot_p)
         buckets = -(-max(ranges) // ops.BUCKET_BLOCK) * ops.BUCKET_BLOCK
-        # the kept-stamp matrix as nsa_sweep_device hands it to B3: the
-        # first TILE-rounded max(totals) columns of the gathered stamps
-        width = min(-(-max(int(tot.max()), 1) // ops.TILE) * ops.TILE,
-                    ss.shape[1])
-        kept = torch.gather(ss, 1, torch.clamp(
-            idx[:, :width], max=ss.shape[1] - 1).long()).contiguous()
-        hist, mom = stream_metrics(kept, tot, buckets)
-        hist_p, mom_p = stream_metrics_plain(kept, tot, buckets)
-        _exact(f"metrics_fused/{case}/hist", hist, hist_p)
-        errs["metrics_fused"] = max(errs["metrics_fused"], _moments_err(
-            f"metrics_fused/{case}", mom, mom_p))
-        q = hist.double().cpu().numpy()
-        _moments_err(f"metrics_fused/{case}/f64", mom,
-                     torch.from_numpy(np.stack([q.sum(1), (q * q).sum(1)],
-                                               axis=1)))
+        kept = _kept_stamps(ss, idx, tot)
+        errs["metrics_fused"] = max(errs["metrics_fused"],
+                                    _b3_err(case, kept, tot, buckets))
         if case in ("main", "sweep"):
             timed[case] = _b123_timings(b1_in, ss, keep, tot, kept,
                                         buckets, timing_reps, plain_reps)
         if case == "main":
             main_b1, main_keep = b1_in, keep
+            main_b3 = (kept, tot, buckets)
         if keep_cases is not None and case in ("main", "ragged", "sweep"):
             keep_cases[case] = dict(ss=ss, lengths=b1_in[-1], kept=kept,
                                     totals=tot)
@@ -415,6 +412,8 @@ def check_kernels(device: str, scale: float, seed: int,
     want = np.bincount(b_orig, minlength=buckets).astype(np.float64)
     _moments_err("metrics_fused/original/f64", mom, torch.tensor(
         [[want.sum(), (want * want).sum()]]))
+    errs["metrics_fused"] = max(errs["metrics_fused"], _check_unsorted_b3(
+        device, seed, b_orig, ssb.shape[1], smaller=main_b3))
     S, N = ss_o.shape
     row = ss_o[0, :int(len_o[0])]
     rows = {name: dict(timed["main"][name], sweep=timed["sweep"][name])
@@ -430,15 +429,75 @@ def check_kernels(device: str, scale: float, seed: int,
                           plain_reps),
         library_ms=_time_ms(lambda: torch.bincount(row, minlength=buckets),
                             timing_reps),
+        host_ms=_enqueue_ms(lambda: stream_metrics(ss_o, len_o, buckets),
+                            timing_reps),
         shape=f"S={S} N={N} B={buckets} (original stream)",
         sim=timed["main"]["metrics_fused"],
-        sweep=timed["sweep"]["metrics_fused"])
+        sweep=timed["sweep"]["metrics_fused"],
+        kernels_per_call=_kernels_per_call(
+            "metrics_fused", lambda: stream_metrics(ss_o, len_o, buckets)))
     rows["metrics_fused"]["bound_ms"], rows["metrics_fused"]["bound_by"] = \
         _bound_ms(S * N * 4 + S * 4 + S * buckets * 4 + S * 8,
                   S * N * 3 + S * buckets * 4)
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
     return rows
+
+
+def _b3_err(name: str, ss, lengths, buckets: int) -> float:
+    """B3 against its plain version (counts exact, moments within
+    MOMENT_RTOL) and against the moments of its counts in f64; returns the
+    largest moment difference from the plain version."""
+    import torch
+
+    from repro_torch.kernels.metrics_fused import (stream_metrics,
+                                                   stream_metrics_plain)
+    hist, mom = stream_metrics(ss, lengths, buckets)
+    hist_p, mom_p = stream_metrics_plain(ss, lengths, buckets)
+    _exact(f"metrics_fused/{name}/hist", hist, hist_p)
+    q = hist.double()
+    _moments_err(f"metrics_fused/{name}/f64", mom, torch.stack(
+        [q.sum(1), (q * q).sum(1)], dim=1))
+    return _moments_err(f"metrics_fused/{name}", mom, mom_p)
+
+
+def _check_unsorted_b3(device: str, seed: int, original, width: int,
+                       smaller=None):
+    """B3 on unsorted stamps: six rows of uniform random latency-bin ids
+    in [0, 2048) at 2048 buckets (the task tier's input), one row of
+    ``width`` uniform random stamps over a day's 86,400 seconds at 86,528
+    buckets (every tile spans more than the shared-memory range: the
+    global-atomic branch), and a batch of the ``original`` bucket series
+    (sorted; its length not a multiple of 4, so the kernel's scalar loads)
+    beside a shuffled copy cut 12,345 records short. Also two calls in a
+    row bit-identical, and ``smaller`` = (stamps, lengths, buckets) after
+    the largest call unchanged. Returns the largest moment difference."""
+    import torch
+
+    from repro_torch.kernels.metrics_fused import stream_metrics
+    rng = np.random.default_rng(seed)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+
+    n = len(original)
+    cases = {
+        "latency_bins": (up(rng.integers(0, 2048, (6, 443_392))),
+                         up([443_392] * 5 + [300_001]), 2048),
+        "day_unsorted": (up(rng.integers(0, 86_400, (1, width))),
+                         up([width]), 86_528),
+        "sorted_beside_shuffled": (
+            up(np.stack([original, rng.permutation(original)])),
+            up([n, n - 12_345]), 86_528),
+    }
+    err = 0.0
+    for case, (ss, lengths, buckets) in cases.items():
+        err = max(err, _b3_err(case, ss, lengths, buckets))
+        _same_twice(f"metrics_fused/{case}",
+                    lambda: stream_metrics(ss, lengths, buckets))
+    if smaller is not None:
+        _b3_err("main after sorted_beside_shuffled", *smaller)
+    return err
 
 
 def _b1_bound(b1_in, ss):
@@ -511,6 +570,8 @@ def _b123_timings(b1_in, ss, keep, tot, kept, buckets: int,
         ms=_time_ms(lambda: stream_metrics(kept, tot, buckets), timing_reps),
         plain_ms=_time_ms(lambda: stream_metrics_plain(kept, tot, buckets),
                           plain_reps),
+        host_ms=_enqueue_ms(lambda: stream_metrics(kept, tot, buckets),
+                            timing_reps),
         library_ms=_time_ms(lambda: torch.bincount(row, minlength=buckets),
                             timing_reps),
         shape=f"S={Sk} N={Nk} B={buckets} kept={int(tot.sum())}")
@@ -778,6 +839,47 @@ def _prefix_count(ss, lengths, below: int):
     return ((ss < below) & valid).sum(dim=1).to(torch.int32)
 
 
+def _b6_timing_cases(main, sweep):
+    """B6's inputs (stamps, lengths, base, buckets) at the shapes the
+    chunked paths give it, from B1's and B2's outputs at the run and sweep
+    shapes (dicts of ``ss``, ``lengths``, ``kept``, ``totals``): chunk 0
+    of the grid (its kept stamps, and all its records) and the day's
+    [1800, 2400) s as one row rebased by its first bucket."""
+    import torch
+
+    from repro_torch.kernels import ops
+    k0 = _prefix_count(sweep["kept"], sweep["totals"], CHUNK_S)
+    w0 = min(-(-max(int(k0.max()), 1) // ops.TILE) * ops.TILE,
+             sweep["kept"].shape[1])
+    chunk_buckets = ops._padded_buckets(CHUNK_S)
+    lo = 3 * CHUNK_S
+    a = int(_prefix_count(main["ss"], main["lengths"], lo)[0])
+    b = int(_prefix_count(main["ss"], main["lengths"], lo + CHUNK_S)[0])
+    return {
+        "grid_chunk0_kept": (sweep["kept"][:, :w0].contiguous(), k0, 0,
+                             chunk_buckets),
+        "grid_chunk0_records": (
+            sweep["ss"], _prefix_count(sweep["ss"], sweep["lengths"],
+                                       CHUNK_S), 0, chunk_buckets),
+        "multiday_chunk": (main["ss"][:, a:b].contiguous(),
+                           torch.tensor([b - a], dtype=torch.int32,
+                                        device=main["ss"].device), lo,
+                           chunk_buckets),
+    }
+
+
+def _kept_stamps(ss, idx, totals):
+    """The kept-stamp matrix as ``nsa_sweep_device`` hands it to B3: the
+    first TILE-rounded max(totals) columns of the gathered stamps."""
+    import torch
+
+    from repro_torch.kernels import ops
+    width = min(-(-max(int(totals.max()), 1) // ops.TILE) * ops.TILE,
+                ss.shape[1])
+    return torch.gather(ss, 1, torch.clamp(
+        idx[:, :width], max=ss.shape[1] - 1).long()).contiguous()
+
+
 def _carry_err(name: str, got, want) -> float:
     """B6's running sums against the plain version's, within MOMENT_RTOL."""
     return _moments_err(name, got[:, ::2], want[:, ::2])
@@ -809,26 +911,23 @@ def check_carry_kernels(device: str, seed: int, cases,
 
     # --- B6 cases: (stamps, lengths, base, buckets)
     sweep, main, ragged = cases["sweep"], cases["main"], cases["ragged"]
-    b6 = {}
-    k0 = _prefix_count(sweep["kept"], sweep["totals"], CHUNK_S)
-    w0 = min(-(-max(int(k0.max()), 1) // ops.TILE) * ops.TILE,
-             sweep["kept"].shape[1])
-    chunk_buckets = ops._padded_buckets(CHUNK_S)
-    b6["grid_chunk0_kept"] = (sweep["kept"][:, :w0].contiguous(), k0, 0,
-                              chunk_buckets)
-    b6["grid_chunk0_records"] = (
-        sweep["ss"], _prefix_count(sweep["ss"], sweep["lengths"], CHUNK_S),
-        0, chunk_buckets)
-    lo = 3 * CHUNK_S
-    a = int(_prefix_count(main["ss"], main["lengths"], lo)[0])
-    b = int(_prefix_count(main["ss"], main["lengths"], lo + CHUNK_S)[0])
-    b6["multiday_chunk"] = (main["ss"][:, a:b].contiguous(),
-                            torch.tensor([b - a], dtype=torch.int32,
-                                         device=device), lo, chunk_buckets)
+    b6 = _b6_timing_cases(main, sweep)
+    lo, chunk_buckets = b6["multiday_chunk"][2:]
     rs, rl = ragged["ss"], ragged["lengths"]
     b6["ragged"] = (torch.cat([rs, rs[:1]]).contiguous(),
                     torch.cat([rl, torch.zeros_like(rl[:1])]), 0,
                     ops._padded_buckets(3600))
+    # unsorted stamps around the chunk [lo, lo + 600): some below its base,
+    # some past base + buckets, ragged lengths with an empty row; and a
+    # chunk of width 0
+    b6["unsorted_base"] = (
+        torch.from_numpy(rng.integers(lo - 300, lo + chunk_buckets + 400,
+                                      (4, 70_001), dtype=np.int32)).to(device),
+        torch.tensor([70_001, 5, 0, 69_999], dtype=torch.int32,
+                     device=device), lo, chunk_buckets)
+    b6["width0"] = (torch.zeros((3, 0), dtype=torch.int32, device=device),
+                    torch.zeros(3, dtype=torch.int32, device=device), lo,
+                    chunk_buckets)
     err = 0.0
     for case, (ss, lens, base, buckets) in b6.items():
         S = ss.shape[0]
@@ -847,6 +946,20 @@ def check_carry_kernels(device: str, seed: int, cases,
         _exact(f"stream_metrics_carry/{case}/b3_hist", hist, h3)
         _exact(f"stream_metrics_carry/{case}/b3_moments",
                mom[:, ::2].contiguous(), m3)
+        mcar = carry(S)
+        _same_twice(f"stream_metrics_carry/{case}",
+                    lambda: stream_metrics_carry(ss, lens, buckets, mcar,
+                                                 base))
+    # a smaller call after the largest (the grid's records) reuses its
+    # workspace
+    ss, lens, base, buckets = b6["multiday_chunk"]
+    mcar = carry(ss.shape[0])
+    hist, mom = stream_metrics_carry(ss, lens, buckets, mcar, base)
+    hist_p, mom_p = stream_metrics_carry_plain(ss, lens, buckets, mcar, base)
+    _exact("stream_metrics_carry/multiday_chunk after records/hist", hist,
+           hist_p)
+    _carry_err("stream_metrics_carry/multiday_chunk after records", mom,
+               mom_p)
 
     def b6_row(case):
         ss, lens, base, buckets = b6[case]
@@ -862,16 +975,23 @@ def check_carry_kernels(device: str, seed: int, cases,
             library_ms=_time_ms(lambda: torch.bincount(row,
                                                        minlength=buckets),
                                 timing_reps),
+            host_ms=_enqueue_ms(lambda: stream_metrics_carry(
+                ss, lens, buckets, mcar, base), timing_reps),
             shape=f"S={S} N={ss.shape[1]} B={buckets} counted={n_valid}")
         out["bound_ms"], out["bound_by"] = _bound_ms(
             n_valid * 4 + S * 4 + S * 16 + S * buckets * 4 + S * 16,
             n_valid * 3 + S * buckets * 4)
         return out
 
+    ss, lens, base, buckets = b6["grid_chunk0_kept"]
+    mcar = carry(ss.shape[0])
     rows = {"stream_metrics_carry": dict(
         b6_row("grid_chunk0_kept"), max_abs_err=err,
         records=b6_row("grid_chunk0_records"),
-        multiday=b6_row("multiday_chunk"))}
+        multiday=b6_row("multiday_chunk"),
+        kernels_per_call=_kernels_per_call(
+            "stream_metrics_carry",
+            lambda: stream_metrics_carry(ss, lens, buckets, mcar, base)))}
 
     # --- B7 cases: (counts, init)
     def up(x):

@@ -2,9 +2,10 @@
 // Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
 // NVIDIA 2016) that the look-back kernels share: the block-wide scan, the
 // epoch-stamped 64-bit status words and the warp's walk back over them.
-// Included by trend_scan.cu (B4, B7) and compact.cu (B2); kernels/_build.py
-// hashes every header of csrc/ into each library's name, so an edit here
-// rebuilds both.
+// Included by trend_scan.cu (B4, B7), compact.cu (B2) and metrics_fused.cu
+// (B3, B6, whose span words are status words); kernels/_build.py hashes
+// every header of csrc/ into each library's name, so an edit here rebuilds
+// all three.
 //
 // A status word is 64 bits: the call's epoch (30 bits), the flag (2) and
 // the 32-bit unsigned value, written and read whole, so a word from an

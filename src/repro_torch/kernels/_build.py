@@ -166,13 +166,15 @@ def per_stream(cache: dict, device, make):
 
 
 class LookbackWorkspace:
-    """The scratch of a look-back kernel (``csrc/lookback.cuh``) on one
-    CUDA stream: one 8-byte status word per tile and the tile counter,
-    zeroed once when allocated and grown when a call needs more tiles.
-    Each call takes the next epoch (1, 2, ...), which makes the words of
-    earlier calls unreadable to it; past ``max_epoch`` the words are
-    cleared once and the count starts again. The lock keeps two threads
-    that share the stream from taking one epoch."""
+    """The scratch of a kernel with epoch-stamped words on one CUDA stream
+    (the look-back kernels of ``csrc/lookback.cuh``, and B3/B6's span
+    words): the 8-byte words and the counters (one tile counter, or one
+    done-ticket a row), zeroed once when allocated and grown when a call
+    needs more. Each call takes the next epoch (1, 2, ...), which makes the
+    words of earlier calls unreadable to it; past ``max_epoch`` the words
+    are cleared once and the count starts again. The counters are left at
+    0 by every call. The lock keeps two threads that share the stream from
+    taking one epoch."""
 
     def __init__(self, device, max_epoch: int):
         import torch
@@ -183,14 +185,18 @@ class LookbackWorkspace:
         self.epoch = 0
         self.lock = threading.Lock()
 
-    def take(self, n_words: int):
-        """``(status words, counter, epoch)`` for one call."""
+    def take(self, n_words: int, n_counters: int = 1):
+        """``(status words, counters, epoch)`` for one call."""
         import torch
         with self.lock:
             if self.words.numel() < n_words:
                 self.words = torch.zeros(
                     max(n_words, 2 * self.words.numel()), dtype=torch.int64,
                     device=self.device)
+            if self.counter.numel() < n_counters:
+                self.counter = torch.zeros(
+                    max(n_counters, 2 * self.counter.numel()),
+                    dtype=torch.int32, device=self.device)
             self.epoch += 1
             if self.epoch > self.max_epoch:
                 self.words.zero_()

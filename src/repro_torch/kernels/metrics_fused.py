@@ -10,13 +10,15 @@ Counterparts of ``repro/kernels/metrics_fused.py``:
   and the moment fold seeded from a per-row Kahan state
   ``[s1, c1, s2, c2]``; it returns the updated state.
 
-Each wrapper launches ``csrc/metrics_fused.cu`` for CUDA tensors and runs
-its plain version for CPU tensors. Counts are exact; moments are f32
-partials over ``BUCKET_BLOCK``-bucket blocks folded with Kahan
-compensation (``repro/kernels/metrics_fused.py:118-132``), within 1e-5
-relative of f64. Kernel and plain version add the partials in different
-orders, so their moments agree to that tolerance, not bit for bit; within
-each, B6 with a zero carry gives B3's result bit for bit.
+Each wrapper launches ``csrc/metrics_fused.cu`` for CUDA tensors (one
+launch per call: the histogram's zeroing, the counting and the moment
+fold in one kernel, with its span words and done-tickets kept in a
+per-stream workspace) and runs its plain version for CPU tensors. Counts
+are exact; moments are f32 partials over ``BUCKET_BLOCK``-bucket blocks
+folded with Kahan compensation (``repro/kernels/metrics_fused.py:118-132``),
+within 1e-5 relative of f64. Kernel and plain version add the partials in
+different orders, so their moments agree to that tolerance, not bit for
+bit; within each, B6 with a zero carry gives B3's result bit for bit.
 """
 
 from __future__ import annotations
@@ -112,13 +114,64 @@ def stream_metrics_carry_plain(ss, lengths, buckets: int, mcar, base=0):
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     return _build.bind("metrics_fused", "metrics_launch",
-                       [p, p, i, i, i, p, p, p])
+                       [p, p, i, i, i, p, p, u, p, p, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _carry_entry():
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    return _build.bind("metrics_fused", "metrics_carry_launch",
+                       [p, p, i, i, i, i, p, p, u, p, p, p, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _limits():
+    """(buckets per zeroed span, buckets per moment partial, largest
+    epoch), read from the library."""
+    return tuple(_build.bind("metrics_fused", name, [])() for name in (
+        "metrics_span_buckets", "metrics_bucket_block", "metrics_max_epoch"))
+
+
+def _workspace(device):
+    return _build.LookbackWorkspace(device, _limits()[2])
+
+
+#: one workspace per (device, CUDA stream): a word per span and per moment
+#: partial of each row's histogram; the ticket counter and two counters a
+#: row (its count and its partials done)
+_workspaces = {}
+
+
+def _launch(ss, lengths, buckets: int, mcar=None, base: int = 0):
+    """One launch on ``ss``'s device and current stream: B3, or B6 when
+    ``mcar`` is given. ``hist`` and ``mom`` are allocated uninitialised;
+    the kernel writes them whole."""
+    S, n = ss.shape
+    dev = ss.device
+    hist = torch.empty((S, buckets), dtype=torch.int32, device=dev)
+    mom = torch.empty((S, 2 if mcar is None else 4), dtype=torch.float32,
+                      device=dev)
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        ws, stream = _build.per_stream(_workspaces, dev, _workspace)
+        span, block, _ = _limits()
+        words, counters, epoch = ws.take(
+            S * (-(-buckets // span) + buckets // block), 1 + 2 * S)
+        scratch = (p(words), p(counters), epoch, p(hist))
+        if mcar is None:
+            code = _entry()(p(ss), p(lengths), S, n, buckets, *scratch,
+                            p(mom), stream)
+        else:
+            code = _carry_entry()(p(ss), p(lengths), int(base), S, n,
+                                  buckets, *scratch, p(mcar), p(mom), stream)
+    _build.check(code, "metrics_fused")
+    return hist, mom
 
 
 def _check_inputs(ss, lengths, buckets: int) -> None:
-    """What both CUDA launches take: a CUDA stamp matrix, its lengths on
+    """What both CUDA entries take: a CUDA stamp matrix, its lengths on
     the same device, block-aligned buckets, one launch's worth of rows."""
     if ss.device.type != "cuda":
         raise ValueError(f"stream_metrics runs on cuda or cpu, not "
@@ -139,61 +192,41 @@ def _check_inputs(ss, lengths, buckets: int) -> None:
 
 
 def stream_metrics(ss, lengths, buckets: int):
-    """B3 on the stamps' device: the CUDA kernels for CUDA tensors, the
+    """B3 on the stamps' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors (same contract as
-    :func:`stream_metrics_plain`). Each call that launches the kernels
-    (histogram, then moments) adds one to ``stream_metrics.launches``."""
+    :func:`stream_metrics_plain`). Each call that launches the kernel (one
+    launch: zeroing, histogram and moments) adds one to
+    ``stream_metrics.launches``."""
     if ss.device.type == "cpu":
         return stream_metrics_plain(ss, lengths, buckets)
     _check_inputs(ss, lengths, buckets)
-    S, n = ss.shape
-    hist = torch.zeros((S, buckets), dtype=torch.int32, device=ss.device)
-    mom = torch.empty((S, 2), dtype=torch.float32, device=ss.device)
-    p = _build.ptr
-    with torch.cuda.device(ss.device):
-        code = _entry()(p(ss), p(lengths), S, n, buckets, p(hist), p(mom),
-                        _build.stream_handle(ss.device))
-    _build.check(code, "metrics_fused")
+    out = _launch(ss, lengths, buckets)
     stream_metrics.launches += 1
-    return hist, mom
+    return out
 
 
 stream_metrics.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _carry_entry():
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("metrics_fused", "metrics_carry_launch",
-                       [p, p, i, i, i, i, p, p, p, p])
-
-
 def stream_metrics_carry(ss, lengths, buckets: int, mcar, base=0):
-    """B6 on the stamps' device: the CUDA kernels for CUDA tensors, the
+    """B6 on the stamps' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors (same contract as
     :func:`stream_metrics_carry_plain`). Each call that launches the
-    kernels (histogram, then the carried moment fold) adds one to
-    ``stream_metrics_carry.launches``."""
+    kernel (one launch: zeroing, histogram and the carried moment fold)
+    adds one to ``stream_metrics_carry.launches``."""
     if ss.device.type == "cpu":
         return stream_metrics_carry_plain(ss, lengths, buckets, mcar, base)
     _check_inputs(ss, lengths, buckets)
-    S, n = ss.shape
+    S = ss.shape[0]
     if mcar.dtype != torch.float32 or tuple(mcar.shape) != (S, 4) or \
             mcar.device != ss.device or not mcar.is_contiguous():
         raise ValueError("mcar must be a contiguous (S, 4) float32 tensor "
                          "on the stamps' device")
     if not -2 ** 31 <= int(base) < 2 ** 31:
         raise ValueError(f"base {base} outside int32")
-    hist = torch.zeros((S, buckets), dtype=torch.int32, device=ss.device)
-    mom = torch.empty((S, 4), dtype=torch.float32, device=ss.device)
-    p = _build.ptr
-    with torch.cuda.device(ss.device):
-        code = _carry_entry()(p(ss), p(lengths), int(base), S, n, buckets,
-                              p(hist), p(mcar), p(mom),
-                              _build.stream_handle(ss.device))
-    _build.check(code, "metrics_fused")
+    out = _launch(ss, lengths, buckets, mcar, base)
     stream_metrics_carry.launches += 1
-    return hist, mom
+    return out
 
 
 stream_metrics_carry.launches = 0

@@ -108,6 +108,37 @@ class TestStreamMetricsCarryKernel:
         np.testing.assert_allclose(m_t[:, ::2].double().numpy(), want,
                                    rtol=1e-5, atol=1e-3)
 
+    @pytest.mark.parametrize("carry", ["zero", "random"])
+    def test_unsorted_stamps_around_the_chunk_match_pallas(self, carry):
+        """Unsorted stamps, some below the chunk's base and some past
+        base + buckets, ragged lengths with an empty row: the plain version
+        (the CUDA kernel's yardstick) against the Pallas kernel in
+        interpret mode, which sees the reference's padding id there."""
+        rng = np.random.default_rng(17)
+        S, N, base, buckets = 4, 3000, 1800, 1024
+        ss = rng.integers(base - 300, base + buckets + 400, (S, N)).astype(
+            np.int32)
+        lengths = np.array([N, 5, 0, N - 1])
+        mcar = (np.zeros((S, 4)) if carry == "zero" else np.stack(
+            [rng.uniform(0, 5e5, S), rng.uniform(-1, 1, S),
+             rng.uniform(0, 5e8, S), rng.uniform(-64, 64, S)], axis=1)
+                ).astype(np.float32)
+        local = ss - base
+        valid = (np.arange(N)[None, :] < lengths[:, None]) & (local >= 0) & \
+            (local < buckets)
+        j_in = np.full((S, 3072), buckets, np.int32)
+        j_in[:, :N] = np.where(valid, local, buckets)
+        h_j, m_j = stream_metrics_carry_pallas(
+            jnp.asarray(j_in), jnp.asarray(mcar), buckets, interpret=True)
+        h_t, m_t = stream_metrics_carry_plain(
+            torch.from_numpy(ss), torch.from_numpy(lengths.astype(np.int32)),
+            buckets, torch.from_numpy(mcar), base)
+        assert np.array_equal(h_t.numpy(), np.asarray(h_j))
+        assert int(h_t.sum()) == int(valid.sum())
+        np.testing.assert_allclose(m_t[:, ::2].double().numpy(),
+                                   np.asarray(m_j, np.float64)[:, ::2],
+                                   rtol=1e-5, atol=0)
+
     def test_zero_carry_is_b3_bit_for_bit(self):
         rng = np.random.default_rng(3)
         ss = torch.from_numpy(rng.integers(0, 1536, (3, 6000)).astype(

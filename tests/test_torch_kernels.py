@@ -397,6 +397,314 @@ class TestMetricsFused:
                                  torch.tensor([4]), 600)
 
 
+# ------------------------------ B3/B6's one-launch order of work, modelled
+# csrc/metrics_fused.cu zeroes the histogram, counts and folds the moments
+# in one launch. The model runs its blocks as generators, each started at a
+# random moment (at most ``slots`` run at once, picked in no particular
+# order) and advanced one step at a time in a random order. Each block
+# first draws a ticket: the first tickets zero a span of ``span`` buckets
+# of a row's histogram and publish an epoch-stamped word; the next take
+# ``group`` tiles of ``tile`` records of a row in turn, find each tile's
+# bucket range, count it privately when it fits in ``smem`` buckets (else
+# record by record) and, before the first add, wait for the words of the
+# spans that range covers (spans it already saw zeroed are skipped); every
+# span and every tile group within the row's length then takes the row's
+# count ticket. When the row has at most ``piece`` 512-bucket blocks, the
+# last one computes the partials and folds them; else the last tickets are
+# pieces of ``piece`` blocks each, which wait for the row's count, write
+# their partials and take the row's piece ticket, and the last piece folds
+# them all. Partials are f32 sums over each 512-bucket block, a per-lane
+# running sum over j * 32 + lane and then the xor butterfly, folded in
+# block order with Kahan compensation, all in numpy float32 (rounded
+# after every operation, as the _rn intrinsics are). The histogram starts
+# as garbage, as the wrapper's torch.empty leaves it. Every bin must be
+# zeroed exactly once and before any add to it, no block may wait
+# forever, and every counter must end at 0.
+_B3_BLOCK = 512
+
+
+def _partials_model(hist):
+    """``(p1, p2)`` float32 (S, B / 512): each block's partials, as the
+    kernel's warps sum them."""
+    S, B = hist.shape
+    q = hist.astype(np.float32).reshape(S, B // _B3_BLOCK, 16, 32)
+    a = np.zeros((S, B // _B3_BLOCK, 32), np.float32)
+    b = np.zeros_like(a)
+    for j in range(16):                # lane's running sum over j * 32 + lane
+        a = a + q[:, :, j, :]
+        b = b + q[:, :, j, :] * q[:, :, j, :]
+    for o in (16, 8, 4, 2, 1):         # the xor butterfly
+        partner = np.arange(32) ^ o
+        a = a + a[..., partner]
+        b = b + b[..., partner]
+    return a[..., 0], b[..., 0]
+
+
+def _kahan_model(p1, p2, state):
+    """``state`` (S, 4) float32 ``[s1, c1, s2, c2]`` with the partials
+    folded in, in block order."""
+    s1, c1, s2, c2 = (state[:, k].astype(np.float32) for k in range(4))
+    for blk in range(p1.shape[1]):
+        y1 = p1[:, blk] - c1
+        t1 = s1 + y1
+        c1 = (t1 - s1) - y1
+        s1 = t1
+        y2 = p2[:, blk] - c2
+        t2 = s2 + y2
+        c2 = (t2 - s2) - y2
+        s2 = t2
+    return np.stack([s1, c1, s2, c2], axis=1)
+
+
+class _MetricsWorkspace:
+    """The per-stream scratch: span words (the epoch that zeroed them),
+    the ticket counter and two counters a row, zero when allocated, kept
+    across calls."""
+
+    def __init__(self):
+        self.words = {}
+        self.counters = {}
+        self.epoch = 0
+
+
+def _metrics_fused_model(ss, lengths, buckets, mcar, base, *, ws, seed,
+                         tile=64, group=2, span=192, smem=256, piece=1,
+                         slots=32):
+    rng = np.random.default_rng(seed)
+    S, n = ss.shape
+    ws.epoch += 1
+    epoch, ctr = ws.epoch, ws.counters
+    n_spans = -(-buckets // span)
+    n_groups = -(-(-(-n // tile)) // group)
+    n_blocks = buckets // _B3_BLOCK
+    n_pieces = 0 if n_blocks <= piece else -(-n_blocks // piece)
+    n_work = S * (n_spans + n_groups + n_pieces)
+    hist = rng.integers(-10 ** 6, 10 ** 6, (S, buckets))   # torch.empty
+    zero_writes = np.zeros((S, buckets), np.int64)
+    partials = np.full((S, n_blocks, 2), np.nan, np.float32)
+    folds = np.zeros(S, np.int64)
+    mom = np.full((S, 4), np.nan, np.float32)
+
+    def add(s, b, c):
+        assert zero_writes[s, b] == 1 and \
+            ws.words.get((s, b // span), 0) == epoch, \
+            "an add before its bin's zeroing was published"
+        hist[s, b] += c
+
+    def take(key):
+        prev = ctr.get(key, 0)
+        ctr[key] = prev + 1
+        return prev
+
+    def parts(s):
+        length = max(0, min(int(lengths[s]), n))
+        return n_spans + min(n_groups, -(-length // tile))
+
+    def fold(s, p1, p2):
+        assert (zero_writes[s] == 1).all(), "folded before every zero"
+        mom[s] = _kahan_model(p1[None], p2[None], mcar[s:s + 1])[0]
+        folds[s] += 1
+
+    def block():
+        t = take("ticket")
+        if t == n_work - 1:
+            ctr["ticket"] = 0              # the last draw
+        yield
+        if t >= S * (n_spans + n_groups):  # a piece
+            s, p = divmod(t - S * (n_spans + n_groups), n_pieces)
+            while ctr.get(("count", s), 0) != parts(s):
+                yield                      # parts hold lower tickets
+            b0, b1 = p * piece, min(n_blocks, (p + 1) * piece)
+            p1, p2 = _partials_model(hist[s:s + 1, b0 * _B3_BLOCK:
+                                          b1 * _B3_BLOCK])
+            partials[s, b0:b1] = np.stack([p1[0], p2[0]], axis=1)
+            yield
+            if take(("piece", s)) == n_pieces - 1:
+                ctr[("piece", s)] = ctr[("count", s)] = 0
+                fold(s, partials[s, :, 0], partials[s, :, 1])
+            return
+        if t < S * n_spans:                # a span
+            s, z = divmod(t, n_spans)
+            for lo in range(z * span, min((z + 1) * span, buckets), 32):
+                hi = min(lo + 32, (z + 1) * span, buckets)
+                hist[s, lo:hi] = 0
+                zero_writes[s, lo:hi] += 1
+                yield
+            ws.words[(s, z)] = epoch
+        else:                              # a tile group
+            s, g = divmod(t - S * n_spans, n_groups)
+            length = max(0, min(int(lengths[s]), n))
+            tiles = -(-length // tile)
+            if g >= tiles:
+                return                     # past the row's length
+            seen = {z for z in range(n_spans)
+                    if ws.words.get((s, z), 0) == epoch}
+            yield
+            for tl in range(g, tiles, n_groups):
+                raw = ss[s, tl * tile:min((tl + 1) * tile, length)]
+                r = (raw.astype(np.int64) - base) % 2 ** 32   # unsigned
+                v = r[r < buckets]
+                yield
+                if not len(v):
+                    continue
+                lo, hi = int(v.min()), int(v.max())
+                for z in range(lo // span, hi // span + 1):
+                    while z not in seen and ws.words.get((s, z), 0) != epoch:
+                        yield              # held by a lower ticket
+                    seen.add(z)
+                if hi - lo + 1 <= smem:
+                    counts = np.bincount(v - lo, minlength=hi - lo + 1)
+                    for b in np.flatnonzero(counts):
+                        add(s, lo + b, counts[b])
+                        yield
+                else:
+                    for b in v:
+                        add(s, b, 1)
+                        yield
+        yield
+        if take(("count", s)) == parts(s) - 1 and not n_pieces:
+            ctr[("count", s)] = 0
+            p1, p2 = _partials_model(hist[s:s + 1])
+            fold(s, p1[0], p2[0])
+
+    pending = n_work
+    running, steps = [], 0
+    limit = 100 * (S * (n + buckets) + n_work) + 10_000
+    while pending or running:
+        if pending and (len(running) < slots and rng.random() < 0.5
+                        or not running):
+            running.append(block())
+            pending -= 1
+            continue
+        k = int(rng.integers(len(running)))
+        try:
+            next(running[k])
+        except StopIteration:
+            running.pop(k)
+        steps += 1
+        assert steps < limit, "a block waited forever"
+    assert (zero_writes == 1).all(), "a bin zeroed != once"
+    assert (folds == 1).all(), "a row folded != once"
+    assert all(v == 0 for v in ctr.values()), "a counter left non-zero"
+    return hist.astype(np.int32), mom
+
+
+def _metrics_case(case, rng):
+    """(ss, lengths, buckets) of one model case; stamps are chunk-local
+    (0-based): B6 adds its base."""
+    if case == "n0":
+        return np.zeros((3, 0), np.int32), np.array([0, 5, 0]), 1024
+    buckets = 512 if case == "buckets512" else 1024
+    S, n = 4, 700
+    ss = rng.integers(0, buckets, (S, n))
+    lengths = np.full(S, n)
+    if case in ("sorted", "ragged", "all_padding", "buckets512"):
+        ss = np.sort(ss, axis=1)
+    if case == "outside":                 # below the chunk and past it
+        ss[:, ::3] = rng.integers(-300, 0, ss[:, ::3].shape)
+        ss[:, 1::5] = rng.integers(buckets, buckets + 400, ss[:, 1::5].shape)
+    if case == "ragged":
+        lengths = np.array([700, 663, 1, 65])
+    if case == "all_padding":
+        lengths[2] = 0
+        ss[2] = rng.integers(-10 ** 6, 10 ** 6, n)      # garbage
+    return ss.astype(np.int32), lengths, buckets
+
+
+def _pallas_metrics(local, lengths, buckets, mcar):
+    """The JAX Pallas kernel (interpret mode) on chunk-local stamps: the
+    reference's padding id (buckets) past each length, outside
+    [0, buckets) and past N up to its tile."""
+    from repro.kernels.metrics_fused import (stream_metrics_carry_pallas,
+                                             stream_metrics_pallas)
+    S, n = local.shape
+    i = np.arange(n)[None, :]
+    valid = (i < lengths[:, None]) & (local >= 0) & (local < buckets)
+    j_in = np.full((S, max(-(-n // 1024), 1) * 1024), buckets, np.int32)
+    j_in[:, :n] = np.where(valid, local, buckets)
+    if mcar is None:
+        h, m = stream_metrics_pallas(jnp.asarray(j_in), buckets,
+                                     interpret=True)
+    else:
+        h, m = stream_metrics_carry_pallas(jnp.asarray(j_in),
+                                           jnp.asarray(mcar), buckets,
+                                           interpret=True)
+    return np.asarray(h), np.asarray(m)
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "outside", "ragged",
+                                  "all_padding", "n0", "buckets512"])
+@pytest.mark.parametrize("kind", ["b3", "b6_zero", "b6_random"])
+def test_metrics_fused_model_matches_plain_and_pallas(kind, case):
+    """B3's and B6's one-launch zeroing, counting and fold, modelled,
+    against the plain versions and the JAX Pallas kernels (interpret mode):
+    hist bit for bit, moments within 1e-5 relative; B6 with a zero carry
+    equal to B3 bit for bit; a second call on the same workspace (the next
+    epoch) gives the same result."""
+    from repro_torch.kernels.metrics_fused import stream_metrics_carry_plain
+    seed = sum(map(ord, kind + case))
+    rng = np.random.default_rng(seed)
+    local, lengths, buckets = _metrics_case(case, rng)
+    S = local.shape[0]
+    base = 0 if kind == "b3" else 300
+    ss = local + base
+    zero = np.zeros((S, 4), np.float32)
+    mcar = zero if kind != "b6_random" else np.stack(
+        [rng.uniform(0, 5e5, S), rng.uniform(-1, 1, S),
+         rng.uniform(0, 5e8, S), rng.uniform(-64, 64, S)],
+        axis=1).astype(np.float32)
+    ws = _MetricsWorkspace()
+    # few blocks resident at once (2), or most of the launch (32)
+    slots = 2 if kind == "b6_random" else 32
+    hist, mom = _metrics_fused_model(ss, lengths, buckets, mcar, base,
+                                     ws=ws, seed=seed, slots=slots)
+    hist2, mom2 = _metrics_fused_model(ss, lengths, buckets, mcar, base,
+                                       ws=ws, seed=seed + 1, slots=slots)
+    np.testing.assert_array_equal(hist2, hist)
+    np.testing.assert_array_equal(mom2, mom)
+
+    t_ss, t_len = torch.from_numpy(ss), torch.from_numpy(
+        lengths.astype(np.int32))
+    if kind == "b3":
+        hist_p, mom_p = stream_metrics_plain(t_ss, t_len, buckets)
+        got, want = mom[:, ::2], mom_p.numpy()
+        h_j, m_j = _pallas_metrics(local, lengths, buckets, None)
+    else:
+        hist_p, mom_p = stream_metrics_carry_plain(
+            t_ss, t_len, buckets, torch.from_numpy(mcar), base)
+        got, want = mom, mom_p.numpy()
+        h_j, m_j = _pallas_metrics(local, lengths, buckets, mcar)
+    np.testing.assert_array_equal(hist, hist_p.numpy())
+    np.testing.assert_array_equal(hist, h_j)
+    for ref in (want, m_j):
+        _assert_moments(np.asarray(got)[:, ::2] if got.shape[1] == 4
+                        else got, np.asarray(ref)[:, ::2]
+                        if np.asarray(ref).shape[1] == 4 else ref)
+    if kind == "b6_zero":                 # B3 on the rebased stamps
+        h3, m3 = _metrics_fused_model(local, lengths, buckets, zero, 0,
+                                      ws=_MetricsWorkspace(), seed=seed + 2)
+        np.testing.assert_array_equal(hist, h3)
+        np.testing.assert_array_equal(mom[:, ::2], m3[:, ::2])
+
+
+def test_workspace_grows_counters_zeroed_and_keeps_the_epoch():
+    """The per-stream workspace B3/B6 share with the look-back kernels:
+    more counters than it holds are allocated zeroed, and the epoch moves
+    on by one a call whatever grows."""
+    from repro_torch.kernels._build import LookbackWorkspace
+    ws = LookbackWorkspace(torch.device("cpu"), max_epoch=3)
+    words, counters, e1 = ws.take(4)
+    assert counters.numel() == 1 and words.numel() == 4
+    counters[0] = 7                       # a kernel left it non-zero
+    words, counters, e2 = ws.take(2, n_counters=5)
+    assert counters.numel() >= 5 and int(counters.abs().sum()) == 0
+    assert words.numel() == 4 and (e1, e2) == (1, 2)
+    words[:] = 9
+    ws.take(2)
+    _, _, e4 = ws.take(1)                 # past max_epoch: words cleared
+    assert e4 == 1 and int(ws.words.abs().sum()) == 0
+
+
 # ----------------------------------------------------- domain guards
 class TestDomainGuards:
     def test_keep_rule_overflow_refused_by_both(self):

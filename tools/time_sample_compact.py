@@ -126,15 +126,44 @@ def time_tree(tree: Path, inputs_file: Path, reps: int) -> dict:
     return rows
 
 
-def _medians(runs) -> dict:
-    out = {}
-    for shape in SHAPES:
-        out[shape] = {"shape": runs[0][shape]["shape"]}
-        for k in ("stream_sample", "compact"):
-            out[shape][k] = {
-                m: float(np.median([r[shape][k][m] for r in runs]))
-                for m in runs[0][shape][k]}
-    return out
+def medians(runs):
+    """The element-wise median of the runs' nested rows (numbers; other
+    values are taken from the first run)."""
+    first = runs[0]
+    if isinstance(first, dict):
+        return {k: medians([r[k] for r in runs]) for k in first}
+    if isinstance(first, (int, float)) and not isinstance(first, bool):
+        return float(np.median(runs))
+    return first
+
+
+def run_workers(script: Path, trees: dict, inputs_file: Path, reps: int,
+                extra=lambda which, i: ()) -> dict:
+    """``script --worker TREE --inputs FILE --reps N`` and ``extra(which,
+    i)`` (the tree's name, the process's index among its tree's) in four
+    processes, in the order other, this, this, other; returns each tree's
+    list of the JSON objects its processes printed last."""
+    runs = {"other": [], "this": []}
+    for which in ("other", "this", "this", "other"):
+        proc = subprocess.run(
+            [sys.executable, str(script), "--worker", str(trees[which]),
+             "--inputs", str(inputs_file), "--reps", str(reps),
+             *extra(which, len(runs[which]))],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stderr, file=sys.stderr)
+            raise RuntimeError(f"the {which} checkout's process failed "
+                               f"(exit {proc.returncode})")
+        runs[which].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return runs
+
+
+def write_result(result: dict, out) -> None:
+    text = json.dumps(result)
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(text + "\n")
+    print(text)
 
 
 def main() -> int:
@@ -159,31 +188,16 @@ def main() -> int:
             args.other / "src/repro_torch/csrc/compact.cu").is_file():
         ap.error("--other must name a checkout holding src/repro_torch")
     trees = {"other": args.other.resolve(), "this": ROOT}
-    runs = {"other": [], "this": []}
     with tempfile.TemporaryDirectory(prefix="b1b2_") as tmp:
         inputs_file = Path(tmp) / "inputs.pt"
         torch.save(build_inputs(args.scale, args.seed, Path(tmp)),
                    inputs_file)
-        for which in ("other", "this", "this", "other"):
-            proc = subprocess.run(
-                [sys.executable, str(Path(__file__).resolve()),
-                 "--worker", str(trees[which]), "--inputs",
-                 str(inputs_file), "--reps", str(args.reps)],
-                capture_output=True, text=True, timeout=900)
-            if proc.returncode != 0:
-                print(proc.stderr, file=sys.stderr)
-                raise RuntimeError(f"the {which} checkout's process failed "
-                                   f"(exit {proc.returncode})")
-            runs[which].append(json.loads(proc.stdout.strip()
-                                          .splitlines()[-1]))
-    result = {"card": cs._card_line(), "other": str(args.other),
-              "reps": args.reps, "runs": runs,
-              "median": {k: _medians(v) for k, v in runs.items()}}
-    text = json.dumps(result)
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(text + "\n")
-    print(text)
+        runs = run_workers(Path(__file__).resolve(), trees, inputs_file,
+                           args.reps)
+    write_result({"card": cs._card_line(), "other": str(args.other),
+                  "reps": args.reps, "runs": runs,
+                  "median": {k: medians(v) for k, v in runs.items()}},
+                 args.out)
     return 0
 
 
