@@ -31,8 +31,11 @@ Phases, each of which raises on failure (nothing catches it):
      {0, 1, 1023, 1024, 1025, 86 400}, unpadded widths 0 and 1025, and one
      604 800-long row whose total sits just under 2^31 - 1 — exact, two
      calls in a row bit-identical, a smaller call after a larger one;
-   - B5 (pair_stats) at the fidelity shape of max_range 3600 and at
-     S = 37, K = 86 528 — ``|G - G_plain| <= 1e-4 sqrt(G_aa G_bb)``;
+   - B5 (pair_stats) at the fidelity shape of max_range 3600, the task
+     bench's S = 2 (K = 1024, 4096), S = 1, 37 (K = 86 528), 64, 65 and 130
+     (K = 4096), K = 0, K = 1025 and a view off a 16-byte boundary —
+     ``|G - G_plain| <= 1e-4 sqrt(G_aa G_bb)``, two calls in a row
+     bit-identical, the fidelity shape after S = 130 unchanged;
    - B6 (stream_metrics_carry) at chunk 0 of the 1-day grid (18 rows: the
      kept stamps the chunked path hands it, and all 10,631,168 records of
      the slice), at a 1.77 M-record chunk of one row rebased by its first
@@ -53,9 +56,9 @@ Phases, each of which raises on failure (nothing catches it):
      (bf16) of the plain version, two calls in a row bit-identical, the
      serve shape after the decode_32k shape unchanged;
    - one device kernel per call of B1, B2 (its sentinel fill included),
-     B3 and B6 (the histogram's zeroing and the moments included), B4, B7
-     and B8 (``torch.profiler`` over five calls at the timing shapes;
-     copies and fills not counted);
+     B3 and B6 (the histogram's zeroing and the moments included), B4, B5
+     (its splits' fold included), B7 and B8 (``torch.profiler`` over five
+     calls at the timing shapes; copies and fills not counted);
    timing kernel, plain version and the one-call library yardstick (CUDA
    events, median of several runs; B2 against ``torch.cumsum`` and, on
    one row, ``torch.nonzero``; B8 at B = 16, S = 32 768 with llama3-8b's
@@ -96,9 +99,21 @@ Phases, each of which raises on failure (nothing catches it):
    31 of a real decode step; prints the logits of that step through B8
    and through the plain version, prefill and decode step times, tokens/s
    and peak memory, then frees the weights;
-10. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
-   ``multiday``, ``serve``, ``serve_llama3`` and ``kernels`` JSON lines
-   and, last, the ``{"ok": true, "device": ...}`` line.
+10. drive the paper's task bench, ``TaskBenchRunner(("sogouq", "traffic",
+   "userbehavior"), (600, 3600), scale=1.0, device="cuda",
+   backend="torch").run(...)`` over the reference benchmark's ETL, 30 s
+   window and threshold-4 detector tasks (18 reports, full days): launches
+   exactly B5 = B4 = 18 and B3 = 3, records equal to the originals' and
+   the sims', every speedup above 1, the detector's output series replayed
+   again with the device chain within 1e-3 of ``backend="numpy"``, its
+   latency summaries equal and its B3 histogram equal to ``np.bincount``,
+   and the fidelity floor (0.75) on every report but a detector cell whose
+   float64 numpy fidelity is itself below it (held to that value instead,
+   and listed);
+11. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
+   ``multiday``, ``serve``, ``serve_llama3``, ``taskbench`` and
+   ``kernels`` JSON lines and, last, the ``{"ok": true, "device": ...}``
+   line.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -776,14 +791,35 @@ def check_trend_kernels(device: str, scale: float, seed: int,
            trend_scan_plain(q_fid))
 
     z_fid = _centered_trends(q_fid, lengths, 60)
-    big = rng.normal(0.0, 40.0, (37, 86_528)).astype(np.float32)
-    big -= big.mean(axis=1, keepdims=True)
-    pair_cases = {"fidelity": z_fid, "S37": up(big)}
+
+    def centered(S, K):
+        x = rng.normal(0.0, 40.0, (S, K)).astype(np.float32)
+        return up(x - x.mean(axis=1, keepdims=True) if K else x)
+
+    base = up(rng.normal(0.0, 3.0, 37 * 4096 + 1).astype(np.float32))
+    pair_cases = {
+        "fidelity": z_fid, "S37": centered(37, 86_528),
+        # the task bench's S = 2 shapes (max_range 600 and 3600 against
+        # a day's original, padded to PAIR_TILE)
+        "S2_K1024": centered(2, 1024), "S2_K4096": centered(2, 4096),
+        "S1": centered(1, 4096), "S64": centered(64, 4096),
+        "S65": centered(65, 4096), "S130": centered(130, 4096),
+        "K0": centered(5, 0), "K1025": centered(37, 1025),
+        "off16": base[1:1 + 37 * 4096].view(37, 4096),
+    }
+    if pair_cases["off16"].data_ptr() % 16 == 0:
+        raise AssertionError("pair_stats/off16: the view is aligned")
     err = scaled_err = 0.0
     for case, x in pair_cases.items():
         e, se = _pair_err(f"pair_stats/{case}", pair_stats(x),
                           pair_stats_plain(x), x.shape[1])
         err, scaled_err = max(err, e), max(scaled_err, se)
+        _same_twice(f"pair_stats/{case}", lambda: pair_stats(x))
+    # a smaller call after the largest tile grid reuses its workspace
+    fid = pair_stats(z_fid)
+    pair_stats(pair_cases["S130"])
+    if not all(torch.equal(a, b) for a, b in zip(fid, pair_stats(z_fid))):
+        raise AssertionError("pair_stats/fidelity after S130 changed")
 
     S, N = q_fid.shape
     rows = {"trend_scan": dict(
@@ -810,7 +846,8 @@ def check_trend_kernels(device: str, scale: float, seed: int,
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False   # the yardstick in f32
     try:
-        for case, x in pair_cases.items():
+        for case in ("fidelity", "S37", "S2_K1024", "S2_K4096"):
+            x = pair_cases[case]
             S, K = x.shape
             row = dict(
                 ms=_time_ms(lambda: pair_stats(x), timing_reps),
@@ -820,8 +857,10 @@ def check_trend_kernels(device: str, scale: float, seed: int,
             row["bound_ms"], row["bound_by"] = _bound_ms(
                 S * K * 4 + S * 4 + S * S * 4, S * (S + 1) * K + S * K)
             if case == "fidelity":
-                rows["pair_stats"] = dict(row, max_abs_err=err,
-                                          max_scaled_err=scaled_err)
+                rows["pair_stats"] = dict(
+                    row, max_abs_err=err, max_scaled_err=scaled_err,
+                    kernels_per_call=_kernels_per_call(
+                        "pair_stats", lambda: pair_stats(x)))
             else:
                 rows["pair_stats"][case] = row
     finally:
@@ -1881,6 +1920,152 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
     return launches, report
 
 
+# ---------------------------------------------------- the paper's task bench
+TASKBENCH_RANGES = (600, 3600)
+
+
+def _bench_tasks():
+    """The reference benchmark's three bucket tasks
+    (``benchmarks/bench_PR8.py``): ETL, a 30 s window, and a threshold
+    detector."""
+    from repro_torch.streamsim import (ETLTask, EventDetectTask,
+                                       WindowedStatsTask)
+    return [ETLTask(), WindowedStatsTask(window_s=30),
+            EventDetectTask(mode="threshold", threshold=4.0)]
+
+
+def _same_summaries(name, got, want) -> None:
+    for g, w in zip(got, want):
+        for key, wv in w.to_dict().items():
+            gv = g.to_dict()[key]
+            if not (gv == wv or (np.isnan(gv) and np.isnan(wv))):
+                raise AssertionError(f"{name}: {key} {gv} vs numpy {wv}")
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} summaries, numpy "
+                             f"{len(want)}")
+
+
+def run_taskbench_path(device: str, scale: float, seed: int):
+    """The paper's experiment (``TaskBenchRunner``): every bench task over
+    the original and the simulated replay of each dataset at each range,
+    on the torch backend: per report one S = 2 trend chain (B4, B5), per
+    task one latency histogram over its sims' unsorted bins (B3). Checks
+    the launches, the record counts, the speedups, the threshold
+    detector's device chain against ``backend="numpy"`` on the same output
+    series, and the fidelity floor (a detector cell whose float64 numpy
+    fidelity is itself below the floor is held to that value instead and
+    listed); returns ``(launches, summary)``."""
+    import torch
+
+    from repro_torch.streamsim import (FIDELITY_FLOOR, LATENCY_BINS,
+                                       EventDetectTask, TaskBenchRunner, nsa,
+                                       original_replay_stream,
+                                       summarize_latencies,
+                                       trend_correlation_matrix)
+    from repro_torch.streamsim.engine import replay_many
+    from repro_torch.streamsim.taskbench import _hist_rows
+
+    runner = TaskBenchRunner(SWEEP_DATASETS, TASKBENCH_RANGES, scale=scale,
+                             seed=seed, device=device, backend="torch")
+    tasks = _bench_tasks()
+    t0 = time.perf_counter()
+    originals, sims = runner._prepare()
+    prepare_s = time.perf_counter() - t0
+    _zero_launches()
+    t0 = time.perf_counter()
+    reports = runner.run(tasks)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _read_launches()
+    cells = len(SWEEP_DATASETS) * len(TASKBENCH_RANGES)
+    expected = dict.fromkeys(launches, 0)
+    expected.update(pair_stats=len(tasks) * cells,
+                    trend_scan=len(tasks) * cells, metrics_fused=len(tasks))
+    _check_launches("taskbench", launches, expected, exact=True)
+    if len(reports) != len(tasks) * cells:
+        raise AssertionError(f"taskbench: {len(reports)} reports")
+    n_sim = {k: len(nsa(originals[k[0]], k[1]).t) for k in sims}
+    for r in reports:
+        if not r.speedup > 1.0 or \
+                r.records_original != len(originals[r.dataset].t) or \
+                r.records_simulated != n_sim[r.dataset, r.max_range]:
+            raise AssertionError(
+                f"taskbench/{r.task}/{r.dataset}/{r.max_range}: speedup "
+                f"{r.speedup}, records {r.records_original}, "
+                f"{r.records_simulated}")
+
+    # the detector's output series again (a pure function of the replayed
+    # buckets): the device chain against numpy on the same series
+    task = EventDetectTask(mode="threshold", threshold=4.0)
+    runs = {}
+    for ds in SWEEP_DATASETS:
+        key = (ds, "original")
+        runs[key] = replay_many({key: original_replay_stream(originals[ds])},
+                                task, runner.queue_size)[0][key]
+    for key in sims:
+        runs[key] = replay_many({key: sims[key]}, task,
+                                runner.queue_size)[0][key]
+    corr_err, numpy_fid = 0.0, {}
+    for ds, mr in sims:
+        series = [runs[ds, "original"]["task_output_counts"],
+                  runs[ds, mr]["task_output_counts"]]
+        c_t = trend_correlation_matrix(series, runner.window_s,
+                                       backend="torch", device=device)
+        c_n = trend_correlation_matrix(series, runner.window_s,
+                                       backend="numpy")
+        e = float(np.abs(c_t - c_n).max())
+        if not e <= STAT_TOL:
+            raise AssertionError(f"taskbench/{ds}/{mr}: trend correlation "
+                                 f"{c_t[0, 1]} vs numpy {c_n[0, 1]}")
+        corr_err = max(corr_err, e)
+        numpy_fid[ds, mr] = float(c_n[0, 1])
+    # the floor: every report, but a detector cell whose float64 numpy
+    # fidelity on the same series (the reference's own convention) is below
+    # it too, where the report must equal that value within STAT_TOL
+    below = []
+    for r in reports:
+        name = f"taskbench/{r.task}/{r.dataset}/{r.max_range}"
+        if r.task == task.name:
+            want = numpy_fid[r.dataset, r.max_range]
+            if not abs(r.trend_fidelity - want) <= STAT_TOL:
+                raise AssertionError(f"{name}: fidelity {r.trend_fidelity} "
+                                     f"vs numpy {want}")
+            if want < FIDELITY_FLOOR:
+                below.append(dict(task=r.task, dataset=r.dataset,
+                                  max_range=r.max_range,
+                                  trend_fidelity=r.trend_fidelity,
+                                  numpy_fidelity=want))
+                continue
+        if not r.trend_fidelity >= FIDELITY_FLOOR:
+            raise AssertionError(f"{name}: fidelity {r.trend_fidelity} "
+                                 f"below {FIDELITY_FLOOR}")
+    bins = [np.asarray(runs[k]["task_latency_bins"], np.int32) for k in sims]
+    _same_summaries("taskbench/latency",
+                    summarize_latencies(bins, backend="torch", device=device),
+                    summarize_latencies(bins, backend="numpy"))
+    hist = _hist_rows(bins, LATENCY_BINS, "torch", torch.device(device))
+    if not np.array_equal(hist, np.stack(
+            [np.bincount(b, minlength=LATENCY_BINS) for b in bins])):
+        raise AssertionError("taskbench: B3 latency histogram differs from "
+                             "np.bincount")
+
+    card = _card_line()
+    for r in reports:
+        print(f"  taskbench {r.task:>14} {r.dataset:>12} {r.max_range:>5}: "
+              f"speedup {r.speedup:.1f}x, fidelity {r.trend_fidelity:.4f} "
+              f"({card})")
+    return launches, {
+        "card": card, "datasets": list(SWEEP_DATASETS),
+        "max_ranges": list(TASKBENCH_RANGES), "scale": scale,
+        "prepare_s": prepare_s, "run_s": run_s,
+        "reports": [dict(r.to_dict()) for r in reports],
+        "numpy_check_task": task.name,
+        "trend_corr_max_abs_err_vs_numpy": corr_err,
+        "below_floor_in_numpy_too": below,
+        "latency_bins_checked": int(sum(len(b) for b in bins)),
+        "launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1975,10 +2160,13 @@ def main() -> int:
         llama_launches, llama = run_serve_llama3_path("cuda", MAIN_SEED,
                                                       Path(tmp))
         print(json.dumps({"serve_llama3": llama}), flush=True)
+    tb_launches, taskbench = run_taskbench_path("cuda", MAIN_SCALE, MAIN_SEED)
+    print(json.dumps({"taskbench": taskbench}), flush=True)
 
     by_path = {"run": run_launches, "run_many": sweep_launches,
                "run_many_chunked": chunked_launches, "multiday": md_launches,
-               "serve": serve_launches, "serve_llama3": llama_launches}
+               "serve": serve_launches, "serve_llama3": llama_launches,
+               "taskbench": tb_launches}
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
                           "src/repro/kernels/stream_sample.py:146",
@@ -2002,10 +2190,10 @@ def main() -> int:
                          "src/repro/kernels/flash_decode.py:93",
                          "serve_llama3"),
     }
-    extra = ("sim", "sweep", "chunk", "week", "S37", "max_scaled_err",
-             "records", "multiday", "fidelity", "serve", "max_abs_err_f32",
-             "max_abs_err_bf16", "library_max_abs_err", "library_nonzero_ms",
-             "kernels_per_call", "host_ms")
+    extra = ("sim", "sweep", "chunk", "week", "S37", "S2_K1024", "S2_K4096",
+             "max_scaled_err", "records", "multiday", "fidelity", "serve",
+             "max_abs_err_f32", "max_abs_err_bf16", "library_max_abs_err",
+             "library_nonzero_ms", "kernels_per_call", "host_ms")
     kernels = []
     for name, (source, tpu, path) in replaces.items():
         r = rows[name]

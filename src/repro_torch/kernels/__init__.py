@@ -10,7 +10,8 @@
 - :mod:`repro_torch.kernels.trend_scan`    — B4, per-row inclusive int32
   prefix sums of count series (three-phase scan), B7, the same with each
   row's running total carried in and out, and B5, per-row sums and the Gram
-  matrix of centered trends (one block per pair, f32, no TF32).
+  matrix of centered trends (output tiles times time splits in thread
+  block clusters, each byte read once, f32, no TF32).
 - :mod:`repro_torch.kernels.flash_decode`  — B8, GQA decode attention over
   a KV cache masked by lengths (split-KV flash-decoding, f32 accumulation).
 

@@ -204,5 +204,44 @@ class LookbackWorkspace:
             return self.words, self.counter, self.epoch
 
 
+class SplitWorkspace:
+    """The scratch of a kernel that folds per-split partials inside its one
+    launch (B5, B8) on one CUDA stream, grown when a call needs more: f32
+    partials (no initial value needed) and int32 tickets, zeroed once when
+    allocated; every call leaves the tickets at zero (the block that takes
+    a counter's last ticket resets it)."""
+
+    def __init__(self, device):
+        import torch
+        self.device = device
+        self.partials = torch.empty(0, dtype=torch.float32, device=device)
+        self.tickets = torch.zeros(0, dtype=torch.int32, device=device)
+
+    def take(self, n_partials: int, n_tickets: int):
+        """``(partials, tickets)`` holding at least the counts asked for."""
+        import torch
+        if self.partials.numel() < n_partials:
+            self.partials = torch.empty(
+                max(n_partials, 2 * self.partials.numel()),
+                dtype=torch.float32, device=self.device)
+        if self.tickets.numel() < n_tickets:
+            self.tickets = torch.zeros(
+                max(n_tickets, 2 * self.tickets.numel()), dtype=torch.int32,
+                device=self.device)
+        return self.partials, self.tickets
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    if index not in _sm_counts:
+        import torch
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())

@@ -73,11 +73,6 @@ def _limits():
             _build.bind("flash_decode", "flash_decode_max_group", [])())
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_size(B: int, Kh: int, S: int, sm_count: int, tile: int) -> int:
     """Cache positions per split: the whole cache in whole tiles of
     ``tile`` positions (the kernel's stage), halved (down to one tile)
@@ -88,29 +83,6 @@ def split_size(B: int, Kh: int, S: int, sm_count: int, tile: int) -> int:
     while chunk > tile and B * Kh * -(-S // chunk) < BLOCKS_PER_SM * sm_count:
         chunk = max(tile, chunk // 2 // tile * tile)
     return chunk
-
-
-class _Workspace:
-    """B8's scratch on one CUDA stream, grown when a call needs more: the
-    splits' partial ``(m, l)`` and ``acc`` (f32, no initial value needed)
-    and one ticket per (sequence, KV head), zeroed once when allocated;
-    every call leaves the tickets at zero."""
-
-    def __init__(self, device):
-        self.device = device
-        self.partials = torch.empty(0, dtype=torch.float32, device=device)
-        self.tickets = torch.zeros(0, dtype=torch.int32, device=device)
-
-    def take(self, n_partials: int, n_tickets: int):
-        if self.partials.numel() < n_partials:
-            self.partials = torch.empty(
-                max(n_partials, 2 * self.partials.numel()),
-                dtype=torch.float32, device=self.device)
-        if self.tickets.numel() < n_tickets:
-            self.tickets = torch.zeros(
-                max(n_tickets, 2 * self.tickets.numel()), dtype=torch.int32,
-                device=self.device)
-        return self.partials, self.tickets
 
 
 #: one workspace per (device, CUDA stream)
@@ -159,13 +131,15 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries")
     dev = q.device
-    chunk = split_size(B, Kh, S, _sm_count(dev.index or 0), _limits()[0])
+    chunk = split_size(B, Kh, S, _build.sm_count(dev.index or 0),
+                       _limits()[0])
     n_splits = -(-S // chunk)
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     n_ml = B * H * n_splits * 2
     p = _build.ptr
     with torch.cuda.device(dev):
-        ws, stream = _build.per_stream(_workspaces, dev, _Workspace)
+        ws, stream = _build.per_stream(_workspaces, dev,
+                                       _build.SplitWorkspace)
         partials, tickets = ws.take(n_ml + B * H * n_splits * D, B * Kh)
         ws_ml = partials.data_ptr()
         code = _entry()(0 if q.dtype == torch.float32 else 1, p(q), p(k),

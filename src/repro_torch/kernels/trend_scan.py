@@ -14,10 +14,13 @@ Counterparts of ``repro/kernels/trend_scan.py``:
   ``init = 0`` gives B4's prefix sums bit for bit).
 - :func:`pair_stats` (B5, ``pair_stats_pallas``): per-row sums and the
   Gram matrix ``x·xᵀ`` of ``(S, K)`` float32 trends. It launches
-  ``csrc/pair_stats.cu`` for CUDA tensors and runs :func:`pair_stats_plain`
-  for CPU tensors. The kernel accumulates in f32 without TF32; the plain
-  version computes in float64 and rounds once, so it is the oracle the
-  kernel is held to (within ``1e-4·sqrt(G[a,a]·G[b,b])``).
+  ``csrc/pair_stats.cu`` for CUDA tensors (one launch: output tiles times
+  splits of the time axis in thread block clusters, each input byte read
+  once, the splits' partials folded in a fixed order; :func:`pair_plan`
+  cuts the input) and runs :func:`pair_stats_plain` for CPU tensors. The
+  kernel accumulates in f32 without TF32; the plain version computes in
+  float64 and rounds once, so it is the oracle the kernel is held to
+  (within ``1e-4·sqrt(G[a,a]·G[b,b])``).
 
 Each wrapper adds one to its ``launches`` count where it launches its
 kernel, and nowhere else.
@@ -171,16 +174,71 @@ def pair_stats_plain(x):
             (x64 @ x64.T).to(torch.float32))
 
 
+#: B5's plan: at least this many bytes of input a block where a tile takes
+#: more than one cluster of splits
+PAIR_MIN_SPLIT_BYTES = 16 << 10
+
+
+def pair_plan(S: int, K: int, max_clusters: int, tile: int, cluster: int):
+    """How B5's kernel cuts an ``(S, K)`` input: ``(kc, n_splits,
+    pstride, tiles)`` -- columns a split (a multiple of 4), splits a tile
+    (a multiple of ``cluster``; splits past K are empty), floats a
+    workspace slot (the largest tile's partial: 16 a 4 x 4 micro-tile of
+    row groups, plus a diagonal tile's row sums) and output tiles (the
+    upper triangle of ``ceil(S / tile)`` row tiles). The grid holds at most
+    ``max_clusters`` clusters (what the card runs at once) and the
+    workspace is needed only with more than one cluster a tile."""
+    nt = -(-S // tile)
+    tiles = nt * (nt + 1) // 2
+    if nt == 1:
+        g = -(-S // 4)
+        pstride = 16 * g * (g + 1) // 2 + 4 * g
+        rows = S
+    else:
+        pstride = (tile // 4) ** 2 * 16
+        rows = 2 * tile
+    clusters = max(1, min(max_clusters // tiles,
+                          rows * K * 4 // (cluster * PAIR_MIN_SPLIT_BYTES)))
+    n = cluster * clusters
+    kc = -(-K // (4 * n)) * 4
+    return kc, n, pstride, tiles
+
+
 @functools.lru_cache(maxsize=None)
 def _pair_entry():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("pair_stats", "pair_stats_launch", [p, i, i, p, p, p])
+    return _build.bind("pair_stats", "pair_stats_launch",
+                       [p, i, i, i, i, i, p, p, p, p, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_limits():
+    """(rows of an output tile, splits of a cluster), read from the
+    library so the plan matches what the kernel indexes."""
+    return (_build.bind("pair_stats", "pair_stats_tile", [])(),
+            _build.bind("pair_stats", "pair_stats_cluster", [])())
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_max_clusters(index: int) -> int:
+    """Clusters of B5's kernel that device ``index`` runs at once."""
+    with torch.cuda.device(index):
+        n = _build.bind("pair_stats", "pair_stats_max_clusters", [])()
+    if n < 1:
+        raise RuntimeError(f"pair_stats: occupancy query failed ({n})")
+    return n
+
+
+#: B5's cluster sums and tickets, one workspace per (device, CUDA stream)
+_pair_workspaces = {}
 
 
 def pair_stats(x):
     """B5 on the trends' device: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor (same contract as
-    :func:`pair_stats_plain`). Each kernel launch adds one to
+    :func:`pair_stats_plain`, for any S >= 1 and K >= 0). One launch per
+    call (the splits' partials folded inside it, in an order fixed by the
+    shape, so two calls are bit-identical); each adds one to
     ``pair_stats.launches``."""
     if x.device.type == "cpu":
         return pair_stats_plain(x)
@@ -190,15 +248,22 @@ def pair_stats(x):
         raise ValueError(f"x must be a contiguous 2-D float32 tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
     S, k = x.shape
-    if S < 1 or S * (S + 1) // 2 >= 2 ** 31 or S * k >= 2 ** 31:
+    if S < 1 or S * S >= 2 ** 31 or S * k >= 2 ** 31:
         raise ValueError(f"batch {S} x {k} outside one launch")
     dev = x.device
+    tile, cluster = _pair_limits()
+    kc, n, pstride, tiles = pair_plan(
+        S, k, _pair_max_clusters(dev.index or 0), tile, cluster)
     sums = torch.empty((S, 1), dtype=torch.float32, device=dev)
     gram = torch.empty((S, S), dtype=torch.float32, device=dev)
     p = _build.ptr
     with torch.cuda.device(dev):
-        code = _pair_entry()(p(x), S, k, p(sums), p(gram),
-                             _build.stream_handle(dev))
+        ws, stream = _build.per_stream(_pair_workspaces, dev,
+                                       _build.SplitWorkspace)
+        if n > cluster:
+            ws.take(tiles * n // cluster * pstride, tiles)
+        code = _pair_entry()(p(x), S, k, kc, n, pstride, p(ws.partials),
+                             p(ws.tickets), p(sums), p(gram), stream)
     _build.check(code, "pair_stats")
     pair_stats.launches += 1
     return sums, gram

@@ -9,8 +9,9 @@ Supporting pieces: synthetic datasets, the stream store ("database"), the
 Kafka-analogue bounded queues, volatility and trend metrics, the sweep plan
 and engine, the controller, seeded fault injection
 (:mod:`repro_torch.streamsim.faults`) and the retry/breaker/deadline
-primitives (:mod:`repro_torch.streamsim.resilience`), and the stream-task
-contract with its serving workload (:mod:`repro_torch.streamsim.tasks`).
+primitives (:mod:`repro_torch.streamsim.resilience`), the stream tasks
+(:mod:`repro_torch.streamsim.tasks`) and the paper's task benchmark
+(:mod:`repro_torch.streamsim.taskbench`).
 """
 
 from repro_torch.streamsim.datasets import (  # noqa: F401
@@ -87,7 +88,21 @@ from repro_torch.streamsim.controller import Controller  # noqa: F401
 from repro_torch.streamsim.tasks import (  # noqa: F401
     LATENCY_BIN_US,
     LATENCY_BINS,
+    BucketTask,
+    ETLTask,
+    EventDetectTask,
     ServingTask,
     StreamTask,
+    WindowedStatsTask,
     output_series,
+)
+from repro_torch.streamsim.taskbench import (  # noqa: F401
+    FIDELITY_FLOOR,
+    PAPER_SPEEDUP,
+    LatencySummary,
+    TaskBenchRunner,
+    TaskReport,
+    original_replay_stream,
+    slice_stream,
+    summarize_latencies,
 )

@@ -27,7 +27,8 @@ from repro.kernels.trend_scan import (pair_stats_pallas,
                                      trend_scan_carry_pallas,
                                      trend_scan_pallas)
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.trend_scan import (pair_stats, pair_stats_plain,
+from repro_torch.kernels.trend_scan import (pair_plan, pair_stats,
+                                            pair_stats_plain,
                                             trend_scan,
                                             trend_scan_carry_plain,
                                             trend_scan_plain)
@@ -425,3 +426,198 @@ def test_lookback_model_matches_plain_and_pallas(n):
                                        interpret=True)
     np.testing.assert_array_equal(psum, np.asarray(p_j)[:, :n])
     np.testing.assert_array_equal(tail, np.asarray(t_j))
+
+
+# ------------------------------------------- B5's tile and split mapping
+# The CUDA kernel cannot run here; its index math can. The model below
+# follows csrc/pair_stats.cu block by block and thread by thread: the
+# (tile, split) grid of pair_plan, each block's staged rows (zero past S)
+# and its stages of W columns (zero past the split), each thread's 4 x 4
+# micro-tile and k-lane, the butterfly over a micro-tile's lanes and the
+# warp-order sum, the partial's layout (16 values a micro-tile, then a
+# diagonal tile's row sums), the fold in each cluster of splits (rank
+# order) and across the clusters (cluster order), and the tile's write
+# (its square or its rectangle and the mirrored one, a lower-half cell
+# from the upper micro-tile entry). It computes in float64, so a column
+# taken twice or missed shows as an error far above rounding; every cell
+# of the Gram matrix and every row sum must be written exactly once.
+_PAIR_OUT_TILE = 64       # kTile
+_PAIR_STAGE_FLOATS = 8192  # kStageFloats
+_PAIR_THREADS = 256       # kThreads
+_PAIR_CLUSTER = 8         # kCluster
+
+
+def _tri_decode(m, n):
+    i = 0
+    while m >= n - i:
+        m -= n - i
+        i += 1
+    return i, i + m
+
+
+def _pair_block(x, tile, nt, split, kc):
+    """One block's partial: ``(plan, part float64 (psize,))``."""
+    S, K = x.shape
+    T = _PAIR_OUT_TILE
+    ti, tj = _tri_decode(tile, nt)
+    diag = ti == tj
+    ra = min(T, S - ti * T)
+    rb = ra if diag else min(T, S - tj * T)
+    ga, gb = -(-ra // 4), -(-rb // 4)
+    rows_a = 4 * ga
+    n_micro = ga * (ga + 1) // 2 if diag else ga * gb
+    n_kl = 1
+    while 2 * n_kl * n_micro <= _PAIR_THREADS:
+        n_kl *= 2
+    R = rows_a if diag else rows_a + 4 * gb
+    micros = [_tri_decode(m, ga) if diag else divmod(m, gb)
+              for m in range(n_micro)]
+    plan = dict(ti=ti, tj=tj, diag=diag, ga=ga, n_micro=n_micro)
+    # the staged slab, zero past S (padding rows) and past the split
+    lo, hi = split * kc, min(K, split * kc + kc)
+    length = max(hi - lo, 0)
+    slab = np.zeros((R, length))
+    for r in range(R):
+        row = (ti * T + r if r < ra else -1) if r < rows_a else \
+            (tj * T + r - rows_a if r - rows_a < rb else -1)
+        if row >= 0:
+            slab[r] = x[row, lo:hi]
+    # the columns each k-lane takes, stage by stage
+    quantum = 4 * n_kl
+    w_max = max(1, _PAIR_STAGE_FLOATS // (R * quantum)) * quantum
+    assert R * (w_max + 4) <= _PAIR_STAGE_FLOATS + 4 * 2 * T
+    n_st = -(-length // w_max)
+    W = -(-(-(-length // n_st)) // quantum) * quantum if n_st else quantum
+    assert W <= w_max and W % quantum == 0
+    take = np.zeros((n_kl, length))
+    for t in range(n_st):
+        for kl in range(n_kl):
+            for i in range(W // quantum):
+                c = t * W + 4 * (kl + n_kl * i)
+                take[kl, c:min(c + 4, length)] += 1
+    # each thread's 16 products and 4 row sums
+    v = np.zeros((_PAIR_THREADS, 20))
+    for t in range(_PAIR_THREADS):
+        m, kl = divmod(t, n_kl)
+        if m >= n_micro:
+            continue
+        ma, mb = micros[m]
+        rb0 = 4 * mb if diag else rows_a + 4 * mb
+        a = slab[4 * ma:4 * ma + 4] * take[kl]
+        v[t, :16] = (a @ slab[rb0:rb0 + 4].T).reshape(16)
+        if diag and ma == mb:
+            v[t, 16:] = a.sum(axis=1)
+    # butterfly within the warp, then the warps of a micro-tile in order
+    lanes = np.arange(_PAIR_THREADS)
+    o = 1
+    while o < min(n_kl, 32):
+        v = v + v[lanes ^ o]
+        o *= 2
+    nw = max(1, n_kl // 32)
+    red = {}
+    for t in range(_PAIR_THREADS):
+        m, kl = divmod(t, n_kl)
+        if m < n_micro and kl % 32 == 0:
+            red[m, kl // 32] = v[t]
+    part = []
+    for m in range(n_micro):
+        tot = red[m, 0].copy()
+        for w in range(1, nw):
+            tot += red[m, w]
+        part.append(tot)
+    vals = [part[m][i] for m in range(n_micro) for i in range(16)]
+    if diag:
+        vals += [part[ga * g - g * (g - 1) // 2][16 + r]
+                 for g in range(ga) for r in range(4)]
+    plan["micros"] = micros
+    return plan, np.array(vals)
+
+
+def _pair_model(x, max_clusters):
+    """Every block of one call, folded and written as the kernel does:
+    ``(sums, gram, writes per cell, writes per row sum)``."""
+    S, K = x.shape
+    T = _PAIR_OUT_TILE
+    kc, n, pstride, tiles = pair_plan(S, K, max_clusters, T, _PAIR_CLUSTER)
+    nt = -(-S // T)
+    assert tiles == nt * (nt + 1) // 2
+    assert n % _PAIR_CLUSTER == 0 and kc % 4 == 0 and kc * n >= K
+    sums = np.full(S, np.nan)
+    gram = np.full((S, S), np.nan)
+    cell_writes = np.zeros((S, S), int)
+    sum_writes = np.zeros(S, int)
+
+    def write_tile(pl, part):
+        ti, tj, ga = pl["ti"], pl["tj"], pl["ga"]
+        ra = min(T, S - ti * T)
+        cols = ra if pl["diag"] else min(T, S - tj * T)
+        gb = -(-cols // 4)
+        index = {mm: m for m, mm in enumerate(pl["micros"])}
+        for a in range(ra):
+            for b in range(cols):
+                g0, g1, r, s = a // 4, b // 4, a % 4, b % 4
+                if pl["diag"] and (g0 > g1 or (g0 == g1 and r > s)):
+                    g0, g1, r, s = g1, g0, s, r
+                m = index[g0, g1] if pl["diag"] else g0 * gb + g1
+                assert m == index[g0, g1]
+                v = part[16 * m + 4 * r + s]
+                cells = [(ti * T + a, tj * T + b)]
+                if not pl["diag"]:
+                    cells.append((tj * T + b, ti * T + a))
+                for cell in cells:
+                    gram[cell] = v
+                    cell_writes[cell] += 1
+        if pl["diag"]:
+            for a in range(ra):
+                sums[ti * T + a] = part[16 * pl["n_micro"] + a]
+                sum_writes[ti * T + a] += 1
+
+    for tile in range(tiles):
+        blocks = [_pair_block(x, tile, nt, s, kc) for s in range(n)]
+        pl = blocks[0][0]
+        psize = len(blocks[0][1])
+        assert psize <= pstride
+        cluster_sums = []
+        for c in range(0, n, _PAIR_CLUSTER):
+            tot = blocks[c][1].copy()
+            for r in range(1, _PAIR_CLUSTER):
+                tot += blocks[c + r][1]
+            cluster_sums.append(tot)
+        tot = cluster_sums[0].copy()
+        for other in cluster_sums[1:]:
+            tot += other
+        write_tile(pl, tot)
+    return sums, gram, cell_writes, sum_writes
+
+
+@pytest.mark.parametrize("S,K,max_clusters", [
+    (1, 0, 32), (1, 1, 32), (2, 1024, 32), (2, 4096, 32), (2, 87_040, 32),
+    (6, 4096, 32), (6, 87_040, 32), (37, 1025, 32), (37, 4096, 32),
+    (37, 86_528, 32), (64, 4096, 32), (65, 4096, 32), (130, 1025, 4),
+    (130, 4096, 32)])
+def test_pair_stats_model_matches_plain_and_pallas(S, K, max_clusters):
+    """B5's one-launch mapping, modelled: every (a, b) with a <= b gets
+    every column exactly once, every cell of the Gram matrix and every row
+    sum is written once;
+    the result equals the float64 product and, within B5's tolerance,
+    the plain version and the JAX Pallas kernel (interpret mode, where K
+    is a multiple of its 512-wide tile)."""
+    x = np.random.default_rng(S * 1000 + K).normal(0.0, 2.0, (S, K))
+    x = x.astype(np.float32)
+    sums, gram, cell_writes, sum_writes = _pair_model(
+        x.astype(np.float64), max_clusters)
+    np.testing.assert_array_equal(cell_writes, np.ones((S, S), int))
+    np.testing.assert_array_equal(sum_writes, np.ones(S, int))
+    x64 = x.astype(np.float64)
+    g64 = x64 @ x64.T
+    scale = np.sqrt(np.outer(np.diag(g64), np.diag(g64))) + 1e-30
+    assert (np.abs(gram - g64) <= 1e-12 * scale).all()
+    np.testing.assert_allclose(sums, x64.sum(1), rtol=0,
+                               atol=1e-9 * max(1.0, np.sqrt(K)))
+    s_p, g_p = pair_stats(torch.from_numpy(x))
+    assert (np.abs(g_p.numpy() - gram) <= 1e-4 * scale).all()
+    if K and K % 512 == 0:
+        s_j, g_j = pair_stats_pallas(jnp.asarray(x), interpret=True)
+        assert (np.abs(np.asarray(g_j) - gram) <= 1e-4 * scale).all()
+        np.testing.assert_allclose(np.asarray(s_j)[:, 0], sums, rtol=1e-4,
+                                   atol=1e-3 * max(1.0, np.sqrt(K)))
