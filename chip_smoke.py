@@ -110,10 +110,34 @@ Phases, each of which raises on failure (nothing catches it):
    and the fidelity floor (0.75) on every report but a detector cell whose
    float64 numpy fidelity is itself below it (held to that value instead,
    and listed);
-11. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
-   ``multiday``, ``serve``, ``serve_llama3``, ``taskbench`` and
-   ``kernels`` JSON lines and, last, the ``{"ok": true, "device": ...}``
-   line.
+11. drive the public API on the userbehavior day at max_range 3600:
+   ``ops.stream_sample``, ``compact_mask``, ``bucket_hist`` and
+   ``volatility_stats`` held to ``stream_sample_ref``, ``compact_plain``,
+   ``np.bincount`` and the float64 moments (1e-5 relative), then
+   ``nsa_batched`` over the three datasets and ``nsa_sweep`` over the
+   3 x 6 grid held bit for bit to ``nsa(..., backend="numpy")``; launches
+   exactly B1 = B2 = 3 and B3 = 1 (``API_LAUNCHES``);
+12. drive the sweep service: two participant processes on the one card
+   (``chip_smoke.py --service-worker``, a two-rank ``gloo`` group that
+   only supplies the topology) each run ``Controller(fresh,
+   device="cuda").run_many(<the grid>, ..., backend="torch",
+   service=True)``; both return the 18 reports, none poisoned, the
+   scenarios they computed split the grid, rows and stored sims equal
+   phase 5's and statistics within 1e-3, the merged matrices within 1e-9
+   of phase 5's numpy matrices with provenance on every row; each
+   participant launches B1 = B2 = its batches and B3 twice that, and
+   loads the kernels phase 2 built without rebuilding them;
+13. drive the static plan over two hosts, ``run_many(..., n_hosts=2,
+   host_index=0 or 1)`` alternately in a fresh shared store until the
+   grid is covered (five runs): launches exact per run (B1, B2 once for
+   a computed slice, B3 for it and for the originals, B4 = B5 = the
+   run's local matrices), the last run's merged matrices full, with
+   provenance from host0 and host1, within 1e-9 of phase 5's numpy
+   matrices;
+14. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
+   ``multiday``, ``serve``, ``serve_llama3``, ``taskbench``, ``api``,
+   ``service``, ``multihost`` and ``kernels`` JSON lines and, last, the
+   ``{"ok": true, "device": ...}`` line.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -1247,15 +1271,18 @@ def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
     return {"flash_decode": timed}
 
 
-def _same_sim(store_a, store_b, key: str) -> None:
-    a, b = store_a.get(key), store_b.get(key)
+def _same_stream(name: str, a, b) -> None:
+    """Two streams equal column for column, byte for byte."""
     cols_a = {"t": a.t, "scale_stamp": a.scale_stamp, **a.payload}
     cols_b = {"t": b.t, "scale_stamp": b.scale_stamp, **b.payload}
     if cols_a.keys() != cols_b.keys() or any(
             cols_a[k].dtype != cols_b[k].dtype or
             cols_a[k].tobytes() != cols_b[k].tobytes() for k in cols_a):
-        raise AssertionError(f"stored sim {key} differs between torch and "
-                             "numpy")
+        raise AssertionError(f"{name} differs from the reference")
+
+
+def _same_sim(store_a, store_b, key: str) -> None:
+    _same_stream(f"stored sim {key}", store_a.get(key), store_b.get(key))
 
 
 def _same_report(rep, ref) -> None:
@@ -1466,7 +1493,8 @@ def run_sweep_path(device: str, scale: float, seed: int, workdir: Path):
         "numpy_produce_s": max(r.produce_s for r in refs),
         "numpy_fidelity_s": numpy_fid_s,
     }
-    return launches, sweep, (reps, ctl.last_fidelity)
+    return launches, sweep, (reps, ctl.last_fidelity,
+                             ref_ctl.last_fidelity)
 
 
 def _stat_close(name, got: float, want: float, rtol: float) -> None:
@@ -1475,9 +1503,10 @@ def _stat_close(name, got: float, want: float, rtol: float) -> None:
         raise AssertionError(f"{name}: {got} vs {want} beyond {rtol}")
 
 
-def _same_fidelity(name, got, want, n_matrices: int) -> float:
+def _same_fidelity(name, got, want, n_matrices: int,
+                   tol: float = STAT_TOL) -> float:
     """Fidelity matrices with the same labels and NaN pattern, entries
-    within STAT_TOL; returns the largest difference."""
+    within ``tol``; returns the largest difference."""
     if len(got) != n_matrices or len(want) != n_matrices:
         raise AssertionError(f"{name}: one fidelity matrix per max_range "
                              "expected")
@@ -1491,7 +1520,7 @@ def _same_fidelity(name, got, want, n_matrices: int) -> float:
                                  "pattern differ")
         live = ~np.isnan(a)
         worst = max(worst, float(np.abs(a - b)[live].max(initial=0.0)))
-    if worst > STAT_TOL:
+    if worst > tol:
         raise AssertionError(f"{name}: fidelity {worst} from the reference")
     return worst
 
@@ -1509,12 +1538,13 @@ def run_chunked_path(device: str, scale: float, seed: int, workdir: Path,
     """Phase 6: the paper's grid through the chunked pipeline in a fresh
     store, launch counts zeroed just before and read just after, held to
     phase 5's monolithic torch sweep (``mono`` = its reports and fidelity
-    matrices, its store under ``workdir/sweep_torch``)."""
+    matrices, then its numpy matrices; its store under
+    ``workdir/sweep_torch``)."""
     import torch
 
     from repro_torch.streamsim import Controller, StreamStore
 
-    mono_reps, mono_fid = mono
+    mono_reps, mono_fid = mono[:2]
     ctl = Controller(str(workdir / "chunked_torch"), device=device)
     consumer = _SweepConsumer()
     torch.cuda.reset_peak_memory_stats()
@@ -2066,6 +2096,381 @@ def run_taskbench_path(device: str, scale: float, seed: int):
         "launches": launches}
 
 
+# ------------------------------------------------ phase 11: the public API
+#: launches of the API phase: B1 once each for ``ops.stream_sample``,
+#: ``nsa_batched`` and ``nsa_sweep``; B2 once each for ``ops.compact_mask``,
+#: ``nsa_batched`` (all three streams in one call, where the reference
+#: compacts each stream on its own) and ``nsa_sweep`` (all 18 rows in one
+#: call); B3 once for ``ops.bucket_hist``. ``stream_sample_ref`` and
+#: ``volatility_stats`` are plain PyTorch and launch nothing.
+API_LAUNCHES = {"stream_sample": 3, "compact": 3, "metrics_fused": 1}
+
+
+def run_api_path(device: str, scale: float, seed: int):
+    """Phase 11: the 1-D ``ops`` wrappers on the userbehavior day at
+    max_range 3600 (``stream_sample``, ``compact_mask``, ``bucket_hist``,
+    ``volatility_stats``) held to ``stream_sample_ref``, ``compact_plain``,
+    ``np.bincount`` and the float64 moments, then ``nsa_batched`` over the
+    three datasets at 3600 and ``nsa_sweep`` over the paper's 3 x 6 grid
+    held bit for bit to ``nsa(..., backend="numpy")``. Launches exactly
+    :data:`API_LAUNCHES`; returns ``(launches, summary)``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.compact import compact_plain
+    from repro_torch.streamsim import nsa, nsa_batched, nsa_sweep
+    from repro_torch.streamsim.nsa import _multiple
+
+    streams = _streams(scale, seed)[0]
+    ub = streams[MAIN_DATASET]
+    mult = _multiple(len(ub), ub.time_range, MAIN_RANGE, "time")
+    wall = {}
+
+    def timed(name, fn):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    _zero_launches()
+    ss, keep = timed("stream_sample", lambda: ops.stream_sample(
+        ub.t, MAIN_RANGE, mult, device=device))
+    idx, total = timed("compact_mask", lambda: ops.compact_mask(keep))
+    kept = ss[idx[:total].long()].cpu().numpy()
+    hist = timed("bucket_hist", lambda: ops.bucket_hist(
+        kept, MAIN_RANGE, device=device))
+    q = hist.cpu().numpy()
+    vol = timed("volatility_stats", lambda: ops.volatility_stats(
+        q, device=device))
+    batched = timed("nsa_batched", lambda: nsa_batched(
+        streams, MAIN_RANGE, backend="torch", device=device))
+    swept = timed("nsa_sweep", lambda: nsa_sweep(
+        {d: streams[d] for d in SWEEP_DATASETS}, SWEEP_RANGES,
+        backend="torch", device=device))
+    launches = _read_launches()
+    expected = dict.fromkeys(launches, 0)
+    expected.update(API_LAUNCHES)
+    _check_launches("the API phase", launches, expected, exact=True)
+
+    ref_ss, ref_keep = ops.stream_sample_ref(ub.t, MAIN_RANGE, mult,
+                                             device=device)
+    _exact("api stream_sample ss", ss, ref_ss)
+    _exact("api stream_sample keep", keep, ref_keep)
+    ref_idx, ref_tot = compact_plain(keep[None, :])
+    _exact("api compact_mask", idx, ref_idx[0])
+    if total != int(ref_tot[0]):
+        raise AssertionError(f"api compact_mask: total {total} vs "
+                             f"{int(ref_tot[0])}")
+    if not np.array_equal(q, np.bincount(kept, minlength=MAIN_RANGE)):
+        raise AssertionError("api bucket_hist differs from np.bincount")
+    q64 = q.astype(np.float64)
+    want = (q64.mean(), q64.var(), q64.std())
+    got = tuple(float(x) for x in vol)
+    for name, g, w in zip(("average", "variance", "std"), got, want):
+        _stat_close(f"api volatility_stats {name}", g, w, MOMENT_RTOL)
+    sim = nsa(ub, MAIN_RANGE, backend="numpy")
+    if total != len(sim.t) or not np.array_equal(kept, sim.scale_stamp):
+        raise AssertionError("api kept stamps differ from numpy NSA")
+    for d in streams:
+        _same_stream(f"api nsa_batched {d}", batched[d],
+                     nsa(streams[d], MAIN_RANGE, backend="numpy"))
+    for d in SWEEP_DATASETS:
+        for mr in SWEEP_RANGES:
+            _same_stream(f"api nsa_sweep {d}/{mr}", swept[(d, mr)],
+                         nsa(streams[d], mr, backend="numpy"))
+    return launches, {
+        "dataset": MAIN_DATASET, "max_range": MAIN_RANGE, "scale": scale,
+        "records": len(ub), "kept": total,
+        "volatility": dict(zip(("average", "variance", "std"), got)),
+        "max_volatility_rel_diff": max(abs(g - w) / abs(w)
+                                       for g, w in zip(got, want)),
+        "nsa_batched_streams": len(batched), "nsa_sweep_scenarios":
+        len(swept), "wall_s": wall, "launches": launches,
+        "tolerances": {"integers": "bit-equal", "volatility_rel":
+                       MOMENT_RTOL, "nsa": "byte-equal to numpy"}}
+
+
+# --------------------------------------------- phase 12: the sweep service
+#: the service phase's lease TTL, far above a full-scale batch's time (a
+#: few seconds), so no lease expires and every scenario runs exactly once
+SERVICE_LEASE_TTL_S = 120.0
+SERVICE_DEADLINE_S = 300.0
+SERVICE_WORKER_TIMEOUT_S = 480.0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def service_worker(rank: int, port: int, store_dir: str, out: str,
+                   device: str, scale: float, seed: int) -> None:
+    """One participant of phase 12 (run as ``chip_smoke.py
+    --service-worker RANK PORT STORE OUT DEVICE SCALE SEED``): joins a
+    two-rank ``gloo`` group (which supplies only the topology), drives
+    ``Controller(store, device=DEVICE).run_many(..., service=True)`` with
+    its launch counts zeroed just before and read just after, and writes
+    its reports, merged fidelity, launches and batches to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed import process_topology
+    from repro_torch.kernels import _build
+    from repro_torch.streamsim import Controller
+    from repro_torch.streamsim import service as svc_mod
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        # the libraries the parent built are loaded, not rebuilt (CPU
+        # tensors run the plain versions and load none)
+        unbuilt = [n for n in _build.kernel_names()
+                   if device != "cpu" and not _build._target(n).exists()]
+        batches, poison = [], []
+        run_batch = svc_mod.SweepService.run_batch
+        finalize = svc_mod.SweepService.finalize
+
+        def spy_batch(self, leases, *a, **kw):
+            batches.append(sorted(leases))
+            return run_batch(self, leases, *a, **kw)
+
+        def spy_finalize(self, *a, **kw):
+            poison.extend(self.store.list_markers(self.ns_poison))
+            return finalize(self, *a, **kw)
+
+        svc_mod.SweepService.run_batch = spy_batch
+        svc_mod.SweepService.finalize = spy_finalize
+        ctl = Controller(store_dir, metrics_dir=f"{store_dir}/_metrics{rank}",
+                         device=device)
+        consumer = _SweepConsumer()
+        _zero_launches()
+        t0 = time.perf_counter()
+        reps = ctl.run_many(SWEEP_DATASETS, SWEEP_RANGES, consumer,
+                            scale=scale, seed=seed, backend="torch",
+                            service=True, lease_ttl_s=SERVICE_LEASE_TTL_S,
+                            service_poll_s=0.1,
+                            service_deadline_s=SERVICE_DEADLINE_S)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _read_launches()
+        mine = sorted(f"{m['dataset']}__{m['max_range']}"
+                      for m in ctl.load_metrics())
+        payload = {
+            "rank": rank, "topology": list(process_topology()),
+            "device": device, "wall_s": wall_s,
+            "launches": launches, "batches": batches, "mine": mine,
+            "poison_markers": poison, "unbuilt_before": unbuilt,
+            "rebuilt": sorted(_build.build_logs),
+            "consumer_records": consumer.records,
+            "reports": [r.to_json() for r in reps],
+            "fidelity": [f.to_json() for f in ctl.last_fidelity]}
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(payload, f)
+
+
+def _merged_fidelity(name, got, mono) -> float:
+    """Merged matrices: full, provenance on every row, within 1e-9 of
+    phase 5's numpy matrices (the same reduction over the same exact
+    count rows) and STAT_TOL of its torch matrices; returns the largest
+    difference from numpy."""
+    for f in got:
+        if not f.provenance or len(f.provenance) != len(f.labels) or \
+                not all(f.provenance):
+            raise AssertionError(f"{name} {f.max_range}: provenance "
+                                 f"{f.provenance}")
+    _same_fidelity(f"{name} vs torch", got, mono[1], len(SWEEP_RANGES))
+    return _same_fidelity(f"{name} vs numpy", got, mono[2],
+                          len(SWEEP_RANGES), tol=1e-9)
+
+
+def run_service_path(device: str, scale: float, seed: int, workdir: Path,
+                     mono):
+    """Phase 12: two participant processes on the one card, in a fresh
+    store, serve the paper's grid through ``run_many(service=True)``
+    (:func:`service_worker`). Checks: 18 reports each, all ``"ok"``, no
+    poison marker; the scenarios they computed disjoint and covering the
+    grid; rows and stored sims equal to phase 5's, statistics within 1e-3;
+    the merged matrices within 1e-9 of phase 5's numpy matrices and 1e-3
+    of its torch matrices, provenance on every row; per participant B1 =
+    B2 = its batches and B3 = twice them (the batch's sims and the
+    originals' report statistics), nothing else; the kernels loaded, not
+    rebuilt. Returns ``(summed launches, summary)``."""
+    from repro_torch.streamsim import (FidelityReport, SimulationReport,
+                                       StreamStore)
+
+    mono_reps = mono[0]
+    store_dir = workdir / "service"
+    port = _free_port()
+    procs, outs = [], [workdir / f"service{r}.json" for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--service-worker", str(rank), str(port), str(store_dir),
+                 str(outs[rank]), device, repr(scale), str(seed)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = [p.communicate(timeout=SERVICE_WORKER_TIMEOUT_S)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"service participant {rank} failed:\n"
+                                 f"{log[-4000:]}")
+    parts = [json.loads(o.read_text()) for o in outs]
+    grid = [(d, mr) for d in SWEEP_DATASETS for mr in SWEEP_RANGES]
+    names = {f"{d}__{mr}" for d, mr in grid}
+    st = StreamStore(store_dir)
+    st_ref = StreamStore(workdir / "sweep_numpy")
+    for (d, mr) in grid:
+        _same_sim(st, st_ref, f"{d}__sim{mr}")
+    fid_err = trend_err = 0.0
+    total = dict.fromkeys(parts[0]["launches"], 0)
+    for part in parts:
+        rank = part["rank"]
+        if part["topology"][:2] != [rank, 2] or part["unbuilt_before"] or \
+                part["rebuilt"] or part["poison_markers"]:
+            raise AssertionError(f"service participant {rank}: topology "
+                                 f"{part['topology']}, unbuilt "
+                                 f"{part['unbuilt_before']}, rebuilt "
+                                 f"{part['rebuilt']}, poison "
+                                 f"{part['poison_markers']}")
+        reps = [SimulationReport.from_json(r) for r in part["reports"]]
+        if [(r.dataset, r.max_range) for r in reps] != grid:
+            raise AssertionError(f"service participant {rank}: reports out "
+                                 "of grid order")
+        for rep, ref in zip(reps, mono_reps):
+            if rep.status != "ok":
+                raise AssertionError(f"service {rep.dataset}/"
+                                     f"{rep.max_range}: {rep.status} "
+                                     f"({rep.failure})")
+            _same_report(rep, ref)
+            trend_err = max(trend_err, abs(rep.trend_corr - ref.trend_corr))
+        fid = [FidelityReport(**dict(f, trend_corr=[
+            [np.nan if v is None else v for v in row]
+            for row in f["trend_corr"]])) for f in part["fidelity"]]
+        fid_err = max(fid_err, _merged_fidelity(f"service {rank}", fid,
+                                                mono))
+        n = len(part["batches"])
+        if sorted(sum(part["batches"], [])) != part["mine"] or any(
+                len(b) != 1 for b in part["batches"]):
+            raise AssertionError(f"service participant {rank}: batches "
+                                 f"{part['batches']} vs {part['mine']}")
+        expected = dict.fromkeys(part["launches"], 0)
+        expected.update(stream_sample=n, compact=n, metrics_fused=2 * n)
+        _check_launches(f"service participant {rank}", part["launches"],
+                        expected, exact=True)
+        for k, v in part["launches"].items():
+            total[k] += v
+    mine = [set(p["mine"]) for p in parts]
+    if mine[0] & mine[1] or mine[0] | mine[1] != names:
+        raise AssertionError(f"service: computed sets {mine} are not a "
+                             "partition of the grid")
+    markers = store_dir / "_markers"
+    if markers.exists() and [x for x in markers.iterdir()
+                             if not x.name.startswith(".")]:
+        raise AssertionError("service: markers left behind")
+    return total, {
+        "participants": [{
+            "rank": p["rank"], "wall_s": p["wall_s"],
+            "scenarios": p["mine"], "batches": len(p["batches"]),
+            "launches": {k: v for k, v in p["launches"].items() if v}}
+            for p in parts],
+        "wall_s": wall_s, "card": _card_line(),
+        "lease_ttl_s": SERVICE_LEASE_TTL_S, "scenarios": len(grid),
+        "max_fidelity_abs_diff_vs_numpy": fid_err,
+        "max_trend_corr_abs_diff_vs_torch": trend_err,
+        "tolerances": {"fidelity_vs_numpy": 1e-9, "stats": STAT_TOL,
+                       "sims": "byte-equal"}}
+
+
+# --------------------------------------- phase 13: static multi-host plans
+MULTIHOST_RUNS = 6
+
+
+def run_multihost_path(device: str, scale: float, seed: int, workdir: Path,
+                       mono):
+    """Phase 13: the static plan with ``n_hosts=2`` in a fresh shared
+    store, host 0 and host 1 run alternately in this process until the
+    grid is covered (each run plans what is still missing and takes its
+    strided half). Each run launches B1 and B2 once when it computed a
+    slice, B3 for that slice and once for the originals and cache hits,
+    and B4 and B5 once for each local matrix (a max_range among its
+    reports); the last run's merged matrices hold every label, with
+    provenance from host0 and host1, within 1e-9 of phase 5's numpy
+    matrices. Returns ``(summed launches, summary)``."""
+    from repro_torch.streamsim import Controller
+
+    mono_reps = mono[0]
+    shared = workdir / "multihost"
+    grid = [(d, mr) for d in SWEEP_DATASETS for mr in SWEEP_RANGES]
+    done, runs, total = {}, [], None
+    ctl = None
+    for i in range(MULTIHOST_RUNS):
+        host = i % 2
+        ctl = Controller(str(shared), metrics_dir=str(workdir / f"mh{i}"),
+                         device=device)
+        _zero_launches()
+        t0 = time.perf_counter()
+        reps = ctl.run_many(SWEEP_DATASETS, SWEEP_RANGES, _SweepConsumer(),
+                            scale=scale, seed=seed, backend="torch",
+                            n_devices=1, host_index=host, n_hosts=2)
+        run_s = time.perf_counter() - t0
+        launches = _read_launches()
+        plan = ctl.last_result.plan
+        computed = len(plan.local_missing)
+        local_mrs = {r.max_range for r in reps}
+        expected = dict.fromkeys(launches, 0)
+        expected.update(stream_sample=int(computed > 0),
+                        compact=int(computed > 0),
+                        metrics_fused=int(computed > 0) + 1,
+                        trend_scan=len(local_mrs), pair_stats=len(local_mrs))
+        _check_launches(f"multihost run {i} (host {host})", launches,
+                        expected, exact=True)
+        total = launches if total is None else {
+            k: total[k] + v for k, v in launches.items()}
+        for r in reps:
+            done[(r.dataset, r.max_range)] = r
+        runs.append({"host": host, "run_s": run_s, "computed": computed,
+                     "reports": len(reps),
+                     "merged": all(f.provenance for f in
+                                   ctl.last_fidelity) and
+                     len(ctl.last_fidelity) == len(SWEEP_RANGES),
+                     "launches": {k: v for k, v in launches.items() if v}})
+        if len(done) == len(grid):
+            break
+    if len(done) != len(grid):
+        raise AssertionError(f"multihost: {len(done)} of {len(grid)} "
+                             f"scenarios after {MULTIHOST_RUNS} runs")
+    for sc, ref in zip(grid, mono_reps):
+        _same_report(done[sc], ref)
+    fid_err = _merged_fidelity("multihost", ctl.last_fidelity, mono)
+    who = {w for f in ctl.last_fidelity for w in f.provenance}
+    if not {"host0", "host1"} <= who:
+        raise AssertionError(f"multihost: provenance {who}")
+    return total, {"runs": runs, "scenarios": len(grid),
+                   "provenance": sorted(who), "card": _card_line(),
+                   "max_fidelity_abs_diff_vs_numpy": fid_err,
+                   "tolerances": {"fidelity_vs_numpy": 1e-9,
+                                  "stats": STAT_TOL}}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2160,13 +2565,23 @@ def main() -> int:
         llama_launches, llama = run_serve_llama3_path("cuda", MAIN_SEED,
                                                       Path(tmp))
         print(json.dumps({"serve_llama3": llama}), flush=True)
-    tb_launches, taskbench = run_taskbench_path("cuda", MAIN_SCALE, MAIN_SEED)
-    print(json.dumps({"taskbench": taskbench}), flush=True)
+        tb_launches, taskbench = run_taskbench_path("cuda", MAIN_SCALE,
+                                                    MAIN_SEED)
+        print(json.dumps({"taskbench": taskbench}), flush=True)
+        api_launches, api = run_api_path("cuda", MAIN_SCALE, MAIN_SEED)
+        print(json.dumps({"api": api}), flush=True)
+        svc_launches, service = run_service_path(
+            "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp), mono)
+        print(json.dumps({"service": service}), flush=True)
+        mh_launches, multihost = run_multihost_path(
+            "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp), mono)
+        print(json.dumps({"multihost": multihost}), flush=True)
 
     by_path = {"run": run_launches, "run_many": sweep_launches,
                "run_many_chunked": chunked_launches, "multiday": md_launches,
                "serve": serve_launches, "serve_llama3": llama_launches,
-               "taskbench": tb_launches}
+               "taskbench": tb_launches, "api": api_launches,
+               "service": svc_launches, "multihost": mh_launches}
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
                           "src/repro/kernels/stream_sample.py:146",
@@ -2216,4 +2631,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--service-worker"]:
+        rank, port, store, out, dev, scale, seed = sys.argv[2:9]
+        service_worker(int(rank), int(port), store, out, dev, float(scale),
+                       int(seed))
+        sys.exit(0)
     sys.exit(main())

@@ -1,8 +1,9 @@
 """Public wrappers over the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py`` (the NSA, compaction, metrics,
-trend-scan, S×S trend-correlation, pairwise-trend, chunk-carry and
-flash-decode parts).
+Counterpart of ``repro/kernels/ops.py``: every name of its ``__all__``
+(the batched and 1-D NSA, compaction and metrics wrappers, volatility
+moments, trend scans, S×S trend correlation, pairwise trends, chunk
+carries, flash decode and the device predicates).
 Each op builds the host-side tables and layouts,
 moves them to the requested device and calls a kernel wrapper, which
 launches the CUDA kernel for CUDA tensors and runs the kernel's plain
@@ -37,6 +38,7 @@ from repro_torch.kernels.metrics_fused import stream_metrics_carry \
 from repro_torch.kernels.stream_sample import MAX_RANGE_LIMIT
 from repro_torch.kernels.stream_sample import stream_sample \
     as _stream_sample_kernel
+from repro_torch.kernels.stream_sample import stream_sample_plain
 from repro_torch.kernels.trend_scan import pair_stats as _pair_stats_kernel
 from repro_torch.kernels.trend_scan import trend_scan as _trend_scan_kernel
 from repro_torch.kernels.trend_scan import trend_scan_carry \
@@ -80,6 +82,37 @@ def check_autotune(autotune: Optional[str]) -> None:
         raise NotImplementedError(
             f"autotune={autotune!r}: the port runs fixed tiles "
             "(TILE=1024, BUCKET_BLOCK=512); tile tuning is not ported yet")
+
+
+def on_tpu() -> bool:
+    """The reference's TPU predicate: the port never runs on a TPU."""
+    return False
+
+
+def on_gpu() -> bool:
+    """True when a CUDA device is usable. A predicate only: no entry point
+    reads it to choose the CPU (``device`` does that)."""
+    return torch.cuda.is_available()
+
+
+def on_accelerator() -> bool:
+    """The reference's "TPU or GPU": here the same as :func:`on_gpu`."""
+    return on_gpu()
+
+
+def _host(x) -> np.ndarray:
+    """``x`` as a host array (a tensor is copied off its device)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _on(x, device) -> torch.Tensor:
+    """``x`` as a tensor: a tensor stays on its device unless ``device``
+    names one; anything else goes to ``device`` (``None`` means CUDA)."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    return torch.as_tensor(x).to(resolve_device(device))
 
 
 class PallasDomainError(ValueError):
@@ -207,6 +240,37 @@ def stream_sample_inputs(ts, max_range, multiples):
     return t_b, starts_b, counts_b, k_b, scal_b, lengths.astype(np.int32)
 
 
+def _sample_one(t, max_range: int, multiple: float, device, kernel):
+    t64 = np.asarray(_host(t), np.float64).reshape(-1)
+    dev = resolve_device(device)
+    n = len(t64)
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev))
+    inputs = stream_sample_inputs([t64], max_range, multiple)
+    ss, keep = kernel(*(torch.from_numpy(x).to(dev) for x in inputs))
+    return ss[0, :n], keep[0, :n]
+
+
+def stream_sample(t, max_range: int, multiple: float, *, device=None):
+    """The NSA inner loop of one stream (kernel B1 with one row).
+
+    ``t`` is sorted ascending (epoch seconds are rebased in float64 before
+    the f32 cast). Returns ``(ss int32 (n,), keep bool (n,))`` on ``device``
+    (``None`` means CUDA), bit-identical to the numpy NSA path and to the
+    reference's ``stream_sample``. Raises :class:`PallasDomainError` where
+    the reference does (``max_range`` past the snap's limit, a keep rule
+    past int32)."""
+    return _sample_one(t, max_range, multiple, device,
+                       _stream_sample_kernel)
+
+
+def stream_sample_ref(t, max_range: int, multiple: float, *, device=None):
+    """:func:`stream_sample` through B1's plain PyTorch version, on any
+    device (the reference's oracle with the same signature)."""
+    return _sample_one(t, max_range, multiple, device, stream_sample_plain)
+
+
 # -------------------------------------------------------------- compaction
 def compact_mask_batched_device(mask) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kept-record indices for R stacked keep masks, on the mask's device.
@@ -230,6 +294,20 @@ def compact_mask_batched(mask) -> Tuple[torch.Tensor, np.ndarray]:
     int64 (the reference's ``compact_mask_batched`` contract)."""
     idx, totals = compact_mask_batched_device(mask)
     return idx, totals.cpu().numpy().astype(np.int64).reshape(-1)
+
+
+def compact_mask(mask, *, device=None) -> Tuple[torch.Tensor, int]:
+    """Kept-record indices of one keep mask (kernel B2 with one row).
+
+    ``mask`` is a 1-D boolean/0-1 array or tensor; a tensor stays on its
+    device, anything else goes to ``device`` (``None`` means CUDA).
+    Returns ``(idx int32 (n,), total)``: ``idx[:total]`` are the set
+    indices in ascending order, ``idx[total:]`` are ``n``."""
+    m = _on(mask, device).reshape(-1)
+    if m.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int32, device=m.device), 0
+    idx, totals = compact_mask_batched(m[None, :])
+    return idx[0], int(totals[0])
 
 
 # -------------------------------------------------------- metrics engine
@@ -272,7 +350,7 @@ def stream_metrics_inputs(ss_seq, max_range: int):
     (same arguments): ``(ss int32 (S, N), lengths int32 (S,), buckets)``
     with rows padded by the id ``buckets`` and ``buckets`` the
     ``BUCKET_BLOCK``-aligned histogram width."""
-    ss_list = [np.asarray(s, np.int32).reshape(-1) for s in ss_seq]
+    ss_list = [np.asarray(_host(s), np.int32).reshape(-1) for s in ss_seq]
     if not ss_list:
         raise ValueError("need at least one stream")
     if max_range <= 0:
@@ -325,6 +403,35 @@ def stream_metrics(ss, max_range: int, *, device=None):
     ``(hist int32 (max_range,), moments f32 (2,) = [Σq, Σq²])``."""
     hist, mom, _ = stream_metrics_batched([ss], max_range, device=device)
     return hist[0], mom[0]
+
+
+def bucket_hist(ss, max_range: int, *, device=None) -> torch.Tensor:
+    """Per-bucket counts of scale stamps in ``[0, max_range)``: B3's
+    int32 histogram ``(max_range,)`` on ``device``, exact up to 2**31 per
+    bucket (:class:`PallasDomainError` beyond)."""
+    return stream_metrics(ss, max_range, device=device)[0]
+
+
+def volatility_moments(q, *, device=None) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """``(Σq, Σq²)`` in float32 over a materialized count series, on
+    ``q``'s device for a tensor, else on ``device`` (``None`` means CUDA).
+    Plain PyTorch, as the reference's is plain XLA; for series that come
+    from scale stamps, :func:`stream_metrics` gives both in B3's pass."""
+    qf = _on(q, device).reshape(-1).to(torch.float32)
+    return qf.sum(), (qf * qf).sum()
+
+
+def volatility_stats(q, *, device=None) -> Tuple[torch.Tensor,
+                                                 torch.Tensor,
+                                                 torch.Tensor]:
+    """(average, variance, std) of a count series from its float32
+    moments (paper formulas (2)-(4)); 0-d tensors."""
+    n = len(q)
+    s, s2 = volatility_moments(q, device=device)
+    avg = s / n
+    var = torch.clamp(s2 / n - avg * avg, min=0.0)
+    return avg, var, torch.sqrt(var)
 
 
 # ------------------------------------------------------- trend & correlation
@@ -890,3 +997,19 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512):
     split from the shapes and the SM count, so ``block_s`` (the
     reference's knob) does not change the result."""
     return _flash_decode_kernel(q, k, v, lengths, block_s=block_s)
+
+
+__all__ = [
+    "ChunkCarry", "KeepRuleOverflow", "PallasDomainError", "bucket_hist",
+    "check_autotune", "chunk_carry_finalize", "chunk_carry_init",
+    "compact_mask", "compact_mask_batched", "compact_mask_batched_device",
+    "device_kind", "flash_decode", "on_accelerator", "on_cuda", "on_gpu",
+    "on_tpu", "resolve_device", "stream_metrics", "stream_metrics_chunk",
+    "trend_scan_chunk", "stream_metrics_batched",
+    "stream_metrics_batched_device", "stream_metrics_inputs",
+    "stream_sample", "stream_sample_batched", "stream_sample_inputs",
+    "stream_sample_ref", "trend_corr_pairwise", "trend_correlation_batched",
+    "trend_correlation_batched_device", "trend_pair_stats", "trend_scan",
+    "trend_scan_batched", "trend_scan_batched_device", "volatility_moments",
+    "volatility_stats",
+]

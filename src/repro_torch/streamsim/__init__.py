@@ -7,7 +7,8 @@ Pipeline stages (paper Fig. 4):
 
 Supporting pieces: synthetic datasets, the stream store ("database"), the
 Kafka-analogue bounded queues, volatility and trend metrics, the sweep plan
-and engine, the controller, seeded fault injection
+and engine, the controller, the lease-based sweep service
+(:mod:`repro_torch.streamsim.service`), seeded fault injection
 (:mod:`repro_torch.streamsim.faults`) and the retry/breaker/deadline
 primitives (:mod:`repro_torch.streamsim.resilience`), the stream tasks
 (:mod:`repro_torch.streamsim.tasks`) and the paper's task benchmark
@@ -27,7 +28,9 @@ from repro_torch.streamsim.nsa import (  # noqa: F401
     ChunkHandles,
     materialize_sweep_chunk,
     nsa,
+    nsa_batched,
     nsa_paper,
+    nsa_sweep,
     scale_stamps,
 )
 from repro_torch.streamsim.metrics import (  # noqa: F401
@@ -85,6 +88,13 @@ from repro_torch.streamsim.engine import (  # noqa: F401
     run_sweep_chunked,
 )
 from repro_torch.streamsim.controller import Controller  # noqa: F401
+from repro_torch.streamsim.service import (  # noqa: F401
+    SweepService,
+    merge_fidelity,
+    pack_counts,
+    run_service_sweep,
+    unpack_counts,
+)
 from repro_torch.streamsim.tasks import (  # noqa: F401
     LATENCY_BIN_US,
     LATENCY_BINS,

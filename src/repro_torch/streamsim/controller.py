@@ -21,12 +21,14 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.distributed import process_topology
 from repro_torch.streamsim import engine
 from repro_torch.streamsim.datasets import make_stream
 from repro_torch.streamsim.engine import FidelityReport, SimulationReport
@@ -36,6 +38,9 @@ from repro_torch.streamsim.plan import DAY_S, plan_sweep
 from repro_torch.streamsim.preprocess import Stream, preprocess
 from repro_torch.streamsim.queue import StreamQueue
 from repro_torch.streamsim.resilience import RetryPolicy, SweepCheckpoint
+from repro_torch.streamsim.service import (merge_fidelity, pack_counts,
+                                           run_service_sweep,
+                                           scenario_marker)
 from repro_torch.streamsim.store import StreamStore
 
 
@@ -246,9 +251,14 @@ class Controller:
         fidelity_window_s : int, default 60
             Sliding-mean window of the fidelity matrices.
         n_devices, host_index, n_hosts : int, optional
-            Plan-partition overrides (default: this process's CUDA device
-            count, one host). ``n_hosts > 1`` raises
-            ``NotImplementedError``.
+            Plan-partition overrides (default:
+            :func:`~repro_torch.distributed.process_topology`, the
+            ``torch.distributed`` rank and world size and this process's
+            CUDA device count). In a static multi-host run every host
+            builds the same plan, runs and reports only its own slice
+            (and the store's cache hits), publishes its exact count rows
+            to the shared store, and the run that completes the grid gets
+            the merged FULL S×S matrices on :attr:`last_fidelity`.
         fault_plan, retry_policy, breaker_threshold, consumer_deadline_s,
         on_failure, max_bytes, retention_policy :
             The replay's chaos and resilience knobs, passed through to
@@ -281,13 +291,25 @@ class Controller:
             effective range growing to ``max_range`` per day
             (``ScenarioSpec.span_s``). Requires ``chunk_s > 0``.
         service : bool, default False
-            Not ported yet (the sweep-service slice): ``True`` raises
-            ``NotImplementedError`` after the argument checks.
+            Run the sweep through the lease-based sweep service
+            (:mod:`repro_torch.streamsim.service`) instead of static host
+            partitioning: scenarios go to a durable work queue in the
+            store; every participant (each ``run_many(service=True)``
+            pointed at the same store and sweep) leases, executes on this
+            controller's device and publishes them; expired leases of dead
+            workers are requeued (and quarantined as
+            ``status="poisoned"`` after ``breaker_threshold`` worker deaths
+            on one scenario); and EVERY participant returns the full
+            grid's reports plus the merged full S×S fidelity matrices on
+            :attr:`last_fidelity`. Incompatible with ``chunk_s`` and
+            ``checkpoint``.
         lease_ttl_s, service_poll_s, lease_batch, worker_id, \
 service_deadline_s :
-            The service's lease knobs, taken with the reference's defaults;
-            any other value raises ``NotImplementedError`` (the
-            sweep-service slice).
+            The service's knobs: lease time-to-live (must comfortably
+            exceed one batch's runtime; heartbeats renew it while the
+            worker lives), idle poll interval, scenarios leased per claim,
+            this participant's id (default ``host<index>-<pid>``), and an
+            overall give-up deadline (``TimeoutError``).
         autotune : None or "off"
             Anything else raises ``NotImplementedError`` (the tile-tuning
             slice).
@@ -318,20 +340,6 @@ service_deadline_s :
                 "service mode is incompatible with chunk_s/checkpoint — "
                 "the service's durable work queue is its own checkpoint "
                 "and leases are scenario-granular")
-        if service:
-            raise NotImplementedError(
-                "run_many(service=True) is not ported yet; it comes with the "
-                "sweep-service slice")
-        lease = {"lease_ttl_s": (lease_ttl_s, 60.0),
-                 "service_poll_s": (service_poll_s, 0.2),
-                 "lease_batch": (lease_batch, 1),
-                 "worker_id": (worker_id, None),
-                 "service_deadline_s": (service_deadline_s, None)}
-        for name, (value, default) in lease.items():
-            if value != default:
-                raise NotImplementedError(
-                    f"run_many({name}={value!r}) is not ported yet; the "
-                    "lease knobs come with the sweep-service slice")
         ops.check_autotune(autotune)
         originals, t_pre = self._prepare_all(datasets, scale, seed,
                                              duration_s)
@@ -341,16 +349,31 @@ service_deadline_s :
             host_index = 0 if host_index is None else host_index
             n_hosts = 1 if n_hosts is None else n_hosts
         row_counts = {d: len(originals[d]) for d in datasets}
+        if service:
+            return self._run_service(
+                datasets, max_ranges, originals, t_pre, consumer,
+                scale=scale, seed=seed, queue_size=queue_size,
+                backend=backend, fidelity_window_s=fidelity_window_s,
+                n_devices=n_devices, host_index=host_index,
+                n_hosts=n_hosts, fault_plan=fault_plan,
+                retry_policy=retry_policy,
+                breaker_threshold=breaker_threshold,
+                consumer_deadline_s=consumer_deadline_s,
+                on_failure=on_failure, max_bytes=max_bytes,
+                retention_policy=retention_policy,
+                lease_ttl_s=lease_ttl_s, service_poll_s=service_poll_s,
+                lease_batch=lease_batch, worker_id=worker_id,
+                service_deadline_s=service_deadline_s)
         plan = plan_sweep(self.store, datasets, max_ranges, row_counts,
                           scale=scale, seed=seed, n_devices=n_devices,
                           host_index=host_index, n_hosts=n_hosts,
                           chunk_s=chunk_s, duration_s=duration_s)
-        if plan.n_hosts > 1:
-            raise NotImplementedError(
-                f"a plan over {plan.n_hosts} hosts (static multi-host "
-                "partitioning and its fidelity merge) is not ported yet; it "
-                "comes with the sweep-service slice")
         grid = [s.scenario for s in plan.scenarios]
+        if plan.n_hosts > 1:
+            # this host reports its own slice and the store's cache hits
+            local = {s.scenario for s in plan.local_missing} | \
+                {s.scenario for s in plan.cached}
+            grid = [sc for sc in grid if sc in local]
         ckpt: Optional[SweepCheckpoint] = None
         prior: Dict = {}
         if checkpoint:
@@ -395,6 +418,14 @@ service_deadline_s :
                     consumer_deadline_s=consumer_deadline_s,
                     on_failure=on_failure, max_bytes=max_bytes,
                     retention_policy=retention_policy, checkpoint=ckpt)
+                if plan.n_hosts > 1:
+                    # publish this host's exact count rows and, once every
+                    # host's rows are in the store, replace the partial
+                    # per-host matrices with the merged full matrices
+                    merged = self._publish_and_merge_fidelity(
+                        result, plan, fidelity_window_s)
+                    if merged is not None:
+                        fidelity = merged
             self.last_fidelity = fidelity
             for fr in fidelity:
                 self.save_fidelity(fr)
@@ -406,6 +437,84 @@ service_deadline_s :
         if ckpt is not None:
             ckpt.clear()     # sweep complete: the next run starts fresh
         return reports
+
+    def _run_service(self, datasets, max_ranges, originals, t_pre,
+                     consumer, *, scale, seed, queue_size, backend,
+                     fidelity_window_s, n_devices, host_index, n_hosts,
+                     fault_plan, retry_policy, breaker_threshold,
+                     consumer_deadline_s, on_failure, max_bytes,
+                     retention_policy, lease_ttl_s, service_poll_s,
+                     lease_batch, worker_id,
+                     service_deadline_s) -> List[SimulationReport]:
+        """The ``run_many(service=True)`` leg: one participant of the
+        lease-based sweep service, executing its batches on this
+        controller's device. Every participant gets the full grid's
+        reports back; only the reports THIS worker computed land in its
+        metrics repository (the shared store carried them to every peer
+        already)."""
+        if n_hosts is None or host_index is None or n_devices is None:
+            pidx, pcount, local = process_topology()
+            n_hosts = pcount if n_hosts is None else n_hosts
+            host_index = pidx if host_index is None else host_index
+            n_devices = local if n_devices is None else n_devices
+        if worker_id is None:
+            worker_id = f"host{host_index}-{os.getpid()}"
+        reports, fidelity, mine = run_service_sweep(
+            self.store, datasets, max_ranges, originals, consumer,
+            scale=scale, seed=seed, t_pre=t_pre, queue_size=queue_size,
+            backend=backend, fidelity_window_s=fidelity_window_s,
+            n_devices=n_devices, lease_ttl_s=lease_ttl_s,
+            poll_s=service_poll_s, lease_batch=lease_batch,
+            breaker_threshold=breaker_threshold, worker_id=worker_id,
+            n_participants=n_hosts, deadline_s=service_deadline_s,
+            device=self.device, fault_plan=fault_plan,
+            retry_policy=retry_policy,
+            consumer_deadline_s=consumer_deadline_s,
+            on_failure=on_failure, max_bytes=max_bytes,
+            retention_policy=retention_policy)
+        self.last_fidelity = fidelity
+        for fr in fidelity:
+            self.save_fidelity(fr)
+        own = set(mine)
+        for report in reports:
+            if scenario_marker(report.dataset, report.max_range) in own:
+                self.save_metrics(report)
+        return reports
+
+    def _publish_and_merge_fidelity(self, result, plan, window_s):
+        """Cross-host fidelity merge for STATIC multi-host sweeps.
+
+        Publishes this host's exact per-scenario count rows (and the
+        per-dataset original rows) under the host-independent
+        ``sweep_group_id`` namespace, then runs the sweep service's
+        count-row merge. Returns the merged full-grid
+        :class:`FidelityReport` list, or None while peers' rows are still
+        missing (the caller keeps its partial per-host matrices until the
+        last host closes the sweep)."""
+        gid = plan.sweep_group_id
+        ns = f"{gid}/fidelity"
+        worker = f"host{plan.host_index}"
+        for (d, mr), row in result.count_rows().items():
+            name = f"sim__{scenario_marker(d, mr)}"
+            # first writer wins: rows are deterministic, and keeping the
+            # first writer keeps true provenance (a later host reporting
+            # a cache hit must not claim the row it never computed)
+            if not self.store.has_marker(ns, name):
+                self.store.put_marker(ns, name,
+                                      {"counts": pack_counts(row),
+                                       "worker": worker})
+        for d in plan.datasets:
+            name = f"orig__{d}"
+            if not self.store.has_marker(ns, name):
+                self.store.put_marker(ns, name, {
+                    "counts": pack_counts(result.om[d].counts),
+                    "worker": worker})
+        merged = merge_fidelity(self.store, gid, plan.datasets,
+                                plan.max_ranges, window_s=window_s)
+        D = len(plan.datasets)
+        complete = len(merged) == len(plan.max_ranges) and \
+            all(len(fr.labels) == 2 * D for fr in merged)
+        return merged if complete else None
 
     # -------------------------------------------------- (3) metrics manager
     def _unique_path(self, directory: Path, stem: str) -> Path:

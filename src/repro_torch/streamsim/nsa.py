@@ -31,9 +31,10 @@ Implementations
   compact_mask_batched`) on the device; only the O(max_range) per-bucket
   tables and the final column gather touch the host. Bit-identical to the
   numpy path (the kernel snaps its f32 buckets to exact f64 tables).
-- :func:`nsa_sweep_device` — a (stream × max_range) scenario grid as ONE
-  launch of each kernel, leaving the kept stamps on the device for the
-  metrics kernel.
+- :func:`nsa_batched` and :func:`nsa_sweep` — many streams at one range,
+  or a (stream × max_range) scenario grid, as ONE launch of each kernel
+  and one host gather; :func:`nsa_sweep_device` is their device leg,
+  which leaves the kept stamps on the device for the metrics kernel.
 - :class:`ChunkedNSA` — the same grid served one time chunk at a time
   (one B1 and one B2 launch per chunk over just the chunk's records),
   for the chunked pipeline; :func:`materialize_sweep_chunk` is its host
@@ -190,6 +191,72 @@ def nsa(stream: Stream, max_range: int, *, keep: str = "systematic",
         payload={k: v[mask] for k, v in stream.payload.items()},
         scale_stamp=ss[mask],
     )
+
+
+def nsa_batched(streams: Dict[str, Stream], max_range: int, *,
+                multiple_mode: str = "time", backend: str = "auto",
+                device=None, autotune: Optional[str] = None
+                ) -> Dict[str, Stream]:
+    """NSA over many named streams at one ``max_range``.
+
+    On the torch backend every stream is one row of ONE B1 launch and ONE
+    B2 launch on ``device`` (``None`` means CUDA); the reference runs one
+    batched B1 dispatch and then compacts each stream on its own. Returns
+    ``{name: Stream}``, **bit-identical** to ``{name: nsa(s, max_range,
+    backend="numpy")}``. A batch with an empty stream, or with a stream
+    outside the kernels' domain (:class:`~repro_torch.kernels.ops.
+    PallasDomainError`), runs the numpy path wholesale, as the
+    reference's does. Raises ``ValueError`` if ``max_range <= 0``.
+    """
+    if max_range <= 0:
+        raise ValueError("max_range must be positive")
+    sims = nsa_sweep(streams, [max_range], multiple_mode=multiple_mode,
+                     backend=backend, device=device, autotune=autotune)
+    return {name: sims[(name, int(max_range))] for name in streams}
+
+
+def nsa_sweep(streams: Dict[str, Stream], max_ranges: Sequence[int], *,
+              pairs: Optional[Sequence[Tuple[str, int]]] = None,
+              multiple_mode: str = "time", backend: str = "auto",
+              device=None, autotune: Optional[str] = None
+              ) -> Dict[Tuple[str, int], Stream]:
+    """NSA over a (stream × max_range) scenario grid: on the torch backend
+    ONE B1 launch and ONE B2 launch on ``device`` for every scenario
+    (:func:`nsa_sweep_device`), then one host gather
+    (:func:`materialize_sweep`).
+
+    ``pairs`` (``(name, max_range)`` entries) replaces the cross product
+    ``streams × max_ranges`` when given. Returns ``{(name, max_range):
+    Stream}``, **bit-identical** to ``nsa(streams[name], max_range,
+    backend="numpy")`` for every scenario. A grid with an empty stream, or
+    with a scenario outside the kernels' domain, runs the numpy path
+    wholesale. Raises ``ValueError`` if a ``max_range`` is not positive.
+    """
+    from repro_torch.kernels import ops
+
+    if pairs is None:
+        pairs = [(name, mr) for name in streams for mr in max_ranges]
+    pairs = [(name, int(mr)) for name, mr in pairs]
+    if any(mr <= 0 for _, mr in pairs):
+        raise ValueError("max_range must be positive")
+    ops.check_autotune(autotune)
+
+    def _host() -> Dict[Tuple[str, int], Stream]:
+        return {(name, mr): nsa(streams[name], mr,
+                                multiple_mode=multiple_mode,
+                                backend="numpy")
+                for name, mr in pairs}
+
+    if _resolve_backend(backend) != "torch" or not pairs or \
+            any(len(streams[name]) == 0 for name, _ in pairs):
+        return _host()
+    try:
+        ss_kept, idx, totals, _ = nsa_sweep_device(
+            streams, pairs, multiple_mode=multiple_mode, device=device,
+            autotune=autotune)
+    except ops.PallasDomainError:
+        return _host()      # a scenario outside the kernels' domain
+    return materialize_sweep(streams, pairs, ss_kept, idx, totals)
 
 
 def nsa_sweep_device(streams: Dict[str, Stream],

@@ -36,6 +36,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Mapping, Optional, Sequence, Tuple
 
+from repro_torch.distributed import process_topology
+
 #: record-tile width of the batched NSA kernels — the quantum a shard's
 #: row length is padded to (kept in sync with ``repro_torch.kernels.ops``
 #: TILE)
@@ -224,20 +226,6 @@ class SweepPlan:
                 f"{self.monolithic_area()}")
 
 
-def process_topology() -> Tuple[int, int, int]:
-    """``(process index, process count, local CUDA devices)`` — the
-    counterpart of the reference's JAX topology query. The process group,
-    when there is one, is whatever ``torch.distributed`` was initialized
-    with; a process without CUDA counts one (host) device."""
-    import torch
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        pidx, pcount = dist.get_rank(), dist.get_world_size()
-    else:
-        pidx, pcount = 0, 1
-    return pidx, pcount, max(torch.cuda.device_count(), 1)
-
-
 def _partition_min_max_cost(sorted_specs: List[ScenarioSpec],
                             n_shards: int) -> List[List[ScenarioSpec]]:
     """Contiguous partition of a rows-descending spec list into at most
@@ -308,7 +296,8 @@ def plan_sweep(store, datasets: Sequence[str], max_ranges: Sequence[int],
     pairs : sequence of (dataset, max_range), optional
         Explicit scenario subset instead of the cross product.
     n_devices, host_index, n_hosts :
-        Partition geometry. Default to :func:`process_topology`: this
+        Partition geometry. Default to :func:`~repro_torch.distributed.
+        process_topology`: this
         process's CUDA device count and its ``torch.distributed`` rank and
         world size (0 and 1 when no process group is initialized) — so
         every process of a distributed run plans the SAME sweep and takes
@@ -316,12 +305,11 @@ def plan_sweep(store, datasets: Sequence[str], max_ranges: Sequence[int],
         for tests (e.g. forcing 4 shards on 1 device) or external
         schedulers.
     chunk_s, duration_s :
-        Time axis, carried in the plan for the chunked pipeline (not
-        ported yet — this package executes monolithic plans).
-        ``chunk_s > 0`` slices the timeline into ``chunk_s``-second
-        chunks; ``duration_s > 0`` extends each scenario's timeline past
-        its native range. Defaults keep the monolithic behavior, store
-        keys, and sweep ids unchanged.
+        Time axis. ``chunk_s > 0`` routes execution through the chunked
+        pipeline (``ChunkedSweepRunner``) in ``chunk_s``-second slices;
+        ``duration_s > 0`` extends each scenario's timeline past its
+        native range. Defaults keep the monolithic behavior, store keys,
+        and sweep ids unchanged.
 
     Returns
     -------

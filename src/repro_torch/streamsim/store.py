@@ -10,10 +10,15 @@ Here: an on-disk column store. Each stream is a directory holding one
 ``os.replace`` so a crash mid-write never corrupts a stream.
 
 The on-disk format is the reference's (``repro.streamsim.store``) byte for
-byte in layout: either package reads a store the other wrote. The marker
-primitives (``put_marker`` / ``claim_marker`` / ``clear_markers`` ...) and
-the chunk files of the chunked pipeline are carried along unchanged, so
-the format stays whole; the port's main path uses only ``put`` / ``get``.
+byte in layout: either package reads a store the other wrote, and
+participants of either package can serve one sweep-service queue. The
+marker primitives are the reference's: ``put_marker(..., exclusive=True)``
+(one winner of N concurrent creators), ``claim_marker`` (one ``os.replace``
+between namespaces: one winner of N claimants) and ``clear_markers``
+(rename, then delete), which the checkpoint and the sweep service
+(:mod:`repro_torch.streamsim.service`) build on. A stream is visible only
+once its manifest is written, after its columns were renamed into place,
+so two processes preparing the same original never read half of one.
 """
 
 from __future__ import annotations

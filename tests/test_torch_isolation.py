@@ -66,7 +66,9 @@ def test_port_has_the_slice_modules():
                 "configs/__init__.py", "configs/llama3_8b.py",
                 "configs/paper_stream.py", "training/data.py",
                 "serving/engine.py", "serving/load.py",
-                "streamsim/tasks.py", "launch/serve.py"):
+                "streamsim/tasks.py", "launch/serve.py",
+                "streamsim/service.py", "distributed/api.py",
+                "distributed/__init__.py", "streamsim/taskbench.py"):
         assert mod in names
     import importlib
     for mod, attr in (("kernels.metrics_fused", "stream_metrics_carry"),
@@ -78,7 +80,11 @@ def test_port_has_the_slice_modules():
                       ("streamsim.engine", "ChunkedSweepRunner"),
                       ("kernels.ops", "flash_decode"),
                       ("streamsim", "ServingTask"),
-                      ("models.transformer", "params_from_numpy")):
+                      ("models.transformer", "params_from_numpy"),
+                      ("streamsim", "SweepService"),
+                      ("streamsim", "nsa_sweep"),
+                      ("kernels.ops", "compact_mask"),
+                      ("distributed", "process_topology")):
         assert hasattr(importlib.import_module(f"repro_torch.{mod}"), attr)
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "stream_sample.cu", "compact.cu", "metrics_fused.cu",
@@ -115,6 +121,13 @@ with tempfile.TemporaryDirectory() as d:
 assert ctl.last_result.mode == "device" and ctl.last_result.pipeline_s
 assert all(r.consumer_metrics["n"] == r.simulated_rows > 0 and
            r.consumer_metrics["feed_chunks"] > 1 for r in reps)
+with tempfile.TemporaryDirectory() as d:
+    ctl = Controller(d, device="cpu")
+    reps = ctl.run_many(
+        ["traffic"], [20, 40], lambda q: {"n": sum(len(b) for b in q)},
+        scale=0.002, seed=9, backend="torch", service=True)
+assert [r.status for r in reps] == ["ok", "ok"]
+assert all(fr.provenance for fr in ctl.last_fidelity)
 from repro_torch.configs import get_smoke
 from repro_torch.models import transformer
 from repro_torch.serving import Request, ServingEngine

@@ -1,10 +1,11 @@
 """Signatures of the port's sweep entry points against the JAX package's.
 
 A keyword the reference takes must be taken by the port too: a knob the
-port has not ported yet raises ``NotImplementedError`` for any value other
-than the reference's default, never ``TypeError``. The comparison of the
-signatures is made here, in the test only; the port imports nothing of
-the reference.
+port has not ported yet (``autotune``, the tile-tuning slice) raises
+``NotImplementedError`` for any value other than the reference's default,
+never ``TypeError``; the sweep service's lease knobs reach the service. The
+comparison of the signatures is made here, in the test only; the port
+imports nothing of the reference.
 """
 
 import importlib
@@ -61,12 +62,49 @@ def test_autotune_keyword_is_the_references(port, ref):
 
 
 @pytest.mark.parametrize("name", sorted(LEASE_KNOBS))
-def test_lease_knob_other_than_default_raises(tmp_path, name):
+def test_lease_knob_other_than_default_raises(tmp_path, monkeypatch, name):
+    # (the name is kept from when the knobs raised NotImplementedError)
+    # each knob now reaches the sweep service: seen on the service that
+    # runs the batches, in the leases it writes, or in provenance
+    from repro_torch.streamsim import service as tservice
+
+    seen = {"batches": []}
+    run_batch, work = tservice.SweepService.run_batch, \
+        tservice.SweepService.work
+
+    def spy_batch(self, leases, *a, **kw):
+        seen["batches"].append(sorted(leases))
+        seen["ttl"] = {lease.ttl_s for lease in leases.values()}
+        seen["poll_s"], seen["worker"] = self.poll_s, self.worker_id
+        return run_batch(self, leases, *a, **kw)
+
+    def spy_work(self, *a, **kw):
+        seen["deadline_s"] = kw.get("deadline_s")
+        return work(self, *a, **kw)
+
+    monkeypatch.setattr(tservice.SweepService, "run_batch", spy_batch)
+    monkeypatch.setattr(tservice.SweepService, "work", spy_work)
     c = T.Controller(str(tmp_path), device=CPU)
-    with pytest.raises(NotImplementedError, match=name):
-        c.run_many(["traffic"], [20], _drain, scale=SCALE, seed=SEED,
-                   backend="torch", **{name: LEASE_KNOBS[name]})
-    assert c.list_metrics() == []
+    value = LEASE_KNOBS[name]
+    reps = c.run_many(["traffic"], [20, 40], _drain, scale=SCALE, seed=SEED,
+                      backend="torch", service=True, **{name: value})
+    assert [r.status for r in reps] == ["ok", "ok"]
+    assert all(r.consumer_metrics["records_seen"] == r.simulated_rows > 0
+               for r in reps)
+    assert len(c.list_metrics()) == 2
+    if name == "lease_batch":
+        assert seen["batches"] == [["traffic__20", "traffic__40"]]
+    else:
+        assert seen["batches"] == [["traffic__20"], ["traffic__40"]]
+    if name == "worker_id":
+        assert seen["worker"] == value
+        assert {w for fr in c.last_fidelity for w in fr.provenance} == {value}
+    want = {"lease_ttl_s": ("ttl", {value}),
+            "service_poll_s": ("poll_s", value),
+            "service_deadline_s": ("deadline_s", value)}
+    if name in want:
+        key, expect = want[name]
+        assert seen[key] == expect
 
 
 def test_lease_knobs_at_their_defaults_change_nothing(tmp_path):
@@ -83,12 +121,22 @@ def test_lease_knobs_at_their_defaults_change_nothing(tmp_path):
 
 
 def test_argument_checks_come_before_the_lease_raise(tmp_path):
+    # (the name is kept from when the lease knobs raised): the reference's
+    # argument checks still come first, before any stream is prepared,
+    # and the service's own checks before any batch runs
     c = T.Controller(str(tmp_path), device=CPU)
     with pytest.raises(ValueError, match="duration_s"):
         c.run_many(["traffic"], [20], _drain, duration_s=86_400,
                    lease_batch=2)
-    with pytest.raises(NotImplementedError, match="service=True"):
-        c.run_many(["traffic"], [20], _drain, service=True, lease_batch=2)
+    with pytest.raises(ValueError, match="service"):
+        c.run_many(["traffic"], [20], _drain, service=True, lease_batch=2,
+                   checkpoint=True)
+    assert c.store.list() == []
+    for bad in (dict(lease_batch=0), dict(lease_ttl_s=0.0)):
+        with pytest.raises(ValueError, match="lease"):
+            c.run_many(["traffic"], [20], _drain, scale=SCALE, seed=SEED,
+                       backend="torch", service=True, **bad)
+    assert c.list_metrics() == []
 
 
 @pytest.fixture(scope="module")

@@ -464,19 +464,22 @@ def test_chunk_feed_values_not_ported():
 @pytest.mark.parametrize("knob,raises", [
     ({"checkpoint": True}, None), ({"chunk_s": 60}, None),
     ({"duration_s": 86_400}, ValueError),
-    ({"service": True}, NotImplementedError),
-    ({"n_hosts": 2, "host_index": 0}, NotImplementedError),
+    ({"service": True}, None),
+    ({"n_hosts": 2, "host_index": 0}, None),
     ({"autotune": "cached"}, NotImplementedError)],
     ids=["checkpoint", "chunk_s", "duration_s", "service", "n_hosts",
          "autotune"])
 def test_unported_knobs_raise(tmp_path, knob, raises):
-    # checkpoint and chunk_s are ported (the chunked slice) and run;
-    # duration_s without chunk_s raises the reference's ValueError
+    # checkpoint and chunk_s (the chunked slice), service and n_hosts (the
+    # sweep-service slice) are ported and run: host 0 of 2 takes the one
+    # scenario; duration_s without chunk_s raises the reference's
+    # ValueError; autotune raises until tile tuning is ported
     c = T.Controller(str(tmp_path), device=CPU)
     if raises is None:
         reps = c.run_many(["traffic"], [20], _drain, scale=SCALE, seed=9,
                           backend="torch", **knob)
         assert len(reps) == len(c.list_metrics()) == 1
+        assert reps[0].status == "ok"
         assert reps[0].consumer_metrics["records_seen"] == \
             reps[0].simulated_rows > 0
         return
