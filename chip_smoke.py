@@ -7,8 +7,9 @@ card.
 Phases, each of which raises on failure (nothing catches it):
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the CUDA kernels of B1-B8 from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+2. build the CUDA kernels of B1-B8 from ``src/repro_torch/csrc`` and
+   every tile instance of ``repro_torch.kernels.tuning`` (one ``nvcc`` per
+   library, all started together), printing each build's seconds;
 3. hold each kernel against its plain PyTorch version on the card:
    - B1-B3 at the run-path shapes of the userbehavior day (10.63 M
      records), at the sweep's 18-row shard (every dataset at every
@@ -63,6 +64,16 @@ Phases, each of which raises on failure (nothing catches it):
    events, median of several runs; B2 against ``torch.cumsum`` and, on
    one row, ``torch.nonzero``; B8 at B = 16, S = 32 768 with llama3-8b's
    heads, against ``scaled_dot_product_attention``);
+   - every non-default tile instance of B1-B7 (B1 1024 and 4096 records a
+     block, B2 4096, 8192 and 16384 records a tile, B3/B6 2048-8192
+     records times 256-1024 buckets a partial, B4/B7 1024 and 4096, B5's
+     256 and 1024 quanta): its library reports the tiles asked for, it is
+     held to its plain version (at its own bucket block) at the edge
+     cases above -- B1 and B2 at their edges, B3 on unsorted rows, B6
+     under zero and random carries, B4 and B7 near 2^31, B5 at S = 1 to
+     130 and K = 0 and 1025 -- launches one device kernel per call, and
+     every instance, the default's included, is timed at the run, sweep
+     and (after phase 7) nine-day chunk shapes;
 4. drive ``Controller(tmp, device="cuda").run("userbehavior", 3600, ...,
    scale=1.0, backend="torch")`` with every launch count set to 0 just
    before and read just after, and check it against the port's own
@@ -134,10 +145,17 @@ Phases, each of which raises on failure (nothing catches it):
    run's local matrices), the last run's merged matrices full, with
    provenance from host0 and host1, within 1e-9 of phase 5's numpy
    matrices;
-14. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
+14. drive phase 4's ``Controller.run`` in a fresh store with
+   ``autotune="force"`` (no swept candidate may be dropped: every one
+   builds, launches and matches its plain version), then, the simulated
+   stream deleted, with ``autotune="cached"`` in the same store: no
+   sweep, launches equal to phase 4's, the cache listing every key the
+   run dispatched, both runs' simulated streams byte-equal to phase 4's
+   numpy run;
+15. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
    ``multiday``, ``serve``, ``serve_llama3``, ``taskbench``, ``api``,
-   ``service``, ``multihost`` and ``kernels`` JSON lines and, last, the
-   ``{"ok": true, "device": ...}`` line.
+   ``service``, ``multihost``, ``tuning`` and ``kernels`` JSON lines and,
+   last, the ``{"ok": true, "device": ...}`` line.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -437,7 +455,7 @@ def check_kernels(device: str, scale: float, seed: int,
             main_b3 = (kept, tot, buckets)
         if keep_cases is not None and case in ("main", "ragged", "sweep"):
             keep_cases[case] = dict(ss=ss, lengths=b1_in[-1], kept=kept,
-                                    totals=tot)
+                                    totals=tot, b1_in=b1_in, keep=keep)
 
     # B3's second main-path launch: the ORIGINAL stream at 86 400 buckets
     b_orig, tr = _bucket_series(main, None, None)
@@ -483,16 +501,19 @@ def check_kernels(device: str, scale: float, seed: int,
     return rows
 
 
-def _b3_err(name: str, ss, lengths, buckets: int) -> float:
-    """B3 against its plain version (counts exact, moments within
-    MOMENT_RTOL) and against the moments of its counts in f64; returns the
-    largest moment difference from the plain version."""
+def _b3_err(name: str, ss, lengths, buckets: int, config=None) -> float:
+    """B3 (the instance ``config`` names) against its plain version at the
+    same bucket block (counts exact, moments within MOMENT_RTOL) and
+    against the moments of its counts in f64; returns the largest moment
+    difference from the plain version."""
     import torch
 
-    from repro_torch.kernels.metrics_fused import (stream_metrics,
+    from repro_torch.kernels.metrics_fused import (bucket_block_of,
+                                                   stream_metrics,
                                                    stream_metrics_plain)
-    hist, mom = stream_metrics(ss, lengths, buckets)
-    hist_p, mom_p = stream_metrics_plain(ss, lengths, buckets)
+    hist, mom = stream_metrics(ss, lengths, buckets, config=config)
+    hist_p, mom_p = stream_metrics_plain(
+        ss, lengths, buckets, bucket_block=bucket_block_of(config))
     _exact(f"metrics_fused/{name}/hist", hist, hist_p)
     q = hist.double()
     _moments_err(f"metrics_fused/{name}/f64", mom, torch.stack(
@@ -501,7 +522,7 @@ def _b3_err(name: str, ss, lengths, buckets: int) -> float:
 
 
 def _check_unsorted_b3(device: str, seed: int, original, width: int,
-                       smaller=None):
+                       smaller=None, config=None):
     """B3 on unsorted stamps: six rows of uniform random latency-bin ids
     in [0, 2048) at 2048 buckets (the task tier's input), one row of
     ``width`` uniform random stamps over a day's 86,400 seconds at 86,528
@@ -510,32 +531,39 @@ def _check_unsorted_b3(device: str, seed: int, original, width: int,
     (sorted; its length not a multiple of 4, so the kernel's scalar loads)
     beside a shuffled copy cut 12,345 records short. Also two calls in a
     row bit-identical, and ``smaller`` = (stamps, lengths, buckets) after
-    the largest call unchanged. Returns the largest moment difference."""
+    the largest call unchanged. With ``config``, the instance it names, at
+    widths padded to its bucket block. Returns the largest moment
+    difference."""
     import torch
 
-    from repro_torch.kernels.metrics_fused import stream_metrics
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.metrics_fused import (bucket_block_of,
+                                                   stream_metrics)
     rng = np.random.default_rng(seed)
+    block = bucket_block_of(config)
 
     def up(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
 
     n = len(original)
+    day = ops._padded_buckets(86_528, block)
     cases = {
         "latency_bins": (up(rng.integers(0, 2048, (6, 443_392))),
                          up([443_392] * 5 + [300_001]), 2048),
         "day_unsorted": (up(rng.integers(0, 86_400, (1, width))),
-                         up([width]), 86_528),
+                         up([width]), day),
         "sorted_beside_shuffled": (
             up(np.stack([original, rng.permutation(original)])),
-            up([n, n - 12_345]), 86_528),
+            up([n, n - 12_345]), day),
     }
     err = 0.0
     for case, (ss, lengths, buckets) in cases.items():
-        err = max(err, _b3_err(case, ss, lengths, buckets))
+        err = max(err, _b3_err(case, ss, lengths, buckets, config))
         _same_twice(f"metrics_fused/{case}",
-                    lambda: stream_metrics(ss, lengths, buckets))
+                    lambda: stream_metrics(ss, lengths, buckets,
+                                           config=config))
     if smaller is not None:
-        _b3_err("main after sorted_beside_shuffled", *smaller)
+        _b3_err("main after sorted_beside_shuffled", *smaller, config)
     return err
 
 
@@ -620,14 +648,16 @@ def _b123_timings(b1_in, ss, keep, tot, kept, buckets: int,
     return out
 
 
-def check_sample_compact_edges(device: str, scale: float, seed: int):
+def check_sample_compact_edges(device: str, scale: float, seed: int,
+                               b1_config=None, b2_config=None):
     """Phase 3 for B1's and B2's edges, each bit-equal to its plain
     version: rows whose length is not a multiple of the vector width,
     views that start off a 16-byte boundary, all-zero and all-ones masks,
     rows under one tile, random masks at 1 %, 50 % and 99 % over 18 rows of
     many tiles, a mask of more tiles than the card holds blocks at once (a
     deadlock would hang here), two calls in a row bit-identical and a
-    smaller call after a larger one. Returns what it checked."""
+    smaller call after a larger one; B1 and B2 the instances the configs
+    name (``None``: the default libraries). Returns what it checked."""
     import torch
 
     from repro_torch.kernels import ops
@@ -659,18 +689,20 @@ def check_sample_compact_edges(device: str, scale: float, seed: int):
         return view
 
     def same_b1(case, args):
-        ss, keep = stream_sample(*args)
+        ss, keep = stream_sample(*args, config=b1_config)
         ss_p, keep_p = stream_sample_plain(*args)
         _exact(f"stream_sample/{case}/ss", ss, ss_p)
         _exact(f"stream_sample/{case}/keep", keep, keep_p)
-        _same_twice(f"stream_sample/{case}", lambda: stream_sample(*args))
+        _same_twice(f"stream_sample/{case}",
+                    lambda: stream_sample(*args, config=b1_config))
 
     def same_b2(case, mask):
-        idx, tot = compact(mask)
+        idx, tot = compact(mask, config=b2_config)
         idx_p, tot_p = compact_plain(mask)
         _exact(f"compact/{case}/idx", idx, idx_p)
         _exact(f"compact/{case}/totals", tot, tot_p)
-        _same_twice(f"compact/{case}", lambda: compact(mask))
+        _same_twice(f"compact/{case}",
+                    lambda: compact(mask, config=b2_config))
 
     # B1: three real streams cut to 1003 records (N not a multiple of 8),
     # and the run-shape inputs with t off a 16-byte boundary
@@ -773,18 +805,15 @@ def _pair_err(name: str, got, want, k: int) -> float:
     return float(diff.max(initial=0.0)), float(scaled.max(initial=0.0))
 
 
-def check_trend_kernels(device: str, scale: float, seed: int,
-                        timing_reps: int = 20, plain_reps: int = 3):
-    """Phase 3 for B4 and B5: each against its plain version at every
-    case; returns their timing rows at the fidelity shapes of the sweep's
-    largest range (the shapes the main path gives them)."""
+@functools.lru_cache(maxsize=None)
+def _scan_cases(device: str, scale: float, seed: int):
+    """B4's cases (built once per device, scale and seed): the fidelity
+    shape of the sweep's largest range, a ragged batch, widths 0 and 1025,
+    and the week row whose total sits just under 2^31 - 1; and the
+    fidelity rows' lengths."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.trend_scan import (pair_stats,
-                                                pair_stats_plain,
-                                                trend_scan, trend_scan_plain)
-
     streams, _, _ = _streams(scale, seed)
     rng = np.random.default_rng(seed)
 
@@ -792,36 +821,54 @@ def check_trend_kernels(device: str, scale: float, seed: int,
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     q_np, lengths = _fidelity_counts(streams, max(SWEEP_RANGES))
-    q_fid = ops._pad_cols(up(q_np), ops.TILE)
     lens_ragged = [0, 1, 1023, 1024, 1025, 86_400]
     ragged = np.zeros((len(lens_ragged), 86_400), np.int32)
     for i, n in enumerate(lens_ragged):
         ragged[i, :n] = rng.poisson(120.0, n)
     week = np.full((1, 604_800), 3550, np.int32)    # total 2 147 040 000
-    scan_cases = {
-        "fidelity": q_fid,
+    return {
+        "fidelity": ops._pad_cols(up(q_np), ops.TILE),
         "ragged": ops._pad_cols(up(ragged), ops.TILE),
         "width0": up(np.zeros((3, 0), np.int32)),
         "width1025": up(rng.poisson(9.0, (2, 1025)).astype(np.int32)),
         "week": ops._pad_cols(up(week), ops.TILE),
-    }
+    }, lengths
+
+
+def _check_scan(scan_cases, config=None) -> None:
+    """B4 (the instance ``config`` names) bit-equal to its plain version at
+    every case, twice in a row, and after the largest call."""
+    from repro_torch.kernels.trend_scan import trend_scan, trend_scan_plain
+
+    def scan(q):
+        return trend_scan(q, config=config)
+
     for case, q in scan_cases.items():
-        _exact(f"trend_scan/{case}", trend_scan(q), trend_scan_plain(q))
-        _same_twice(f"trend_scan/{case}", lambda: trend_scan(q))
-    if int(trend_scan(scan_cases["week"])[0, -1]) != 604_800 * 3550:
+        _exact(f"trend_scan/{case}", scan(q), trend_scan_plain(q))
+        _same_twice(f"trend_scan/{case}", lambda: scan(q))
+    if int(scan(scan_cases["week"])[0, -1]) != 604_800 * 3550:
         raise AssertionError("trend_scan/week: wrong total")
     # a smaller call after a larger one reuses the larger workspace
-    _exact("trend_scan/fidelity after week", trend_scan(q_fid),
+    q_fid = scan_cases["fidelity"]
+    _exact("trend_scan/fidelity after week", scan(q_fid),
            trend_scan_plain(q_fid))
 
-    z_fid = _centered_trends(q_fid, lengths, 60)
+
+def _pair_cases(device: str, seed: int, z_fid):
+    """B5's cases: the fidelity shape, S = 1, 2, 37, 64, 65 and 130, K = 0
+    and 1025, and a view off a 16-byte boundary."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     def centered(S, K):
         x = rng.normal(0.0, 40.0, (S, K)).astype(np.float32)
         return up(x - x.mean(axis=1, keepdims=True) if K else x)
 
     base = up(rng.normal(0.0, 3.0, 37 * 4096 + 1).astype(np.float32))
-    pair_cases = {
+    cases = {
         "fidelity": z_fid, "S37": centered(37, 86_528),
         # the task bench's S = 2 shapes (max_range 600 and 3600 against
         # a day's original, padded to PAIR_TILE)
@@ -831,19 +878,55 @@ def check_trend_kernels(device: str, scale: float, seed: int,
         "K0": centered(5, 0), "K1025": centered(37, 1025),
         "off16": base[1:1 + 37 * 4096].view(37, 4096),
     }
-    if pair_cases["off16"].data_ptr() % 16 == 0:
+    if cases["off16"].data_ptr() % 16 == 0:
         raise AssertionError("pair_stats/off16: the view is aligned")
+    return cases
+
+
+def _check_pairs(pair_cases, config=None):
+    """B5 (planned with ``config``'s quantum) within GRAM_RTOL of its plain
+    version at every case, twice in a row bit-identical, and the fidelity
+    shape after the largest tile grid unchanged; returns the largest
+    absolute and scaled Gram differences."""
+    import torch
+
+    from repro_torch.kernels.trend_scan import pair_stats, pair_stats_plain
+
+    def pairs(x):
+        return pair_stats(x, config=config)
+
     err = scaled_err = 0.0
     for case, x in pair_cases.items():
-        e, se = _pair_err(f"pair_stats/{case}", pair_stats(x),
+        e, se = _pair_err(f"pair_stats/{case}", pairs(x),
                           pair_stats_plain(x), x.shape[1])
         err, scaled_err = max(err, e), max(scaled_err, se)
-        _same_twice(f"pair_stats/{case}", lambda: pair_stats(x))
+        _same_twice(f"pair_stats/{case}", lambda: pairs(x))
     # a smaller call after the largest tile grid reuses its workspace
-    fid = pair_stats(z_fid)
-    pair_stats(pair_cases["S130"])
-    if not all(torch.equal(a, b) for a, b in zip(fid, pair_stats(z_fid))):
+    z_fid = pair_cases["fidelity"]
+    fid = pairs(z_fid)
+    pairs(pair_cases["S130"])
+    if not all(torch.equal(a, b) for a, b in zip(fid, pairs(z_fid))):
         raise AssertionError("pair_stats/fidelity after S130 changed")
+    return err, scaled_err
+
+
+def check_trend_kernels(device: str, scale: float, seed: int,
+                        timing_reps: int = 20, plain_reps: int = 3):
+    """Phase 3 for B4 and B5: each against its plain version at every
+    case; returns their timing rows at the fidelity shapes of the sweep's
+    largest range (the shapes the main path gives them)."""
+    import torch
+
+    from repro_torch.kernels.trend_scan import (pair_stats,
+                                                pair_stats_plain,
+                                                trend_scan, trend_scan_plain)
+
+    scan_cases, lengths = _scan_cases(device, scale, seed)
+    _check_scan(scan_cases)
+    q_fid = scan_cases["fidelity"]
+    z_fid = _centered_trends(q_fid, lengths, 60)
+    pair_cases = _pair_cases(device, seed, z_fid)
+    err, scaled_err = _check_pairs(pair_cases)
 
     S, N = q_fid.shape
     rows = {"trend_scan": dict(
@@ -948,31 +1031,25 @@ def _carry_err(name: str, got, want) -> float:
     return _moments_err(name, got[:, ::2], want[:, ::2])
 
 
-def check_carry_kernels(device: str, seed: int, cases,
-                        timing_reps: int = 20, plain_reps: int = 3):
-    """Phase 3 for B6 and B7: each against its plain version at every case,
-    B6 with a zero carry against B3 and B7 with ``init = 0`` against B4 bit
-    for bit; returns their timing rows at the shapes the chunked path gives
-    them. ``cases`` holds B1's and B2's outputs kept by
-    :func:`check_kernels`."""
+def _carry_state(rng, device, S: int, zero: bool = False):
+    """A Kahan carry ``(S, 4)`` on ``device``: zeros, or random sums and
+    compensations."""
+    import torch
+    c = np.zeros((S, 4), np.float32) if zero else np.stack(
+        [rng.uniform(0, 5e5, S), rng.uniform(-1, 1, S),
+         rng.uniform(0, 5e8, S), rng.uniform(-64, 64, S)],
+        axis=1).astype(np.float32)
+    return torch.from_numpy(c).to(device)
+
+
+def _b6_cases(device: str, seed: int, cases):
+    """B6's cases, (stamps, lengths, base, buckets): the chunked paths'
+    shapes (:func:`_b6_timing_cases`), the ragged batch with an empty row,
+    unsorted stamps around a chunk and a chunk of width 0."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.metrics_fused import (stream_metrics,
-                                                   stream_metrics_carry,
-                                                   stream_metrics_carry_plain)
-    from repro_torch.kernels.trend_scan import (trend_scan, trend_scan_carry,
-                                                trend_scan_carry_plain)
     rng = np.random.default_rng(seed)
-
-    def carry(S, zero=False):
-        c = np.zeros((S, 4), np.float32) if zero else np.stack(
-            [rng.uniform(0, 5e5, S), rng.uniform(-1, 1, S),
-             rng.uniform(0, 5e8, S), rng.uniform(-64, 64, S)],
-            axis=1).astype(np.float32)
-        return torch.from_numpy(c).to(device)
-
-    # --- B6 cases: (stamps, lengths, base, buckets)
     sweep, main, ragged = cases["sweep"], cases["main"], cases["ragged"]
     b6 = _b6_timing_cases(main, sweep)
     lo, chunk_buckets = b6["multiday_chunk"][2:]
@@ -991,38 +1068,158 @@ def check_carry_kernels(device: str, seed: int, cases,
     b6["width0"] = (torch.zeros((3, 0), dtype=torch.int32, device=device),
                     torch.zeros(3, dtype=torch.int32, device=device), lo,
                     chunk_buckets)
+    return b6
+
+
+def _check_b6(b6, device: str, seed: int, config=None) -> float:
+    """B6 (the instance ``config`` names) against its plain version at the
+    same bucket block under zero and random carries, a zero carry equal to
+    B3 of the same instance bit for bit, two calls in a row bit-identical,
+    a smaller call after the largest; returns the largest difference of
+    the running sums."""
+    from repro_torch.kernels.metrics_fused import (bucket_block_of,
+                                                   stream_metrics,
+                                                   stream_metrics_carry,
+                                                   stream_metrics_carry_plain)
+    rng = np.random.default_rng(seed)
+    block = bucket_block_of(config)
+
+    def run(ss, lens, buckets, mcar, base):
+        return stream_metrics_carry(ss, lens, buckets, mcar, base,
+                                    config=config)
+
+    def plain(ss, lens, buckets, mcar, base):
+        return stream_metrics_carry_plain(ss, lens, buckets, mcar, base,
+                                          bucket_block=block)
+
     err = 0.0
     for case, (ss, lens, base, buckets) in b6.items():
         S = ss.shape[0]
-        for label, mcar in (("zero", carry(S, zero=True)),
-                            ("random", carry(S))):
-            hist, mom = stream_metrics_carry(ss, lens, buckets, mcar, base)
-            hist_p, mom_p = stream_metrics_carry_plain(ss, lens, buckets,
-                                                       mcar, base)
+        for label, mcar in (("zero", _carry_state(rng, device, S, True)),
+                            ("random", _carry_state(rng, device, S))):
+            hist, mom = run(ss, lens, buckets, mcar, base)
+            hist_p, mom_p = plain(ss, lens, buckets, mcar, base)
             _exact(f"stream_metrics_carry/{case}/{label}/hist", hist, hist_p)
             err = max(err, _carry_err(f"stream_metrics_carry/{case}/{label}",
                                       mom, mom_p))
         # a zero carry is B3 on the rebased stamps, bit for bit
-        hist, mom = stream_metrics_carry(ss, lens, buckets,
-                                         carry(S, zero=True), base)
-        h3, m3 = stream_metrics((ss - base).contiguous(), lens, buckets)
+        hist, mom = run(ss, lens, buckets,
+                        _carry_state(rng, device, S, True), base)
+        h3, m3 = stream_metrics((ss - base).contiguous(), lens, buckets,
+                                config=config)
         _exact(f"stream_metrics_carry/{case}/b3_hist", hist, h3)
         _exact(f"stream_metrics_carry/{case}/b3_moments",
                mom[:, ::2].contiguous(), m3)
-        mcar = carry(S)
+        mcar = _carry_state(rng, device, S)
         _same_twice(f"stream_metrics_carry/{case}",
-                    lambda: stream_metrics_carry(ss, lens, buckets, mcar,
-                                                 base))
+                    lambda: run(ss, lens, buckets, mcar, base))
     # a smaller call after the largest (the grid's records) reuses its
     # workspace
     ss, lens, base, buckets = b6["multiday_chunk"]
-    mcar = carry(ss.shape[0])
-    hist, mom = stream_metrics_carry(ss, lens, buckets, mcar, base)
-    hist_p, mom_p = stream_metrics_carry_plain(ss, lens, buckets, mcar, base)
+    mcar = _carry_state(rng, device, ss.shape[0])
+    hist, mom = run(ss, lens, buckets, mcar, base)
+    hist_p, mom_p = plain(ss, lens, buckets, mcar, base)
     _exact("stream_metrics_carry/multiday_chunk after records/hist", hist,
            hist_p)
     _carry_err("stream_metrics_carry/multiday_chunk after records", mom,
                mom_p)
+    return err
+
+
+def _b7_cases(device: str, seed: int):
+    """B7's cases, (counts, init): the multi-day path's 659-entry chunk,
+    the fidelity shape, widths 0, 1 and 1025 and a 604 800-entry row whose
+    seeded total ends just under 2^31 - 1."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.streamsim import per_second_counts
+    rng = np.random.default_rng(seed + 1)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    day = per_second_counts(_streams(MAIN_SCALE, seed)[0][MAIN_DATASET])
+    day = day.astype(np.int32)               # a day's per-second counts
+    q_np = rng.poisson(120.0, (6, 87_040)).astype(np.int32)
+    ext_lo = 3 * CHUNK_S
+    return {
+        # trend_scan_chunk's input on the multi-day path: the window tail
+        # and one chunk of counts, seeded with the total before them
+        "multiday_ext": (up(day[None, ext_lo - TREND_WINDOW + 1:
+                               ext_lo + CHUNK_S]),
+                         up(np.array([day[:ext_lo - TREND_WINDOW + 1].sum()],
+                                     np.int32))),
+        "fidelity": (ops._pad_cols(up(q_np), ops.TILE),
+                     up(rng.integers(0, 10 ** 6, len(q_np)).astype(
+                         np.int32))),
+        "width0": (up(np.zeros((3, 0), np.int32)),
+                   up(np.array([1, 2, 3], np.int32))),
+        "width1": (up(np.array([[7], [9]], np.int32)),
+                   up(np.array([0, 11], np.int32))),
+        "width1025": (up(rng.poisson(9.0, (2, 1025)).astype(np.int32)),
+                      up(np.array([5, 2 ** 30], np.int32))),
+        "near_limit": (up(np.full((1, 604_800), 3550, np.int32)),
+                       up(np.array([2 ** 31 - 1 - 604_800 * 3550 - 5],
+                                   np.int32))),
+    }
+
+
+def _check_b7(b7, config=None) -> None:
+    """B7 (the instance ``config`` names) bit-equal to its plain version,
+    tail included, at every case; ``init = 0`` equal to B4 of the same
+    instance; two calls in a row bit-identical; a smaller call after a
+    larger one."""
+    import torch
+
+    from repro_torch.kernels.trend_scan import (trend_scan, trend_scan_carry,
+                                                trend_scan_carry_plain)
+
+    def run(q, init):
+        return trend_scan_carry(q, init, config=config)
+
+    for case, (q, init) in b7.items():
+        psum, tail = run(q, init)
+        psum_p, tail_p = trend_scan_carry_plain(q, init)
+        _exact(f"trend_scan_carry/{case}/psum", psum, psum_p)
+        _exact(f"trend_scan_carry/{case}/tail", tail, tail_p)
+        _same_twice(f"trend_scan_carry/{case}", lambda: run(q, init))
+        if q.shape[1]:
+            z, _ = run(q, torch.zeros_like(init))
+            _exact(f"trend_scan_carry/{case}/b4", z,
+                   trend_scan(q, config=config))
+    _, tail = run(*b7["near_limit"])
+    if int(tail[0]) != 2 ** 31 - 6:
+        raise AssertionError("trend_scan_carry/near_limit: wrong tail")
+    # a smaller call after a larger one reuses the larger workspace
+    psum, tail = run(*b7["multiday_ext"])
+    psum_p, tail_p = trend_scan_carry_plain(*b7["multiday_ext"])
+    _exact("trend_scan_carry/multiday_ext after near_limit/psum", psum,
+           psum_p)
+    _exact("trend_scan_carry/multiday_ext after near_limit/tail", tail,
+           tail_p)
+
+
+def check_carry_kernels(device: str, seed: int, cases,
+                        timing_reps: int = 20, plain_reps: int = 3):
+    """Phase 3 for B6 and B7: each against its plain version at every case,
+    B6 with a zero carry against B3 and B7 with ``init = 0`` against B4 bit
+    for bit; returns their timing rows at the shapes the chunked path gives
+    them. ``cases`` holds B1's and B2's outputs kept by
+    :func:`check_kernels`."""
+    import torch
+
+    from repro_torch.kernels.metrics_fused import (stream_metrics_carry,
+                                                   stream_metrics_carry_plain)
+    from repro_torch.kernels.trend_scan import (trend_scan_carry,
+                                                trend_scan_carry_plain)
+    rng = np.random.default_rng(seed)
+
+    def carry(S, zero=False):
+        return _carry_state(rng, device, S, zero)
+
+    b6 = _b6_cases(device, seed, cases)
+    err = _check_b6(b6, device, seed)
 
     def b6_row(case):
         ss, lens, base, buckets = b6[case]
@@ -1056,55 +1253,8 @@ def check_carry_kernels(device: str, seed: int, cases,
             "stream_metrics_carry",
             lambda: stream_metrics_carry(ss, lens, buckets, mcar, base)))}
 
-    # --- B7 cases: (counts, init)
-    def up(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    from repro_torch.streamsim import per_second_counts
-    day = per_second_counts(_streams(MAIN_SCALE, seed)[0][MAIN_DATASET])
-    day = day.astype(np.int32)               # a day's per-second counts
-    q_np = rng.poisson(120.0, (6, 87_040)).astype(np.int32)
-    ext_lo = 3 * CHUNK_S
-    b7 = {
-        # trend_scan_chunk's input on the multi-day path: the window tail
-        # and one chunk of counts, seeded with the total before them
-        "multiday_ext": (up(day[None, ext_lo - TREND_WINDOW + 1:
-                               ext_lo + CHUNK_S]),
-                         up(np.array([day[:ext_lo - TREND_WINDOW + 1].sum()],
-                                     np.int32))),
-        "fidelity": (ops._pad_cols(up(q_np), ops.TILE),
-                     up(rng.integers(0, 10 ** 6, len(q_np)).astype(
-                         np.int32))),
-        "width0": (up(np.zeros((3, 0), np.int32)),
-                   up(np.array([1, 2, 3], np.int32))),
-        "width1": (up(np.array([[7], [9]], np.int32)),
-                   up(np.array([0, 11], np.int32))),
-        "width1025": (up(rng.poisson(9.0, (2, 1025)).astype(np.int32)),
-                      up(np.array([5, 2 ** 30], np.int32))),
-        "near_limit": (up(np.full((1, 604_800), 3550, np.int32)),
-                       up(np.array([2 ** 31 - 1 - 604_800 * 3550 - 5],
-                                   np.int32))),
-    }
-    for case, (q, init) in b7.items():
-        psum, tail = trend_scan_carry(q, init)
-        psum_p, tail_p = trend_scan_carry_plain(q, init)
-        _exact(f"trend_scan_carry/{case}/psum", psum, psum_p)
-        _exact(f"trend_scan_carry/{case}/tail", tail, tail_p)
-        _same_twice(f"trend_scan_carry/{case}",
-                    lambda: trend_scan_carry(q, init))
-        if q.shape[1]:
-            z, _ = trend_scan_carry(q, torch.zeros_like(init))
-            _exact(f"trend_scan_carry/{case}/b4", z, trend_scan(q))
-    _, tail = trend_scan_carry(*b7["near_limit"])
-    if int(tail[0]) != 2 ** 31 - 6:
-        raise AssertionError("trend_scan_carry/near_limit: wrong tail")
-    # a smaller call after a larger one reuses the larger workspace
-    psum, tail = trend_scan_carry(*b7["multiday_ext"])
-    psum_p, tail_p = trend_scan_carry_plain(*b7["multiday_ext"])
-    _exact("trend_scan_carry/multiday_ext after near_limit/psum", psum,
-           psum_p)
-    _exact("trend_scan_carry/multiday_ext after near_limit/tail", tail,
-           tail_p)
+    b7 = _b7_cases(device, seed)
+    _check_b7(b7)
 
     def b7_row(case):
         q, init = b7[case]
@@ -1127,6 +1277,216 @@ def check_carry_kernels(device: str, seed: int, cases,
             "trend_scan_carry",
             lambda: trend_scan_carry(*b7["multiday_ext"])))
     return rows
+
+
+# ----------------------------------------- the tile instances (phase 3)
+#: the families of kernels/tuning.py and the kernels (wrapper names) each
+#: covers
+TUNED = {"stream_sample": ("stream_sample",), "compact": ("compact",),
+         "metrics_fused": ("metrics_fused", "stream_metrics_carry"),
+         "trend_scan": ("trend_scan", "trend_scan_carry"),
+         "pair_stats": ("pair_stats",)}
+
+
+def _label(kernel: str, cfg) -> str:
+    """An instance's name in the tuning line: its record tile, its bucket
+    block (B3/B6: both), or "default" for the default library."""
+    if cfg is None:
+        return "default"
+    if kernel == "pair_stats":
+        return str(cfg.bucket_block)
+    if kernel == "metrics_fused":
+        return f"{cfg.record_tile}/{cfg.bucket_block}"
+    return str(cfg.record_tile)
+
+
+def _non_default(kernel: str):
+    """The family's configs whose instance is not its default library's:
+    every B2 tile (each a library of its one tile), every B5 quantum but
+    the default, and the other families' non-default tiles."""
+    from repro_torch.kernels import compact, metrics_fused, stream_sample
+    from repro_torch.kernels import trend_scan, tuning
+    nd = {"stream_sample": lambda c: stream_sample.defines(c),
+          "compact": lambda c: True,
+          "metrics_fused": lambda c: metrics_fused.defines(c),
+          "trend_scan": lambda c: trend_scan.defines(c),
+          "pair_stats": lambda c: c.bucket_block != trend_scan.PAIR_QUANTUM}
+    return [c for c in tuning.instances(kernel) if nd[kernel](c)]
+
+
+def _library_tiles(kernel: str, cfg):
+    """What the instance's library says its tiles are (proof that the
+    macros reached the build), or None for B5 (a runtime quantum)."""
+    from repro_torch.kernels import _build, metrics_fused, stream_sample
+    from repro_torch.kernels import trend_scan
+
+    def ask(name, symbol, defs):
+        return _build.bind(name, symbol, [], defs)()
+
+    if kernel == "stream_sample":
+        return ask(kernel, "stream_sample_record_tile",
+                   stream_sample.defines(cfg)), cfg.record_tile
+    if kernel == "compact":
+        defs = (("REPRO_RECORD_TILE", cfg.record_tile),)
+        return (ask(kernel, "compact_tile_records", defs),
+                ask(kernel, "compact_large_tile_records", defs)), \
+            (cfg.record_tile, cfg.record_tile)
+    if kernel == "metrics_fused":
+        defs = metrics_fused.defines(cfg)
+        return (ask(kernel, "metrics_record_tile", defs),
+                ask(kernel, "metrics_bucket_block", defs)), \
+            (cfg.record_tile, cfg.bucket_block)
+    if kernel == "trend_scan":
+        return ask(kernel, "trend_scan_tile_entries",
+                   trend_scan.defines(cfg)), cfg.record_tile
+    return None
+
+
+def check_instances(device: str, scale: float, seed: int, cases,
+                    timing_reps: int = 20):
+    """Phase 3 for the tile instances of kernels/tuning.py: each library
+    reports the tiles its macros asked for; every non-default instance of
+    every family is held to its plain version (at the instance's bucket
+    block) at the edge shapes of the default's checks -- B1 and B2 at
+    their edges (:func:`check_sample_compact_edges`), B3 on unsorted rows,
+    B6 under zero and random carries, B4 and B7 up to totals near 2^31,
+    B5 at S = 1 to 130 and K = 0 and 1025 -- and launches one device
+    kernel per call; then every instance, the default included, is timed
+    at the run and sweep shapes (B3 also the original stream, B6 and B7
+    the chunked paths', B4 the week row, B5 S = 37 and the task bench's
+    S = 2). ``cases`` holds B1's inputs and outputs kept by
+    :func:`check_kernels`. Returns ``{"checked", "kernels_per_call",
+    "times"}``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.compact import compact
+    from repro_torch.kernels.metrics_fused import (stream_metrics,
+                                                   stream_metrics_carry)
+    from repro_torch.kernels.stream_sample import stream_sample
+    from repro_torch.kernels.trend_scan import (pair_stats, trend_scan,
+                                                trend_scan_carry)
+    from repro_torch.streamsim.metrics import _bucket_series
+
+    checked = {k: [_label(k, c) for c in _non_default(k)] for k in TUNED}
+    for kernel in TUNED:
+        for cfg in _non_default(kernel):
+            tiles = _library_tiles(kernel, cfg)
+            if tiles is not None and tiles[0] != tiles[1]:
+                raise AssertionError(f"{kernel}/{_label(kernel, cfg)}: the "
+                                     f"library reports tiles {tiles[0]}")
+
+    # the edges, instance by instance
+    for cfg in _non_default("stream_sample"):
+        check_sample_compact_edges(device, scale, seed, b1_config=cfg)
+    for cfg in _non_default("compact"):
+        check_sample_compact_edges(device, scale, seed, b2_config=cfg)
+    main, sweep = cases["main"], cases["sweep"]
+    b_orig, tr = _bucket_series(_streams(scale, seed)[0][MAIN_DATASET],
+                                None, None)
+    width = -(-len(b_orig) // ops.TILE) * ops.TILE
+    sim_buckets = ops._padded_buckets(MAIN_RANGE)
+    smaller = (main["kept"], main["totals"], sim_buckets)
+    b6 = _b6_cases(device, seed, cases)
+    for cfg in _non_default("metrics_fused"):
+        _check_unsorted_b3(device, seed, b_orig, width, smaller, cfg)
+        _check_b6(b6, device, seed, cfg)
+    scan_cases, lengths = _scan_cases(device, scale, seed)
+    b7 = _b7_cases(device, seed)
+    for cfg in _non_default("trend_scan"):
+        _check_scan(scan_cases, cfg)
+        _check_b7(b7, cfg)
+    z_fid = _centered_trends(scan_cases["fidelity"], lengths, 60)
+    pair_cases = _pair_cases(device, seed, z_fid)
+    for cfg in _non_default("pair_stats"):
+        _check_pairs(pair_cases, cfg)
+
+    # each instance's inputs at the timed shapes
+    ssb, lens_o, _ = ops.stream_metrics_inputs([b_orig], tr)
+    ss_o, len_o = (torch.from_numpy(x).to(device) for x in (ssb, lens_o))
+    rng = np.random.default_rng(seed)
+    carry = {c: _carry_state(rng, device, b6[c][0].shape[0])
+             for c in ("grid_chunk0_kept", "multiday_chunk")}
+
+    def calls(kernel, cfg):
+        """{shape: zero-argument call} of one instance."""
+        block = 512 if cfg is None else cfg.bucket_block
+        if kernel == "stream_sample":
+            return {s: (lambda a=c["b1_in"]: stream_sample(*a, config=cfg))
+                    for s, c in (("run", main), ("sweep", sweep))}
+        if kernel == "compact":
+            return {s: (lambda m=c["keep"]: compact(m, config=cfg))
+                    for s, c in (("run", main), ("sweep", sweep))}
+        if kernel == "metrics_fused":
+            def b3(ss, tot, buckets):
+                b = ops._padded_buckets(buckets, block)
+                return lambda: stream_metrics(ss, tot, b, config=cfg)
+
+            def b6_call(case):
+                ss, lens, base, buckets = b6[case]
+                return lambda: stream_metrics_carry(
+                    ss, lens, buckets, carry[case], base, config=cfg)
+
+            return {"original": b3(ss_o, len_o, tr),
+                    "sim": b3(main["kept"], main["totals"], MAIN_RANGE),
+                    "sweep": b3(sweep["kept"], sweep["totals"], MAIN_RANGE),
+                    "carry_grid_chunk0": b6_call("grid_chunk0_kept"),
+                    "carry_multiday_chunk": b6_call("multiday_chunk")}
+        if kernel == "trend_scan":
+            return {"fidelity": lambda: trend_scan(scan_cases["fidelity"],
+                                                   config=cfg),
+                    "week": lambda: trend_scan(scan_cases["week"],
+                                               config=cfg),
+                    "carry_multiday_ext": lambda: trend_scan_carry(
+                        *b7["multiday_ext"], config=cfg),
+                    "carry_fidelity": lambda: trend_scan_carry(
+                        *b7["fidelity"], config=cfg)}
+        return {s: (lambda x=pair_cases[s]: pair_stats(x, config=cfg))
+                for s in ("fidelity", "S37", "S2_K4096")}
+
+    times, per_call = {}, {}
+    for kernel in TUNED:
+        times[kernel] = {}
+        for cfg in [None, *_non_default(kernel)]:
+            label = _label(kernel, cfg)
+            fns = calls(kernel, cfg)
+            times[kernel][label] = {s: _time_ms(fn, timing_reps)
+                                    for s, fn in fns.items()}
+            if cfg is None:
+                continue
+            # one device kernel a call: the family's first shape, and its
+            # carry kernel's (B6, B7)
+            carry_shapes = [s for s in fns if s.startswith("carry_")]
+            for shape in [next(iter(fns)), *carry_shapes[:1]]:
+                per_call[f"{kernel}/{label}/{shape}"] = _kernels_per_call(
+                    f"{kernel}/{label}", fns[shape])
+    return {"checked": checked, "kernels_per_call": per_call,
+            "times": times}
+
+
+def time_instances_chunk(b1_in, timing_reps: int = 20):
+    """B1's and B2's instances at one nine-day chunk (the shape of 54 of
+    their 63 launches on the multi-day path), each held to its plain
+    version there; returns ``{family: {label: ms}}``."""
+    from repro_torch.kernels.compact import compact, compact_plain
+    from repro_torch.kernels.stream_sample import (stream_sample,
+                                                   stream_sample_plain)
+    ss_p, keep = stream_sample_plain(*b1_in)
+    idx_p, tot_p = compact_plain(keep)
+    out = {"stream_sample": {}, "compact": {}}
+    for cfg in [None, *_non_default("stream_sample")]:
+        ss, k = stream_sample(*b1_in, config=cfg)
+        _exact("stream_sample/chunk/ss", ss, ss_p)
+        _exact("stream_sample/chunk/keep", k, keep)
+        out["stream_sample"][_label("stream_sample", cfg)] = _time_ms(
+            lambda: stream_sample(*b1_in, config=cfg), timing_reps)
+    for cfg in [None, *_non_default("compact")]:
+        idx, tot = compact(keep, config=cfg)
+        _exact("compact/chunk/idx", idx, idx_p)
+        _exact("compact/chunk/totals", tot, tot_p)
+        out["compact"][_label("compact", cfg)] = _time_ms(
+            lambda: compact(keep, config=cfg), timing_reps)
+    return out
 
 
 # ----------------------------------------------------------- B8 (phase 3)
@@ -2232,7 +2592,8 @@ def service_worker(rank: int, port: int, store_dir: str, out: str,
         # the libraries the parent built are loaded, not rebuilt (CPU
         # tensors run the plain versions and load none)
         unbuilt = [n for n in _build.kernel_names()
-                   if device != "cpu" and not _build._target(n).exists()]
+                   if device != "cpu" and
+                   not _build._path(_build.target(n)).exists()]
         batches, poison = [], []
         run_batch = svc_mod.SweepService.run_batch
         finalize = svc_mod.SweepService.finalize
@@ -2471,6 +2832,102 @@ def run_multihost_path(device: str, scale: float, seed: int, workdir: Path,
                                   "stats": STAT_TOL}}
 
 
+# --------------------------------------------------- phase 14: tile tuning
+def run_tuning_path(device: str, scale: float, seed: int, workdir: Path,
+                    run_launches):
+    """Phase 14: ``Controller.run`` of phase 4 in a fresh store with
+    ``autotune="force"`` (every key it dispatches swept over its
+    instances, each candidate held to its plain version; none may be
+    dropped), then, its simulated stream deleted so that NSA runs again,
+    with ``autotune="cached"`` in the same store: no sweep (no timer call),
+    launch counts equal phase 4's (``run_launches``), the cache file
+    listing every key the run dispatched, and both runs' simulated streams
+    byte-equal to phase 4's numpy run. Returns the launches of the cached
+    run and the tuning record: each swept key's candidates with their
+    times at the spec shape (the tuner's own timer: min of its reps, host
+    clock around the call and a synchronise) and its winner."""
+    from repro_torch.kernels import tuning
+    from repro_torch.streamsim import Controller, StreamStore
+
+    seen = {"keys": set(), "timer": 0}
+    real_config_for = tuning.KernelTuner.config_for
+    real_time_once = tuning.KernelTuner._time_once
+
+    def config_for(self, kernel, **kw):
+        if self.mode != "off":
+            seen["keys"].add(tuning.TuneKey.from_shape(
+                kernel, s=kw["s"], n=kw["n"], r=kw.get("r", 0),
+                dtype=kw.get("dtype", "int32")).encode())
+        return real_config_for(self, kernel, **kw)
+
+    def time_once(self, fn, dev):
+        seen["timer"] += 1
+        return real_time_once(self, fn, dev)
+
+    def consumer(queue):
+        return {"records_seen": sum(len(b) for b in queue)}
+
+    store_dir = workdir / "tuned"
+    key = f"{MAIN_DATASET}__sim{MAIN_RANGE}"
+    ctl = Controller(str(store_dir), device=device)
+    tuning.KernelTuner.config_for = config_for
+    tuning.KernelTuner._time_once = time_once
+    try:
+        t0 = time.perf_counter()
+        forced = ctl.run(MAIN_DATASET, MAIN_RANGE, consumer, scale=scale,
+                         seed=seed, backend="torch", autotune="force")
+        force_s = time.perf_counter() - t0
+        force_timer, force_keys = seen["timer"], sorted(seen["keys"])
+        _same_sim(StreamStore(store_dir), StreamStore(workdir / "numpy"),
+                  key)
+        StreamStore(store_dir).delete(key)
+        seen["timer"], seen["keys"] = 0, set()
+        _zero_launches()
+        t0 = time.perf_counter()
+        cached = ctl.run(MAIN_DATASET, MAIN_RANGE, consumer, scale=scale,
+                         seed=seed, backend="torch", autotune="cached")
+        cached_s = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        tuning.KernelTuner.config_for = real_config_for
+        tuning.KernelTuner._time_once = real_time_once
+    _same_sim(StreamStore(store_dir), StreamStore(workdir / "numpy"), key)
+    if force_timer == 0 or not force_keys:
+        raise AssertionError("the force run swept nothing")
+    if seen["timer"]:
+        raise AssertionError(f"the cached run timed {seen['timer']} "
+                             "candidates; every key should hit the cache")
+    if launches != run_launches:
+        raise AssertionError(f"cached run launches {launches}, phase 4 "
+                             f"{run_launches}")
+    if forced.simulated_rows != cached.simulated_rows or \
+            cached.consumer_metrics["records_seen"] != cached.simulated_rows:
+        raise AssertionError("the tuned runs' rows differ")
+    kind = tuning.device_kind(device)
+    entries = ctl.store.get_marker(tuning.TUNE_NAMESPACE, kind)["entries"]
+    missing = (set(force_keys) | seen["keys"]) - set(entries)
+    if missing:
+        raise AssertionError(f"keys dispatched but not cached: {missing}")
+    sweeps, dropped = {}, []
+    for tuner in tuning._SHARED.values():
+        if tuner.mode != "force" or tuner.store is None or \
+                Path(tuner.store.root) != Path(ctl.store.root):
+            continue
+        dropped += tuner.dropped()
+        for (_, k), rec in tuner.records.items():
+            sweeps[k.encode()] = rec
+    if dropped:
+        raise AssertionError(f"force sweep dropped candidates: {dropped}")
+    if set(sweeps) != set(force_keys):
+        raise AssertionError(f"swept {sorted(sweeps)}, dispatched "
+                             f"{force_keys}")
+    return launches, {
+        "kind": kind, "force_s": force_s, "cached_s": cached_s,
+        "force_timer_calls": force_timer, "cached_timer_calls": 0,
+        "simulated_rows": cached.simulated_rows, "cache": entries,
+        "sweeps": sweeps}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2509,7 +2966,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, tuning
 
     # f32 products in full f32 everywhere (the consumer LM and the
     # yardsticks), whatever the installation's defaults
@@ -2522,10 +2979,14 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build_all()
+    instances = [t for t in tuning.lattice_builds() if t[1]]
+    _build.build_all(instances=instances)
     build_s = time.perf_counter() - t0
-    print(f"build: {len(_build.kernel_names())} sources (kernels B1-B8) in "
+    print(f"build: {len(_build.kernel_names())} sources (kernels B1-B8) and "
+          f"{len(instances)} tile instances, one nvcc each, in "
           f"{build_s:.1f} s")
+    for name, secs in sorted(_build.build_seconds.items()):
+        print(f"  {name}: {secs:.1f} s")
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2538,6 +2999,7 @@ def main() -> int:
     print(json.dumps({"b1_b2_edges": edges}), flush=True)
     rows.update(check_trend_kernels("cuda", MAIN_SCALE, MAIN_SEED))
     rows.update(check_carry_kernels("cuda", MAIN_SEED, cases))
+    tiles = check_instances("cuda", MAIN_SCALE, MAIN_SEED, cases)
     cases.clear()
     rows.update(check_decode_kernel("cuda", MAIN_SEED))
     check_s = time.perf_counter() - t0
@@ -2559,6 +3021,9 @@ def main() -> int:
         print(json.dumps({"multiday": multiday}), flush=True)
         for name, row in check_chunk_shape(chunk_in).items():
             rows[name]["chunk"] = row
+        for name, row in time_instances_chunk(chunk_in).items():
+            for label, ms in row.items():
+                tiles["times"][name][label]["chunk"] = ms
         del chunk_in
         serve_launches, serve = run_serve_path(Path(tmp))
         print(json.dumps({"serve": serve}), flush=True)
@@ -2576,12 +3041,19 @@ def main() -> int:
         mh_launches, multihost = run_multihost_path(
             "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp), mono)
         print(json.dumps({"multihost": multihost}), flush=True)
+        tune_launches, tuned = run_tuning_path(
+            "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp), run_launches)
+        print(json.dumps({"tuning": dict(
+            card=_card_line(), build_s=build_s,
+            instance_build_s=dict(sorted(_build.build_seconds.items())),
+            **tiles, run=tuned)}), flush=True)
 
     by_path = {"run": run_launches, "run_many": sweep_launches,
                "run_many_chunked": chunked_launches, "multiday": md_launches,
                "serve": serve_launches, "serve_llama3": llama_launches,
                "taskbench": tb_launches, "api": api_launches,
-               "service": svc_launches, "multihost": mh_launches}
+               "service": svc_launches, "multihost": mh_launches,
+               "tuning": tune_launches}
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
                           "src/repro/kernels/stream_sample.py:146",

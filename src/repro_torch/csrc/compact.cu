@@ -42,6 +42,9 @@
 // a thread, four 16-byte loads in flight) when the call has at least one
 // such tile per SM, else 4096 (16 bytes a thread), so that a small call
 // (one row of a nine-day chunk, ~2 M records) still spreads over the card.
+// A library built with -DREPRO_RECORD_TILE (the tile tuner's record_tile,
+// kernels/tuning.py: 4096, 8192 or 16384) holds that one tile size and
+// launches it at every shape.
 //
 // What bounds it: bytes. Each mask byte is read once and each idx slot
 // written once (by its kept record or by the fill), 5 B per record, the
@@ -68,8 +71,16 @@ namespace {
 using namespace lookback;
 
 constexpr int kThreads = 256;
+#ifdef REPRO_RECORD_TILE                     // one instance
+constexpr int kSmallVecs = REPRO_RECORD_TILE / (kThreads * 16);
+constexpr int kLargeVecs = kSmallVecs;
+static_assert(kThreads * 16 * kSmallVecs == REPRO_RECORD_TILE &&
+                  kSmallVecs >= 1 && kSmallVecs <= 4,
+              "a tile of 4096, 8192, 12288 or 16384 records");
+#else                                        // both, chosen from the shape
 constexpr int kSmallVecs = 1;                // 16-byte mask loads a thread
 constexpr int kLargeVecs = 4;
+#endif
 constexpr int kSmallTile = kThreads * 16 * kSmallVecs;   // 4096 records
 constexpr int kLargeTile = kThreads * 16 * kLargeVecs;   // 16384 records
 
@@ -270,11 +281,14 @@ extern "C" {
 // small tile, which is enough for either tile size.
 int compact_tile_records() { return kSmallTile; }
 
+// Records per large tile (the one tile of a single-instance library).
+int compact_large_tile_records() { return kLargeTile; }
+
 // Largest epoch a call may pass (epochs run 1 .. this, then the caller
 // clears the status array once and starts again at 1).
 unsigned compact_max_epoch() { return kEpochMask; }
 
-// mask (R, N) uint8 contiguous; status (R, ceil(N / 4096)) 8-byte words
+// mask (R, N) uint8 contiguous; status (R, ceil(N / tile_records)) words
 // and counter (one unsigned) from a per-stream workspace, zeroed when it
 // was allocated; epoch this call's number, 1 .. max_epoch, other than the
 // previous call's on this workspace; idx (R, N) int32 and totals (R,)
@@ -297,7 +311,7 @@ int compact_launch(const void* mask, int rows, int n, void* status,
   const auto* m = static_cast<const unsigned char*>(mask);
   const long long large_tiles =
       static_cast<long long>(rows) * ((n + kLargeTile - 1) / kLargeTile);
-  if (large_tiles >= c.sms)
+  if (kSmallVecs == kLargeVecs || large_tiles >= c.sms)
     return launch<kLargeVecs>(m, rows, n, c.resident_large, epoch, status,
                               counter, idx, totals, st);
   return launch<kSmallVecs>(m, rows, n, c.resident_small, epoch, status,

@@ -1,7 +1,7 @@
 // Pieces of the single-pass scan with decoupled look-back (Merrill &
 // Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
 // NVIDIA 2016) that the look-back kernels share: the block-wide scan, the
-// epoch-stamped 64-bit status words and the warp's walk back over them.
+// epoch-stamped 64-bit status words and the block's walk back over them.
 // Included by trend_scan.cu (B4, B7), compact.cu (B2) and metrics_fused.cu
 // (B3, B6, whose span words are status words); kernels/_build.py hashes
 // every header of csrc/ into each library's name, so an edit here rebuilds
@@ -82,38 +82,11 @@ __device__ __forceinline__ unsigned flag_of(unsigned long long w,
              ? static_cast<unsigned>(w >> 32) & 3u : 0u;
 }
 
-// The exclusive prefix of tile j > 0 of a row, called by a whole warp:
-// it sums the published aggregates of tiles j-1, j-2, ... down to the
-// nearest inclusive prefix, 32 tiles at a time.
-__device__ __forceinline__ unsigned look_back(
-    const unsigned long long* row_status, int j, unsigned epoch) {
-  const int lane = threadIdx.x & 31;
-  unsigned prefix = 0u;
-  for (int k = j - 1;; k -= 32) {
-    const int idx = k - lane;          // lane 0 is the nearest predecessor
-    unsigned long long w = 0ull;
-    unsigned flag = kInclusive;        // lanes before tile 0 never count
-    do {
-      if (idx >= 0) {
-        w = peek(row_status + idx);
-        flag = flag_of(w, epoch);
-      }
-    } while (__any_sync(0xffffffffu, flag == 0u));
-    const unsigned inclusive = __ballot_sync(0xffffffffu, flag == kInclusive);
-    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
-    unsigned v = (lane <= stop && idx >= 0) ? static_cast<unsigned>(w) : 0u;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    prefix += v;
-    if (inclusive) return prefix;
-  }
-}
-
 // The exclusive prefix of tile j > 0 of a row, called by the whole block:
-// as look_back, with one thread per preceding tile, kBlock tiles at a
-// time. A block waiting in a chain of look-backs otherwise idles all but
-// one warp; the wider window reaches the nearest inclusive prefix in
-// kBlock / 32 times fewer rounds.
+// it sums the published aggregates of tiles j-1, j-2, ... down to the
+// nearest inclusive prefix, one thread per preceding tile, kBlock tiles a
+// round (a warp's walk, 32 a round, idles the rest of a waiting block and
+// needs kBlock / 32 times the rounds).
 template <int kBlock>
 __device__ __forceinline__ unsigned block_look_back(
     const unsigned long long* row_status, int j, unsigned epoch) {

@@ -24,7 +24,7 @@
 //      call's epoch.
 //   2. Tile groups (the next rows * groups tickets). Group g of a row
 //      counts its tiles g, g + groups, g + 2 groups, ... of kTile records
-//      (at most `group` of them, 16 records a thread, four 16-byte loads
+//      (at most `group` of them, kItems records a thread in 16-byte loads
 //      where the row allows, the next tile's loads issued before the
 //      current one is counted) below lengths[s], so that a row's counted
 //      prefix spreads over as many blocks as it has tiles. It first notes
@@ -41,15 +41,16 @@
 //      shape and the card's resident blocks.
 //   3. The fold. Every span and every tile group within the row's length
 //      takes the row's count ticket after a __threadfence(). Where a row
-//      has at most kPieceBlocks 512-bucket blocks, the block that takes
-//      the last one computes the partials and folds them. Else the last
-//      tickets of the launch are pieces, kPieceBlocks blocks of a row
-//      each: a piece waits until the row's count ticket is full, computes
+//      has at most kPieceBlocks blocks of kBucketBlock buckets (512 by
+//      default), the block that takes the last one computes the partials
+//      and folds them. Else the last tickets of the launch are pieces,
+//      kPieceBlocks blocks of a row each: a piece waits until the row's
+//      count ticket is full, computes
 //      its partials, writes them to the workspace and takes the row's
 //      piece ticket; the last piece folds them all. (One block reading
 //      the original stream's 346 KB histogram is held to one SM's share
 //      of the L2 bandwidth; 11 pieces read it in one round trip each.)
-//   A partial is the f32 sums of q and q^2 over one 512-bucket block, read
+//   A partial is the f32 sums of q and q^2 over one block, read
 //   through L2 (__ldcg), a per-lane running sum over j * 32 + lane, then
 //   the xor butterfly, one warp a block; thread 0 folds the partials in
 //   block order with Kahan compensation, as
@@ -92,13 +93,26 @@ namespace {
 using lookback::kEpochMask;
 using lookback::peek;
 
+// The tile tuner's record_tile and bucket_block (kernels/tuning.py), built
+// into their own library with -DREPRO_RECORD_TILE and -DREPRO_BUCKET_BLOCK;
+// 4096 and 512 by default.
+#ifndef REPRO_RECORD_TILE
+#define REPRO_RECORD_TILE 4096
+#endif
+#ifndef REPRO_BUCKET_BLOCK
+#define REPRO_BUCKET_BLOCK 512
+#endif
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 16;                      // stamps per thread
-constexpr int kTile = kThreads * kItems;        // 4096 records per tile
+constexpr int kTile = REPRO_RECORD_TILE;        // records per tile
+constexpr int kItems = kTile / kThreads;        // stamps per thread
 constexpr int kSmemBins = 4096;                 // privatised range, 16 KB
 constexpr int kSpan = kThreads * 16;            // buckets zeroed per span
-constexpr int kBucketBlock = 512;               // moment partial width
+constexpr int kBucketBlock = REPRO_BUCKET_BLOCK;  // moment partial width
+static_assert(kItems * kThreads == kTile && kItems % 4 == 0,
+              "whole 16-byte loads a thread");
+static_assert(kBucketBlock % 32 == 0 && kSpan % 4 == 0,
+              "a warp's lanes over a partial; 16-byte span zeroing");
 constexpr int kPieceBlocks = 2 * kWarps;        // partials a block computes
 constexpr int kFoldMax = 256;                   // partials folded at once
 constexpr int kMinBlocks = 4;                   // resident blocks an SM
@@ -250,10 +264,10 @@ __device__ __forceinline__ void count_tile(
 }
 
 // ---------------------------------------------------------- moments
-// Partials of 512-bucket blocks [b0, b1) (at most kPieceBlocks) of the
-// row's histogram h, read through L2, into p1[b - b0] and p2[b - b0]: a
-// per-lane running sum over j * 32 + lane, then the xor butterfly, one
-// warp a block. Ends with a __syncthreads().
+// Partials of kBucketBlock-bucket blocks [b0, b1) (at most kPieceBlocks)
+// of the row's histogram h, read through L2, into p1[b - b0] and
+// p2[b - b0]: a per-lane running sum over j * 32 + lane, then the xor
+// butterfly, one warp a block. Ends with a __syncthreads().
 __device__ void block_partials(const int* h, int b0, int b1, float* p1,
                                float* p2) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -611,6 +625,9 @@ extern "C" {
 int metrics_span_buckets() { return kSpan; }
 int metrics_bucket_block() { return kBucketBlock; }
 
+// Records a tile holds in this library (its REPRO_RECORD_TILE).
+int metrics_record_tile() { return kTile; }
+
 // Largest epoch a call may pass (epochs run 1 .. this, then the caller
 // clears the span words once and starts again at 1).
 unsigned metrics_max_epoch() { return kEpochMask; }
@@ -621,7 +638,7 @@ unsigned metrics_max_epoch() { return kEpochMask; }
 // allocated;
 // epoch this call's number, 1 .. max_epoch, other than the previous
 // call's on this workspace; hist (S, buckets) int32, 16-byte aligned,
-// no initial value needed, buckets % 512 == 0; mom (S, 2) f32.
+// no initial value needed, buckets % bucket_block == 0; mom (S, 2) f32.
 int metrics_launch(const void* ss, const void* lengths, int rows, int n,
                    int buckets, void* words, void* counters, unsigned epoch,
                    void* hist, void* mom, void* stream) {

@@ -50,10 +50,18 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// Records a block takes: the tile tuner's record_tile (kernels/tuning.py),
+// built into its own library with -DREPRO_RECORD_TILE; 2048 by default.
+// Every instance keeps the 8-record vector layout and varies the block.
+#ifndef REPRO_RECORD_TILE
+#define REPRO_RECORD_TILE 2048
+#endif
 constexpr int kItems = 8;                    // records per thread
-constexpr int kTile = kThreads * kItems;     // 2048 records per block
+constexpr int kTile = REPRO_RECORD_TILE;     // records per block
+constexpr int kThreads = kTile / kItems;
 static_assert(kItems == 8, "two 16-byte loads of t, one 8-byte keep word");
+static_assert(kTile % (32 * kItems) == 0 && kThreads <= 1024,
+              "whole warps, at most 1024 threads a block");
 
 // kVec: n % kItems == 0 and the pointers aligned, so every thread's group
 // is whole and loads and stores as vectors.
@@ -153,6 +161,9 @@ stream_sample_kernel(const float* __restrict__ t,
 }
 
 }  // namespace
+
+// Records a block takes in this library (its REPRO_RECORD_TILE).
+extern "C" int stream_sample_record_tile() { return kTile; }
 
 extern "C" int stream_sample_launch(const void* t, const void* starts,
                                     const void* counts, const void* ktab,

@@ -20,15 +20,19 @@
 // memory instead, in one launch: a single-pass scan with decoupled
 // look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
 // Decoupled Look-back", NVIDIA 2016).
-//   - Each block draws the next 2048-entry tile (row-major over the rows'
-//     tiles) from an atomic counter, so every tile it waits on belongs to a
-//     block that is already running.
+//   - Each block draws the next tile of kTile entries (2048 unless the
+//     library was built with another -DREPRO_RECORD_TILE, the tile
+//     tuner's record_tile, kernels/tuning.py), row-major over the rows'
+//     tiles, from an atomic counter, so every tile it waits on belongs to
+//     a block that is already running.
 //   - It scans its tile in registers and shared memory and publishes the
 //     tile's total as an AGGREGATE status word; tile 0 of a row publishes
 //     its INCLUSIVE prefix (the seed plus its total) at once.
-//   - Warp 0 then walks back over the row's preceding tiles 32 at a time,
-//     summing aggregates until it meets an inclusive prefix, publishes its
-//     own inclusive prefix and hands the exclusive one to the block.
+//   - The whole block then walks back over the row's preceding tiles 256
+//     at a time (block_look_back, as B2 does), summing aggregates until it
+//     meets an inclusive prefix, and publishes its own inclusive prefix.
+//     A warp's walk, 32 tiles a round, needs eight times the rounds over
+//     a long chain (296 tiles on the week row) while seven warps idle.
 //   - The row's last tile writes tail[r] (B7).
 // The status words carry the call's epoch, so the status array needs no
 // clearing between calls (csrc/lookback.cuh, shared with B2). The block
@@ -58,19 +62,31 @@ namespace {
 
 using namespace lookback;
 
+#ifndef REPRO_RECORD_TILE
+#define REPRO_RECORD_TILE 2048
+#endif
 constexpr int kThreads = 256;
-constexpr int kItems = 8;                    // counts per thread
-constexpr int kTile = kThreads * kItems;     // 2048 entries per block
+constexpr int kTile = REPRO_RECORD_TILE;     // entries per block
+constexpr int kItems = kTile / kThreads;     // counts per thread
+static_assert(kItems * kThreads == kTile && kItems % 4 == 0,
+              "whole 16-byte loads a thread");
 
-// This thread's 8 counts (0 past the row end).
+// This thread's kItems counts (0 past the row end).
 __device__ __forceinline__ void load_items(const int* row, long long n,
                                            long long i0, bool vec_ok,
                                            unsigned v[kItems]) {
   if (vec_ok && i0 + kItems <= n) {
-    const int4 a = *reinterpret_cast<const int4*>(row + i0);
-    const int4 b = *reinterpret_cast<const int4*>(row + i0 + 4);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    int4 u[kItems / 4];
+#pragma unroll
+    for (int k = 0; k < kItems / 4; ++k)
+      u[k] = *reinterpret_cast<const int4*>(row + i0 + 4 * k);
+#pragma unroll
+    for (int k = 0; k < kItems / 4; ++k) {
+      v[4 * k] = u[k].x;
+      v[4 * k + 1] = u[k].y;
+      v[4 * k + 2] = u[k].z;
+      v[4 * k + 3] = u[k].w;
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < kItems; ++j)
@@ -92,7 +108,7 @@ scan_lookback(const int* __restrict__ q, const int* __restrict__ init,
     if (kCarry && r < rows) tail[r] = init[r];
     return;
   }
-  __shared__ unsigned s_tile, s_prefix;
+  __shared__ unsigned s_tile;
   if (threadIdx.x == 0) {
     const unsigned t = atomicAdd(counter, 1u);
     if (t == static_cast<unsigned>(rows) * n_tiles - 1u)
@@ -114,27 +130,21 @@ scan_lookback(const int* __restrict__ q, const int* __restrict__ init,
   const unsigned excl = block_exclusive_scan<kThreads>(c, &total);
 
   unsigned long long* row_status = status + static_cast<size_t>(r) * n_tiles;
-  if (threadIdx.x < 32) {
-    unsigned prefix = 0u;
-    if (j == 0) {
-      if constexpr (kCarry) prefix = static_cast<unsigned>(init[r]);
-      if (threadIdx.x == 0 && n_tiles > 1)
-        publish(row_status, epoch, kInclusive, prefix + total);
-    } else {
-      if (threadIdx.x == 0) publish(row_status + j, epoch, kAggregate, total);
-      prefix = look_back(row_status, j, epoch);
-      if (threadIdx.x == 0 && j + 1 < n_tiles)
-        publish(row_status + j, epoch, kInclusive, prefix + total);
-    }
-    if (threadIdx.x == 0) {
-      s_prefix = prefix;
-      if (kCarry && j == n_tiles - 1)
-        tail[r] = static_cast<int>(prefix + total);
-    }
+  unsigned prefix = 0u;                // the same in every thread
+  if (j == 0) {
+    if constexpr (kCarry) prefix = static_cast<unsigned>(init[r]);
+    if (threadIdx.x == 0 && n_tiles > 1)
+      publish(row_status, epoch, kInclusive, prefix + total);
+  } else {
+    if (threadIdx.x == 0) publish(row_status + j, epoch, kAggregate, total);
+    prefix = block_look_back<kThreads>(row_status, j, epoch);
+    if (threadIdx.x == 0 && j + 1 < n_tiles)
+      publish(row_status + j, epoch, kInclusive, prefix + total);
   }
-  __syncthreads();
+  if (kCarry && threadIdx.x == 0 && j == n_tiles - 1)
+    tail[r] = static_cast<int>(prefix + total);
 
-  unsigned acc = s_prefix + excl;
+  unsigned acc = prefix + excl;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     acc += v[i];
@@ -142,12 +152,11 @@ scan_lookback(const int* __restrict__ q, const int* __restrict__ init,
   }
   int* out = psum + row_off;
   if (vec_ok && i0 + kItems <= n) {
-    *reinterpret_cast<int4*>(out + i0) = make_int4(
-        static_cast<int>(v[0]), static_cast<int>(v[1]),
-        static_cast<int>(v[2]), static_cast<int>(v[3]));
-    *reinterpret_cast<int4*>(out + i0 + 4) = make_int4(
-        static_cast<int>(v[4]), static_cast<int>(v[5]),
-        static_cast<int>(v[6]), static_cast<int>(v[7]));
+#pragma unroll
+    for (int k = 0; k < kItems / 4; ++k)
+      *reinterpret_cast<int4*>(out + i0 + 4 * k) = make_int4(
+          static_cast<int>(v[4 * k]), static_cast<int>(v[4 * k + 1]),
+          static_cast<int>(v[4 * k + 2]), static_cast<int>(v[4 * k + 3]));
   } else {
 #pragma unroll
     for (int i = 0; i < kItems; ++i)
@@ -189,8 +198,8 @@ int trend_scan_tile_entries() { return kTile; }
 // clears the status array once and starts again at 1).
 unsigned trend_scan_max_epoch() { return kEpochMask; }
 
-// B4. q, psum (R, N) int32 contiguous; status (R, ceil(N / 2048)) 8-byte
-// words and counter (one unsigned) from a per-stream workspace, zeroed
+// B4. q, psum (R, N) int32 contiguous; status (R, ceil(N / tile_entries))
+// 8-byte words and counter (one unsigned) from a per-stream workspace, zeroed
 // when it was allocated; epoch this call's number, 1 .. max_epoch, other
 // than the previous call's on this workspace.
 int trend_scan_launch(const void* q, int rows, int n, void* status,

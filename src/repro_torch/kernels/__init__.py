@@ -19,5 +19,7 @@ Each module holds the kernel's wrapper (CUDA tensors launch the kernel,
 CPU tensors run the plain version; each launch adds one to the wrapper's
 ``launches`` count) and its plain PyTorch version. :mod:`repro_torch.
 kernels.ops` builds the inputs; :mod:`repro_torch.kernels._build` compiles
-``csrc/*.cu`` with ``nvcc`` at first use.
+``csrc/*.cu`` with ``nvcc`` at first use, once per tile instance;
+:mod:`repro_torch.kernels.tuning` chooses the instance a dispatch launches
+(``autotune``).
 """

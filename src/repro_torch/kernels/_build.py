@@ -8,6 +8,12 @@ and a stale library is never loaded. Nothing here runs at import time: a
 kernel is built the first time its wrapper launches it, or all at once,
 in parallel, by :func:`build_all`.
 
+A source may be built more than once, as instances of its tile sizes: a
+library is keyed by ``(name, defines)``, ``defines`` a sorted tuple of
+``(macro, value)`` pairs passed to ``nvcc`` as ``-Dmacro=value`` (the tile
+tuner's configs, :mod:`repro_torch.kernels.tuning`). ``()`` is the default
+library, built with no macro, whose tiles are the source's own defaults.
+
 The C entry points take every device pointer and the CUDA stream as
 ``void*`` and return ``cudaGetLastError()`` after the launch; :func:`check`
 turns a non-zero code into an exception.
@@ -22,8 +28,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -34,11 +41,17 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: one library: a source's name and its ``-D`` macros, sorted
+Target = Tuple[str, Tuple[Tuple[str, int], ...]]
+
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Target, ctypes.CDLL] = {}
 #: ``nvcc`` standard error of each build (``-Xptxas -v`` register and
-#: shared-memory report), by kernel name
+#: shared-memory report), by kernel name (a source with macros: the name
+#: and the macros, as :func:`label` gives them)
 build_logs: Dict[str, str] = {}
+#: seconds each build took, by the same label
+build_seconds: Dict[str, float] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -57,43 +70,60 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def label(target: Target) -> str:
+    """``name`` for a default library, ``name[MACRO=value,...]`` else."""
+    name, defines = target
+    if not defines:
+        return name
+    return f"{name}[{','.join(f'{k}={v}' for k, v in defines)}]"
+
+
+def _flags(defines) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{k}={int(v)}" for k, v in defines)
+
+
+def _path(target: Target) -> Path:
     """The library's path: named by a hash of the source, every header of
-    ``csrc/`` (which any source may include) and the flags."""
+    ``csrc/`` (which any source may include) and the flags, macros
+    included."""
+    name, defines = target
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(repr(NVCC_FLAGS).encode())
+    digest.update(repr(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for one source unless its library is already built.
-    Returns ``(process, temporary output path)`` or None; the output is
-    renamed into place by :func:`_finish`."""
-    if _target(name).exists():
+def _start(target: Target):
+    """Start ``nvcc`` for one library unless it is already built. Returns
+    ``(process, temporary output path, start time)`` or None; the output
+    is renamed into place by :func:`_finish`."""
+    if _path(target).exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
+    name, defines = target
     proc = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        [nvcc_path(), *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, tmp
+    return proc, tmp, time.perf_counter()
 
 
-def _finish(name: str, started) -> None:
+def _finish(target: Target, started) -> None:
     if started is None:
         return
-    proc, tmp = started
+    proc, tmp, t0 = started
+    key = label(target)
     try:
         out, err = proc.communicate()
-        build_logs[name] = (out or "") + (err or "")
+        build_seconds[key] = time.perf_counter() - t0
+        build_logs[key] = (out or "") + (err or "")
         if proc.returncode != 0:
             raise KernelBuildError(
-                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                f"{build_logs[name]}")
-        os.replace(tmp, _target(name))
+                f"nvcc failed for {key} (exit {proc.returncode}):\n"
+                f"{build_logs[key]}")
+        os.replace(tmp, _path(target))
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -103,38 +133,64 @@ def kernel_names() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_all(names: Optional[Iterable[str]] = None) -> None:
-    """Compile every named source (default: all of ``csrc/``) with one
-    ``nvcc`` process each, all started together, and wait for them."""
-    names = list(kernel_names() if names is None else names)
+def target(name: str, defines=()) -> Target:
+    """``(name, defines)`` with the macros sorted, as libraries are keyed."""
+    return name, tuple(sorted((str(k), int(v)) for k, v in defines))
+
+
+def build_many(targets: Iterable) -> Dict[Target, str]:
+    """Compile every target (a source name, or ``(name, defines)``) not yet
+    built, one ``nvcc`` process each, all started together; returns the
+    error of each build that failed (empty when all succeeded)."""
+    targets = [target(t) if isinstance(t, str) else target(*t)
+               for t in targets]
+    failed: Dict[Target, str] = {}
     with _lock:
-        started = [(n, _start(n)) for n in names]
-        errors = []
-        for n, st in started:
+        started = []
+        for t in dict.fromkeys(targets):
             try:
-                _finish(n, st)
+                started.append((t, _start(t)))
             except KernelBuildError as e:
-                errors.append(str(e))
-        if errors:
-            raise KernelBuildError("\n".join(errors))
+                failed[t] = str(e)
+        for t, st in started:
+            try:
+                _finish(t, st)
+            except KernelBuildError as e:
+                failed[t] = str(e)
+    return failed
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
+def build_all(names: Optional[Iterable[str]] = None,
+              instances: Iterable = ()) -> None:
+    """Compile every named source (default: all of ``csrc/``) and every
+    ``(name, defines)`` instance with one ``nvcc`` process each, all
+    started together, and wait for them; raises if any build failed."""
+    names = list(kernel_names() if names is None else names)
+    failed = build_many([*names, *instances])
+    if failed:
+        raise KernelBuildError("\n".join(failed.values()))
+
+
+def library(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` with ``defines`` (a
+    sequence of ``(macro, value)``; empty: the default library), built on
+    first use."""
+    key = target(name, defines)
+    lib = _libs.get(key)
     if lib is not None:
         return lib
     with _lock:
-        if name not in _libs:
-            _finish(name, _start(name))
-            _libs[name] = ctypes.CDLL(str(_target(name)))
-        return _libs[name]
+        if key not in _libs:
+            _finish(key, _start(key))
+            _libs[key] = ctypes.CDLL(str(_path(key)))
+        return _libs[key]
 
 
-def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """One C entry point with its argument types declared (pointers and
-    the stream as ``c_void_p`` so ctypes never truncates them)."""
-    fn = getattr(library(name), symbol)
+def bind(name: str, symbol: str, argtypes, defines=()) -> ctypes._CFuncPtr:
+    """One C entry point of the library :func:`library` gives, with its
+    argument types declared (pointers and the stream as ``c_void_p`` so
+    ctypes never truncates them)."""
+    fn = getattr(library(name, defines), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

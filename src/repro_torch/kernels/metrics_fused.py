@@ -14,11 +14,19 @@ Each wrapper launches ``csrc/metrics_fused.cu`` for CUDA tensors (one
 launch per call: the histogram's zeroing, the counting and the moment
 fold in one kernel, with its span words and done-tickets kept in a
 per-stream workspace) and runs its plain version for CPU tensors. Counts
-are exact; moments are f32 partials over ``BUCKET_BLOCK``-bucket blocks
-folded with Kahan compensation (``repro/kernels/metrics_fused.py:118-132``),
-within 1e-5 relative of f64. Kernel and plain version add the partials in
+are exact; moments are f32 partials over ``bucket_block``-bucket blocks
+(``BUCKET_BLOCK`` = 512 unless a tile config says otherwise) folded with
+Kahan compensation (``repro/kernels/metrics_fused.py:118-132``), within
+1e-5 relative of f64. Kernel and plain version add the partials in
 different orders, so their moments agree to that tolerance, not bit for
 bit; within each, B6 with a zero carry gives B3's result bit for bit.
+
+A tile config (:class:`repro_torch.kernels.tuning.TileConfig`) chooses the
+kernel's instance: ``record_tile`` records a tile, one of
+:data:`RECORD_TILES` (no output changes), and ``bucket_block`` buckets a
+moment partial, one of :data:`BUCKET_BLOCKS` (the moments change in their
+last bits; the plain versions take the same ``bucket_block``). The
+histogram width must be a multiple of the config's ``bucket_block``.
 """
 
 from __future__ import annotations
@@ -32,16 +40,46 @@ from repro_torch.kernels import _build
 
 BUCKET_BLOCK = 512
 
+#: the kernel's instances: records a tile and buckets a moment partial
+#: (the default library's are 4096 and ``BUCKET_BLOCK``)
+RECORD_TILES = (2048, 4096, 8192)
+BUCKET_BLOCKS = (256, 512, 1024)
+DEFAULT_RECORD_TILE = 4096
 
-def _kahan_fold(hist, state):
-    """Fold the block partials of q and q² (f32, ``BUCKET_BLOCK``-bucket
-    blocks) into the per-row Kahan state ``(S, 4)`` float32
-    ``[s1, c1, s2, c2]``, in block order; returns the updated state."""
+
+def bucket_block_of(config) -> int:
+    """The moment partial width ``config`` asks for (``None``: the
+    default)."""
+    return BUCKET_BLOCK if config is None else int(config.bucket_block)
+
+
+def defines(config) -> tuple:
+    """The ``-D`` macros of ``config``'s instance (``()``: the default
+    library); raises for a tile that has no instance."""
+    if config is None:
+        return ()
+    rt, bb = config.record_tile, config.bucket_block
+    if rt not in RECORD_TILES or bb not in BUCKET_BLOCKS:
+        raise ValueError(f"metrics_fused: ({rt}, {bb}) has no instance; "
+                         f"record_tile in {RECORD_TILES}, bucket_block in "
+                         f"{BUCKET_BLOCKS}")
+    out = []
+    if rt != DEFAULT_RECORD_TILE:
+        out.append(("REPRO_RECORD_TILE", rt))
+    if bb != BUCKET_BLOCK:
+        out.append(("REPRO_BUCKET_BLOCK", bb))
+    return tuple(out)
+
+
+def _kahan_fold(hist, state, block: int = BUCKET_BLOCK):
+    """Fold the block partials of q and q² (f32, ``block``-bucket blocks)
+    into the per-row Kahan state ``(S, 4)`` float32 ``[s1, c1, s2, c2]``,
+    in block order; returns the updated state."""
     S, B = hist.shape
-    q = hist.to(torch.float32).reshape(S, B // BUCKET_BLOCK, BUCKET_BLOCK)
+    q = hist.to(torch.float32).reshape(S, B // block, block)
     p1, p2 = q.sum(dim=2), (q * q).sum(dim=2)
     s1, c1, s2, c2 = state.to(torch.float32).unbind(dim=1)
-    for blk in range(B // BUCKET_BLOCK):
+    for blk in range(B // block):
         y1 = p1[:, blk] - c1
         t1 = s1 + y1
         c1 = (t1 - s1) - y1
@@ -53,20 +91,21 @@ def _kahan_fold(hist, state):
     return torch.stack([s1, c1, s2, c2], dim=1)
 
 
-def _kahan_moments(hist):
+def _kahan_moments(hist, block: int = BUCKET_BLOCK):
     """``[Σq, Σq²]`` of each row, ``(S, 2)`` float32: the fold from a zero
     state."""
     zero = torch.zeros((hist.shape[0], 4), dtype=torch.float32,
                        device=hist.device)
-    return _kahan_fold(hist, zero)[:, ::2].contiguous()
+    return _kahan_fold(hist, zero, block)[:, ::2].contiguous()
 
 
-def _histogram(ss, lengths, buckets: int, base: int = 0):
+def _histogram(ss, lengths, buckets: int, base: int = 0,
+               block: int = BUCKET_BLOCK):
     """Per-row int32 histogram: record ``i`` of row ``s`` counts in bucket
     ``ss - base`` iff ``i < lengths[s]`` and ``0 <= ss - base < buckets``."""
-    if buckets % BUCKET_BLOCK:
+    if buckets % block:
         raise ValueError(f"buckets {buckets} must be a multiple of "
-                         f"{BUCKET_BLOCK}")
+                         f"{block}")
     S, n = ss.shape
     i = torch.arange(n, device=ss.device)[None, :]
     local = ss.long() - int(base)
@@ -78,73 +117,75 @@ def _histogram(ss, lengths, buckets: int, base: int = 0):
     return hist[:, :buckets].contiguous()
 
 
-def stream_metrics_plain(ss, lengths, buckets: int):
+def stream_metrics_plain(ss, lengths, buckets: int, *,
+                         bucket_block: int = BUCKET_BLOCK):
     """Plain PyTorch version of B3 (any device).
 
     ss      : (S, N) int32 scale stamps (any order).
     lengths : (S,) int32; record ``i`` of row ``s`` counts iff
               ``i < lengths[s]`` and ``0 <= ss[s, i] < buckets``.
-    buckets : histogram width, a multiple of ``BUCKET_BLOCK``.
+    buckets : histogram width, a multiple of ``bucket_block``.
+    bucket_block : buckets a moment partial.
 
     Returns ``(hist int32 (S, buckets), mom float32 (S, 2))``.
     """
-    hist = _histogram(ss, lengths, buckets)
-    return hist, _kahan_moments(hist)
+    hist = _histogram(ss, lengths, buckets, block=bucket_block)
+    return hist, _kahan_moments(hist, bucket_block)
 
 
-def stream_metrics_carry_plain(ss, lengths, buckets: int, mcar, base=0):
+def stream_metrics_carry_plain(ss, lengths, buckets: int, mcar, base=0, *,
+                               bucket_block: int = BUCKET_BLOCK):
     """Plain PyTorch version of B6 (any device).
 
     ss      : (S, N) int32 stamps of one chunk; record ``i`` of row ``s``
               counts in bucket ``ss - base`` iff ``i < lengths[s]`` and
               ``0 <= ss - base < buckets``.
     lengths : (S,) int32.
-    buckets : chunk histogram width, a multiple of ``BUCKET_BLOCK``.
+    buckets : chunk histogram width, a multiple of ``bucket_block``.
     mcar    : (S, 4) float32 Kahan state ``[s1, c1, s2, c2]`` carried from
               the previous chunk (zeros for the first).
     base    : the chunk's first absolute bucket (the rebase).
+    bucket_block : buckets a moment partial.
 
     Returns ``(hist int32 (S, buckets), mom float32 (S, 4))``: the chunk's
     histogram and the state with its buckets folded in (``mom[:, 0]`` and
     ``mom[:, 2]`` are the running ``Σq`` and ``Σq²``).
     """
-    hist = _histogram(ss, lengths, buckets, base)
-    return hist, _kahan_fold(hist, mcar)
+    hist = _histogram(ss, lengths, buckets, base, bucket_block)
+    return hist, _kahan_fold(hist, mcar, bucket_block)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(defs):
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     return _build.bind("metrics_fused", "metrics_launch",
-                       [p, p, i, i, i, p, p, u, p, p, p])
+                       [p, p, i, i, i, p, p, u, p, p, p], defs)
 
 
 @functools.lru_cache(maxsize=None)
-def _carry_entry():
+def _carry_entry(defs):
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     return _build.bind("metrics_fused", "metrics_carry_launch",
-                       [p, p, i, i, i, i, p, p, u, p, p, p, p])
+                       [p, p, i, i, i, i, p, p, u, p, p, p, p], defs)
 
 
 @functools.lru_cache(maxsize=None)
-def _limits():
+def _limits(defs):
     """(buckets per zeroed span, buckets per moment partial, largest
     epoch), read from the library."""
-    return tuple(_build.bind("metrics_fused", name, [])() for name in (
-        "metrics_span_buckets", "metrics_bucket_block", "metrics_max_epoch"))
+    return tuple(_build.bind("metrics_fused", name, [], defs)()
+                 for name in ("metrics_span_buckets", "metrics_bucket_block",
+                              "metrics_max_epoch"))
 
 
-def _workspace(device):
-    return _build.LookbackWorkspace(device, _limits()[2])
-
-
-#: one workspace per (device, CUDA stream): a word per span and per moment
-#: partial of each row's histogram; the ticket counter and two counters a
-#: row (its count and its partials done)
+#: one workspace per (device, CUDA stream), shared by the instances: a
+#: word per span and per moment partial of each row's histogram, sized by
+#: the calling instance's partial width; the ticket counter and two
+#: counters a row (its count and its partials done)
 _workspaces = {}
 
 
-def _launch(ss, lengths, buckets: int, mcar=None, base: int = 0):
+def _launch(ss, lengths, buckets: int, defs, mcar=None, base: int = 0):
     """One launch on ``ss``'s device and current stream: B3, or B6 when
     ``mcar`` is given. ``hist`` and ``mom`` are allocated uninitialised;
     the kernel writes them whole."""
@@ -155,22 +196,25 @@ def _launch(ss, lengths, buckets: int, mcar=None, base: int = 0):
                       device=dev)
     p = _build.ptr
     with torch.cuda.device(dev):
-        ws, stream = _build.per_stream(_workspaces, dev, _workspace)
-        span, block, _ = _limits()
+        span, block, max_epoch = _limits(defs)
+        ws, stream = _build.per_stream(
+            _workspaces, dev,
+            lambda d: _build.LookbackWorkspace(d, max_epoch))
         words, counters, epoch = ws.take(
             S * (-(-buckets // span) + buckets // block), 1 + 2 * S)
         scratch = (p(words), p(counters), epoch, p(hist))
         if mcar is None:
-            code = _entry()(p(ss), p(lengths), S, n, buckets, *scratch,
-                            p(mom), stream)
+            code = _entry(defs)(p(ss), p(lengths), S, n, buckets, *scratch,
+                                p(mom), stream)
         else:
-            code = _carry_entry()(p(ss), p(lengths), int(base), S, n,
-                                  buckets, *scratch, p(mcar), p(mom), stream)
+            code = _carry_entry(defs)(p(ss), p(lengths), int(base), S, n,
+                                      buckets, *scratch, p(mcar), p(mom),
+                                      stream)
     _build.check(code, "metrics_fused")
     return hist, mom
 
 
-def _check_inputs(ss, lengths, buckets: int) -> None:
+def _check_inputs(ss, lengths, buckets: int, block: int) -> None:
     """What both CUDA entries take: a CUDA stamp matrix, its lengths on
     the same device, block-aligned buckets, one launch's worth of rows."""
     if ss.device.type != "cuda":
@@ -183,24 +227,28 @@ def _check_inputs(ss, lengths, buckets: int) -> None:
             lengths.device != ss.device or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous (S,) int32 tensor on "
                          "the stamps' device")
-    if buckets <= 0 or buckets % BUCKET_BLOCK:
+    if buckets <= 0 or buckets % block:
         raise ValueError(f"buckets {buckets} must be a positive multiple "
-                         f"of {BUCKET_BLOCK}")
+                         f"of {block}")
     if S > 65535 or S * n >= 2 ** 31 or S * buckets >= 2 ** 31:
         raise ValueError(f"batch {S} x {n} (x {buckets} buckets) too large "
                          "for one launch")
 
 
-def stream_metrics(ss, lengths, buckets: int):
-    """B3 on the stamps' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors (same contract as
-    :func:`stream_metrics_plain`). Each call that launches the kernel (one
+def stream_metrics(ss, lengths, buckets: int, *, config=None):
+    """B3 on the stamps' device: the CUDA kernel for CUDA tensors (the
+    instance ``config`` names, ``None`` the default), the plain version for
+    CPU tensors (same contract as :func:`stream_metrics_plain`, at
+    ``config``'s ``bucket_block``). Each call that launches the kernel (one
     launch: zeroing, histogram and moments) adds one to
     ``stream_metrics.launches``."""
+    block = bucket_block_of(config)
     if ss.device.type == "cpu":
-        return stream_metrics_plain(ss, lengths, buckets)
-    _check_inputs(ss, lengths, buckets)
-    out = _launch(ss, lengths, buckets)
+        return stream_metrics_plain(ss, lengths, buckets,
+                                    bucket_block=block)
+    defs = defines(config)
+    _check_inputs(ss, lengths, buckets, block)
+    out = _launch(ss, lengths, buckets, defs)
     stream_metrics.launches += 1
     return out
 
@@ -208,15 +256,20 @@ def stream_metrics(ss, lengths, buckets: int):
 stream_metrics.launches = 0
 
 
-def stream_metrics_carry(ss, lengths, buckets: int, mcar, base=0):
-    """B6 on the stamps' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors (same contract as
-    :func:`stream_metrics_carry_plain`). Each call that launches the
-    kernel (one launch: zeroing, histogram and the carried moment fold)
-    adds one to ``stream_metrics_carry.launches``."""
+def stream_metrics_carry(ss, lengths, buckets: int, mcar, base=0, *,
+                         config=None):
+    """B6 on the stamps' device: the CUDA kernel for CUDA tensors (the
+    instance ``config`` names, ``None`` the default), the plain version for
+    CPU tensors (same contract as :func:`stream_metrics_carry_plain`, at
+    ``config``'s ``bucket_block``). Each call that launches the kernel (one
+    launch: zeroing, histogram and the carried moment fold) adds one to
+    ``stream_metrics_carry.launches``."""
+    block = bucket_block_of(config)
     if ss.device.type == "cpu":
-        return stream_metrics_carry_plain(ss, lengths, buckets, mcar, base)
-    _check_inputs(ss, lengths, buckets)
+        return stream_metrics_carry_plain(ss, lengths, buckets, mcar, base,
+                                          bucket_block=block)
+    defs = defines(config)
+    _check_inputs(ss, lengths, buckets, block)
     S = ss.shape[0]
     if mcar.dtype != torch.float32 or tuple(mcar.shape) != (S, 4) or \
             mcar.device != ss.device or not mcar.is_contiguous():
@@ -224,7 +277,7 @@ def stream_metrics_carry(ss, lengths, buckets: int, mcar, base=0):
                          "on the stamps' device")
     if not -2 ** 31 <= int(base) < 2 ** 31:
         raise ValueError(f"base {base} outside int32")
-    out = _launch(ss, lengths, buckets, mcar, base)
+    out = _launch(ss, lengths, buckets, defs, mcar, base)
     stream_metrics_carry.launches += 1
     return out
 

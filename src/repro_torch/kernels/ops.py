@@ -16,8 +16,13 @@ Inputs outside the kernels' exactness domain raise :class:`PallasDomainError`
 the inputs the reference refuses, so the NSA and engine layers fall back
 to the numpy host path the same way the reference does.
 
-Tiles are fixed (``TILE = 1024`` records, ``BUCKET_BLOCK = 512`` buckets);
-``autotune`` other than ``None``/``"off"`` raises ``NotImplementedError``.
+Every kernel dispatch asks the ambient tile tuner
+(:func:`repro_torch.kernels.tuning.config_for`, with the reference's shape
+arguments and the dispatch device) for its config, as the reference's ops
+do. The record axis is padded to ``TILE = 1024`` whatever the config; the
+histogram width to a multiple of the config's ``bucket_block`` (512 by
+default), and B5's time axis to its quantum, which the returned shapes do
+not show.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import tuning
 from repro_torch.kernels.compact import compact
 from repro_torch.kernels.flash_decode import flash_decode \
     as _flash_decode_kernel
@@ -75,13 +81,6 @@ def device_kind(device=None) -> str:
     """The card's name for a CUDA device, ``"cpu"`` otherwise."""
     dev = resolve_device(device)
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-
-
-def check_autotune(autotune: Optional[str]) -> None:
-    if autotune not in (None, "off"):
-        raise NotImplementedError(
-            f"autotune={autotune!r}: the port runs fixed tiles "
-            "(TILE=1024, BUCKET_BLOCK=512); tile tuning is not ported yet")
 
 
 def on_tpu() -> bool:
@@ -198,12 +197,25 @@ def stream_sample_batched(ts, max_range, multiples, *, device=None):
     Returns ``(ss int32 (S, N), keep bool (S, N), lengths int64 (S,))`` with
     ``N`` the longest row rounded up to ``TILE``; ``keep`` is False past
     each row's length. Per row bit-identical to the reference's
-    ``stream_sample_batched``.
+    ``stream_sample_batched``. The tuner's ``grid_split`` splits the rows
+    into that many launches (per-row outputs unchanged).
     """
     dev = resolve_device(device)
     inputs = stream_sample_inputs(ts, max_range, multiples)
-    ss, keep = _stream_sample_kernel(
-        *(torch.from_numpy(x).to(dev) for x in inputs))
+    S = inputs[0].shape[0]
+    cfg = tuning.config_for("stream_sample", s=S,
+                            n=int(inputs[-1].max()), r=inputs[1].shape[1],
+                            device=dev)
+    g = max(1, min(int(cfg.grid_split), S))
+    bounds = [round(i * S / g) for i in range(g + 1)]
+    parts = [_stream_sample_kernel(
+        *(torch.from_numpy(x[a:b]).to(dev) for x in inputs), config=cfg)
+        for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    if len(parts) == 1:
+        ss, keep = parts[0]
+    else:
+        ss = torch.cat([p[0] for p in parts])
+        keep = torch.cat([p[1] for p in parts])
     return ss, keep, inputs[-1].astype(np.int64)
 
 
@@ -240,15 +252,23 @@ def stream_sample_inputs(ts, max_range, multiples):
     return t_b, starts_b, counts_b, k_b, scal_b, lengths.astype(np.int32)
 
 
-def _sample_one(t, max_range: int, multiple: float, device, kernel):
+def _sample_one(t, max_range: int, multiple: float, device, plain: bool):
+    """One stream through B1 (with the tuner's config) or, with ``plain``,
+    its plain version."""
     t64 = np.asarray(_host(t), np.float64).reshape(-1)
     dev = resolve_device(device)
     n = len(t64)
     if n == 0:
         return (torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.bool, device=dev))
-    inputs = stream_sample_inputs([t64], max_range, multiple)
-    ss, keep = kernel(*(torch.from_numpy(x).to(dev) for x in inputs))
+    args = [torch.from_numpy(x).to(dev)
+            for x in stream_sample_inputs([t64], max_range, multiple)]
+    if plain:
+        ss, keep = stream_sample_plain(*args)
+    else:
+        cfg = tuning.config_for("stream_sample", s=1, n=n, r=max_range,
+                                device=dev)
+        ss, keep = _stream_sample_kernel(*args, config=cfg)
     return ss[0, :n], keep[0, :n]
 
 
@@ -261,14 +281,13 @@ def stream_sample(t, max_range: int, multiple: float, *, device=None):
     reference's ``stream_sample``. Raises :class:`PallasDomainError` where
     the reference does (``max_range`` past the snap's limit, a keep rule
     past int32)."""
-    return _sample_one(t, max_range, multiple, device,
-                       _stream_sample_kernel)
+    return _sample_one(t, max_range, multiple, device, plain=False)
 
 
 def stream_sample_ref(t, max_range: int, multiple: float, *, device=None):
     """:func:`stream_sample` through B1's plain PyTorch version, on any
     device (the reference's oracle with the same signature)."""
-    return _sample_one(t, max_range, multiple, device, stream_sample_plain)
+    return _sample_one(t, max_range, multiple, device, plain=True)
 
 
 # -------------------------------------------------------------- compaction
@@ -286,7 +305,9 @@ def compact_mask_batched_device(mask) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"mask must be (R, N), got shape {tuple(mask.shape)}")
     if mask.dtype != torch.bool:
         mask = mask != 0
-    return compact(mask.contiguous())
+    R, n = mask.shape
+    cfg = tuning.config_for("compact", s=R, n=n, device=mask.device)
+    return compact(mask.contiguous(), config=cfg)
 
 
 def compact_mask_batched(mask) -> Tuple[torch.Tensor, np.ndarray]:
@@ -325,8 +346,8 @@ def _check_metrics_domain(n_records: int) -> None:
             "metrics path")
 
 
-def _padded_buckets(max_range: int) -> int:
-    return int(-(-max_range // BUCKET_BLOCK) * BUCKET_BLOCK)
+def _padded_buckets(max_range: int, block: int = BUCKET_BLOCK) -> int:
+    return int(-(-max_range // block) * block)
 
 
 def stream_metrics_batched(ss_seq, max_range: int, *, device=None):
@@ -338,18 +359,24 @@ def stream_metrics_batched(ss_seq, max_range: int, *, device=None):
     (S, 2), lengths int64 (S,))``, the first two on ``device``.
     """
     dev = resolve_device(device)
-    ssb, lengths, buckets = stream_metrics_inputs(ss_seq, max_range)
+    ss_list = [np.asarray(_host(s), np.int32).reshape(-1) for s in ss_seq]
+    cfg = tuning.config_for(
+        "metrics_fused", s=len(ss_list),
+        n=max([len(s) for s in ss_list] + [1]), r=max_range, device=dev)
+    ssb, lengths, buckets = stream_metrics_inputs(ss_list, max_range,
+                                                  cfg.bucket_block)
     hist, mom = _stream_metrics_kernel(
         torch.from_numpy(ssb).to(dev), torch.from_numpy(lengths).to(dev),
-        buckets)
+        buckets, config=cfg)
     return hist[:, :max_range], mom, lengths.astype(np.int64)
 
 
-def stream_metrics_inputs(ss_seq, max_range: int):
+def stream_metrics_inputs(ss_seq, max_range: int,
+                          bucket_block: int = BUCKET_BLOCK):
     """The host-side inputs of kernel B3 for :func:`stream_metrics_batched`
     (same arguments): ``(ss int32 (S, N), lengths int32 (S,), buckets)``
     with rows padded by the id ``buckets`` and ``buckets`` the
-    ``BUCKET_BLOCK``-aligned histogram width."""
+    ``bucket_block``-aligned histogram width."""
     ss_list = [np.asarray(_host(s), np.int32).reshape(-1) for s in ss_seq]
     if not ss_list:
         raise ValueError("need at least one stream")
@@ -358,7 +385,7 @@ def stream_metrics_inputs(ss_seq, max_range: int):
     S = len(ss_list)
     lengths = np.array([len(s) for s in ss_list], np.int64)
     _check_metrics_domain(int(lengths.max(initial=0)))
-    buckets = _padded_buckets(max_range)
+    buckets = _padded_buckets(max_range, bucket_block)
     N = max(int(-(-lengths.max(initial=1) // TILE) * TILE), TILE)
     ssb = np.full((S, N), buckets, np.int32)     # padding id >= buckets
     for s, row in enumerate(ss_list):
@@ -392,9 +419,11 @@ def stream_metrics_batched_device(ss, valid_counts, max_range: int):
     _check_metrics_domain(N)
     lengths = torch.as_tensor(valid_counts).reshape(S).to(
         device=ss.device, dtype=torch.int32).contiguous()
+    cfg = tuning.config_for("metrics_fused", s=S, n=max(N, 1), r=max_range,
+                            device=ss.device)
     hist, mom = _stream_metrics_kernel(
         ss.to(torch.int32).contiguous(), lengths,
-        _padded_buckets(max_range))
+        _padded_buckets(max_range, cfg.bucket_block), config=cfg)
     return hist[:, :max_range], mom
 
 
@@ -506,11 +535,13 @@ def _pad_cols(x, quantum: int):
     return x.contiguous()
 
 
-def _trends(qmat, lengths: np.ndarray, window: int):
-    """Kernel B4 on a TILE-padded (S, N) int32 count matrix, then the
-    sliding-mean tail on the same device."""
+def _trends(qmat, lengths: np.ndarray, window: int, n: int):
+    """Kernel B4 on a TILE-padded (S, N) int32 count matrix (tuned for a
+    time axis of ``n``), then the sliding-mean tail on the same device."""
     dev = qmat.device
-    psum = _trend_scan_kernel(qmat)
+    cfg = tuning.config_for("trend_scan", s=qmat.shape[0], n=max(n, 1),
+                            device=dev)
+    psum = _trend_scan_kernel(qmat, config=cfg)
     w_eff, half = _window_tables(lengths, window)
     return _trend_from_prefix(psum, *(torch.from_numpy(a).to(dev)
                                       for a in (lengths, w_eff, half)))
@@ -545,7 +576,8 @@ def trend_scan_batched(qs, window: int, *, device=None):
     for s, q in enumerate(q_list):
         qb[s, :len(q)] = q
     dev = resolve_device(device)
-    return _trends(torch.from_numpy(qb).to(dev), lengths, window), lengths
+    return _trends(torch.from_numpy(qb).to(dev), lengths, window,
+                   int(lengths.max(initial=1))), lengths
 
 
 def trend_scan(q, window: int, *, device=None):
@@ -578,7 +610,7 @@ def trend_scan_batched_device(qmat, lengths, window: int, totals=None):
         raise ValueError("lengths must align with qmat rows")
     _check_totals(totals)
     q32 = _pad_cols(qmat.to(torch.int32), TILE)
-    return _trends(q32, lengths, window), lengths
+    return _trends(q32, lengths, window, qmat.shape[1]), lengths
 
 
 def trend_pair_stats(x):
@@ -591,7 +623,9 @@ def trend_pair_stats(x):
     x = torch.as_tensor(x).to(torch.float32)
     if x.ndim != 2 or x.shape[0] < 1:
         raise ValueError("x must be (S, K) with S >= 1")
-    return _pair_stats_kernel(_pad_cols(x, PAIR_TILE))
+    cfg = tuning.config_for("pair_stats", s=x.shape[0], n=max(x.shape[1], 1),
+                            device=x.device)
+    return _pair_stats_kernel(_pad_cols(x, cfg.bucket_block), config=cfg)
 
 
 def _resample_uniform(x, lengths, n_points: int):
@@ -878,9 +912,11 @@ def stream_metrics_chunk(carry: ChunkCarry, ss, valid_counts, lo: int,
     dev = carry.hist.device
     lengths = torch.as_tensor(valid_counts).reshape(S).to(
         device=dev, dtype=torch.int32).contiguous()
+    cfg = tuning.config_for("metrics_fused", s=S, n=max(N, 1), r=cw,
+                            device=dev)
     hist_c, mom = _stream_metrics_carry_kernel(
         ss.to(device=dev, dtype=torch.int32).contiguous(), lengths,
-        _padded_buckets(cw), carry.mom, lo)
+        _padded_buckets(cw, cfg.bucket_block), carry.mom, lo, config=cfg)
     chunk_q = hist_c[:, :cw]
     carry.hist[:, lo:hi] = chunk_q
     psum_tail = carry.psum_tail + chunk_q.sum(dim=1, dtype=torch.int32)
@@ -956,7 +992,10 @@ def trend_scan_chunk(q_chunk, window: int, *, tail=None, psum_carry=None,
     # monolithic clamp at 0 exactly: zero counts add nothing to a window.
     ext = torch.cat([tail, q_chunk], dim=1).contiguous()    # (S, w-1+c)
     base = (psum_carry - tail.sum(dim=1, dtype=torch.int32)).contiguous()
-    cinc, _ = _trend_scan_carry_kernel(ext, base)   # inclusive prefix sums
+    cfg = tuning.config_for("trend_scan", s=S, n=max(ext.shape[1], 1),
+                            device=dev)
+    # inclusive prefix sums
+    cinc, _ = _trend_scan_carry_kernel(ext, base, config=cfg)
 
     half = (w - 1) // 2
     hi_abs = lo + c
@@ -1001,7 +1040,7 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512):
 
 __all__ = [
     "ChunkCarry", "KeepRuleOverflow", "PallasDomainError", "bucket_hist",
-    "check_autotune", "chunk_carry_finalize", "chunk_carry_init",
+    "chunk_carry_finalize", "chunk_carry_init",
     "compact_mask", "compact_mask_batched", "compact_mask_batched_device",
     "device_kind", "flash_decode", "on_accelerator", "on_cuda", "on_gpu",
     "on_tpu", "resolve_device", "stream_metrics", "stream_metrics_chunk",

@@ -7,6 +7,10 @@ and runs :func:`stream_sample_plain`, the same arithmetic in plain PyTorch,
 for CPU tensors. Both are bit-identical to the numpy NSA path: the f32
 bucket guess is snapped by +-1 to the exact f64 host tables
 (:func:`repro_torch.kernels.ops._nsa_tables`).
+
+A tile config (:class:`repro_torch.kernels.tuning.TileConfig`) chooses the
+kernel's instance: ``record_tile`` records a block, one of
+:data:`RECORD_TILES`. It changes no output.
 """
 
 from __future__ import annotations
@@ -21,6 +25,20 @@ from repro_torch.kernels import _build
 #: the +-1 snap is exact only while the f32 normalize error stays under one
 #: bucket: ~4 * max_range * 2^-24 < 1
 MAX_RANGE_LIMIT = 1 << 20
+
+#: the kernel's instances (records a block) and the default library's
+RECORD_TILES = (1024, 2048, 4096)
+DEFAULT_RECORD_TILE = 2048
+
+
+def defines(config) -> tuple:
+    """The ``-D`` macros of ``config``'s instance (``()``: the default
+    library); raises for a record tile that has no instance."""
+    rt = DEFAULT_RECORD_TILE if config is None else config.record_tile
+    if rt not in RECORD_TILES:
+        raise ValueError(f"stream_sample: record_tile {rt} has no instance; "
+                         f"one of {RECORD_TILES}")
+    return () if rt == DEFAULT_RECORD_TILE else (("REPRO_RECORD_TILE", rt),)
 
 
 def stream_sample_plain(t, starts, counts, ktab, scalars, lengths):
@@ -55,10 +73,10 @@ def stream_sample_plain(t, starts, counts, ktab, scalars, lengths):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(defs):
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("stream_sample", "stream_sample_launch",
-                       [p, p, p, p, p, p, p, p, i, i, i, p])
+                       [p, p, p, p, p, p, p, p, i, i, i, p], defs)
 
 
 def _check_inputs(t, starts, counts, ktab, scalars, lengths) -> None:
@@ -84,9 +102,11 @@ def _check_inputs(t, starts, counts, ktab, scalars, lengths) -> None:
         raise ValueError(f"batch {S} x {n} too large for one launch")
 
 
-def stream_sample(t, starts, counts, ktab, scalars, lengths):
-    """B1 on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors (same arguments and results as
+def stream_sample(t, starts, counts, ktab, scalars, lengths, *,
+                  config=None):
+    """B1 on the tensors' device: the CUDA kernel for CUDA tensors (the
+    instance ``config`` names, ``None`` the default), the plain version for
+    CPU tensors (same arguments and results as
     :func:`stream_sample_plain`). Each kernel launch adds one to
     ``stream_sample.launches``."""
     if t.device.type == "cpu":
@@ -95,13 +115,14 @@ def stream_sample(t, starts, counts, ktab, scalars, lengths):
     if t.device.type != "cuda":
         raise ValueError(f"stream_sample runs on cuda or cpu, not "
                          f"{t.device}")
+    defs = defines(config)
     _check_inputs(t, starts, counts, ktab, scalars, lengths)
     S, n = t.shape
     ss = torch.empty((S, n), dtype=torch.int32, device=t.device)
     keep = torch.empty((S, n), dtype=torch.bool, device=t.device)
     p = _build.ptr
     with torch.cuda.device(t.device):
-        code = _entry()(p(t), p(starts), p(counts), p(ktab), p(scalars),
+        code = _entry(defs)(p(t), p(starts), p(counts), p(ktab), p(scalars),
                         p(lengths), p(ss), p(keep), S, n, starts.shape[1],
                         _build.stream_handle(t.device))
     _build.check(code, "stream_sample")

@@ -24,6 +24,12 @@ Counterparts of ``repro/kernels/trend_scan.py``:
 
 Each wrapper adds one to its ``launches`` count where it launches its
 kernel, and nowhere else.
+
+A tile config (:class:`repro_torch.kernels.tuning.TileConfig`) chooses B4's
+and B7's instance by ``record_tile`` (entries a tile, one of
+:data:`RECORD_TILES`; no output changes) and B5's time quantum by
+``bucket_block`` (the plan's split floor is 32 quanta of bytes, one of
+:data:`PAIR_QUANTA`; no new library, the sums change in their last bits).
 """
 
 from __future__ import annotations
@@ -35,6 +41,35 @@ import torch
 
 from repro_torch.kernels import _build
 
+#: B4's and B7's instances (entries a tile) and the default library's
+RECORD_TILES = (1024, 2048, 4096)
+DEFAULT_RECORD_TILE = 2048
+#: B5's time quanta (a tile config's ``bucket_block``): the ops layer pads
+#: the time axis to one, and the plan takes at least 32 of them in bytes a
+#: split; 512 (16 KiB) by default
+PAIR_QUANTA = (256, 512, 1024)
+PAIR_QUANTUM = 512
+
+
+def defines(config) -> tuple:
+    """The ``-D`` macros of ``config``'s B4/B7 instance (``()``: the
+    default library); raises for a record tile that has no instance."""
+    rt = DEFAULT_RECORD_TILE if config is None else config.record_tile
+    if rt not in RECORD_TILES:
+        raise ValueError(f"trend_scan: record_tile {rt} has no instance; "
+                         f"one of {RECORD_TILES}")
+    return () if rt == DEFAULT_RECORD_TILE else (("REPRO_RECORD_TILE", rt),)
+
+
+def pair_quantum(config) -> int:
+    """B5's time quantum under ``config`` (``None``: the default); raises
+    for a quantum the plan does not take."""
+    bb = PAIR_QUANTUM if config is None else int(config.bucket_block)
+    if bb not in PAIR_QUANTA:
+        raise ValueError(f"pair_stats: bucket_block {bb} is not one of "
+                         f"{PAIR_QUANTA}")
+    return bb
+
 
 # ------------------------------------------------------------------ B4
 def trend_scan_plain(q):
@@ -44,26 +79,32 @@ def trend_scan_plain(q):
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_entry():
+def _scan_entry(defs):
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("trend_scan", "trend_scan_launch",
-                       [p, i, i, p, p, ctypes.c_uint, p, p])
+                       [p, i, i, p, p, ctypes.c_uint, p, p], defs)
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_limits():
+def _scan_limits(defs):
     """(entries per tile, largest epoch), read from the library so the
     status array is sized as the kernel indexes it."""
-    return (_build.bind("trend_scan", "trend_scan_tile_entries", [])(),
-            _build.bind("trend_scan", "trend_scan_max_epoch", [])())
+    return (_build.bind("trend_scan", "trend_scan_tile_entries", [], defs)(),
+            _build.bind("trend_scan", "trend_scan_max_epoch", [], defs)())
 
 
-def _workspace(device):
-    return _build.LookbackWorkspace(device, _scan_limits()[1])
-
-
-#: one workspace per (device, CUDA stream), shared by B4 and B7
+#: one workspace per (device, CUDA stream), shared by B4, B7 and their
+#: instances (each call takes a new epoch and sizes the words by its own
+#: tile count)
 _workspaces = {}
+
+
+def _scan_scratch(dev, S: int, n: int, defs):
+    """``(status words, counter, epoch, stream)`` for one scan call."""
+    tile, max_epoch = _scan_limits(defs)
+    ws, stream = _build.per_stream(
+        _workspaces, dev, lambda d: _build.LookbackWorkspace(d, max_epoch))
+    return (*ws.take(S * -(-n // tile)), stream)
 
 
 def _check_counts(q, what):
@@ -77,24 +118,24 @@ def _check_counts(q, what):
     return S, n
 
 
-def trend_scan(q):
-    """B4 on the counts' device: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor (same contract as
-    :func:`trend_scan_plain`). One launch per call; each adds one to
-    ``trend_scan.launches``."""
+def trend_scan(q, *, config=None):
+    """B4 on the counts' device: the CUDA kernel for a CUDA tensor (the
+    instance ``config`` names, ``None`` the default), the plain version for
+    a CPU tensor (same contract as :func:`trend_scan_plain`). One launch
+    per call; each adds one to ``trend_scan.launches``."""
     if q.device.type == "cpu":
         return trend_scan_plain(q)
     if q.device.type != "cuda":
         raise ValueError(f"trend_scan runs on cuda or cpu, not {q.device}")
+    defs = defines(config)
     S, n = _check_counts(q, "trend_scan")
     dev = q.device
     psum = torch.empty((S, n), dtype=torch.int32, device=dev)
     p = _build.ptr
     with torch.cuda.device(dev):
-        ws, stream = _build.per_stream(_workspaces, dev, _workspace)
-        words, counter, epoch = ws.take(S * -(-n // _scan_limits()[0]))
-        code = _scan_entry()(p(q), S, n, p(words), p(counter), epoch,
-                             p(psum), stream)
+        words, counter, epoch, stream = _scan_scratch(dev, S, n, defs)
+        code = _scan_entry(defs)(p(q), S, n, p(words), p(counter), epoch,
+                                 p(psum), stream)
     _build.check(code, "trend_scan")
     trend_scan.launches += 1
     return psum
@@ -122,22 +163,24 @@ def trend_scan_carry_plain(q, init):
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_carry_entry():
+def _scan_carry_entry(defs):
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("trend_scan", "trend_scan_carry_launch",
-                       [p, p, i, i, p, p, ctypes.c_uint, p, p, p])
+                       [p, p, i, i, p, p, ctypes.c_uint, p, p, p], defs)
 
 
-def trend_scan_carry(q, init):
-    """B7 on the counts' device: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor (same contract as
-    :func:`trend_scan_carry_plain`). One launch per call, an empty chunk
-    included; each adds one to ``trend_scan_carry.launches``."""
+def trend_scan_carry(q, init, *, config=None):
+    """B7 on the counts' device: the CUDA kernel for a CUDA tensor (the
+    instance ``config`` names, ``None`` the default), the plain version for
+    a CPU tensor (same contract as :func:`trend_scan_carry_plain`). One
+    launch per call, an empty chunk included; each adds one to
+    ``trend_scan_carry.launches``."""
     if q.device.type == "cpu":
         return trend_scan_carry_plain(q, init)
     if q.device.type != "cuda":
         raise ValueError(f"trend_scan_carry runs on cuda or cpu, not "
                          f"{q.device}")
+    defs = defines(config)
     S, n = _check_counts(q, "trend_scan_carry")
     if init.dtype != torch.int32 or tuple(init.shape) != (S,) or \
             init.device != q.device or not init.is_contiguous():
@@ -148,11 +191,10 @@ def trend_scan_carry(q, init):
     tail = torch.empty(S, dtype=torch.int32, device=dev)
     p = _build.ptr
     with torch.cuda.device(dev):
-        ws, stream = _build.per_stream(_workspaces, dev, _workspace)
-        words, counter, epoch = ws.take(S * -(-n // _scan_limits()[0]))
-        code = _scan_carry_entry()(p(q), p(init), S, n, p(words),
-                                   p(counter), epoch, p(psum), p(tail),
-                                   stream)
+        words, counter, epoch, stream = _scan_scratch(dev, S, n, defs)
+        code = _scan_carry_entry(defs)(p(q), p(init), S, n, p(words),
+                                       p(counter), epoch, p(psum), p(tail),
+                                       stream)
     _build.check(code, "trend_scan_carry")
     trend_scan_carry.launches += 1
     return psum, tail
@@ -175,11 +217,12 @@ def pair_stats_plain(x):
 
 
 #: B5's plan: at least this many bytes of input a block where a tile takes
-#: more than one cluster of splits
-PAIR_MIN_SPLIT_BYTES = 16 << 10
+#: more than one cluster of splits (32 default time quanta)
+PAIR_MIN_SPLIT_BYTES = 32 * PAIR_QUANTUM
 
 
-def pair_plan(S: int, K: int, max_clusters: int, tile: int, cluster: int):
+def pair_plan(S: int, K: int, max_clusters: int, tile: int, cluster: int,
+              min_split_bytes: int = PAIR_MIN_SPLIT_BYTES):
     """How B5's kernel cuts an ``(S, K)`` input: ``(kc, n_splits,
     pstride, tiles)`` -- columns a split (a multiple of 4), splits a tile
     (a multiple of ``cluster``; splits past K are empty), floats a
@@ -187,7 +230,8 @@ def pair_plan(S: int, K: int, max_clusters: int, tile: int, cluster: int):
     row groups, plus a diagonal tile's row sums) and output tiles (the
     upper triangle of ``ceil(S / tile)`` row tiles). The grid holds at most
     ``max_clusters`` clusters (what the card runs at once) and the
-    workspace is needed only with more than one cluster a tile."""
+    workspace is needed only with more than one cluster a tile; a split
+    takes at least ``min_split_bytes`` of input (32 time quanta)."""
     nt = -(-S // tile)
     tiles = nt * (nt + 1) // 2
     if nt == 1:
@@ -198,7 +242,7 @@ def pair_plan(S: int, K: int, max_clusters: int, tile: int, cluster: int):
         pstride = (tile // 4) ** 2 * 16
         rows = 2 * tile
     clusters = max(1, min(max_clusters // tiles,
-                          rows * K * 4 // (cluster * PAIR_MIN_SPLIT_BYTES)))
+                          rows * K * 4 // (cluster * min_split_bytes)))
     n = cluster * clusters
     kc = -(-K // (4 * n)) * 4
     return kc, n, pstride, tiles
@@ -233,12 +277,13 @@ def _pair_max_clusters(index: int) -> int:
 _pair_workspaces = {}
 
 
-def pair_stats(x):
-    """B5 on the trends' device: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor (same contract as
-    :func:`pair_stats_plain`, for any S >= 1 and K >= 0). One launch per
-    call (the splits' partials folded inside it, in an order fixed by the
-    shape, so two calls are bit-identical); each adds one to
+def pair_stats(x, *, config=None):
+    """B5 on the trends' device: the CUDA kernel for a CUDA tensor, planned
+    with ``config``'s time quantum (``None``: the default), the plain
+    version for a CPU tensor (same contract as :func:`pair_stats_plain`,
+    for any S >= 1 and K >= 0). One launch per call (the splits' partials
+    folded inside it, in an order fixed by the shape and the quantum, so
+    two calls are bit-identical); each adds one to
     ``pair_stats.launches``."""
     if x.device.type == "cpu":
         return pair_stats_plain(x)
@@ -253,7 +298,8 @@ def pair_stats(x):
     dev = x.device
     tile, cluster = _pair_limits()
     kc, n, pstride, tiles = pair_plan(
-        S, k, _pair_max_clusters(dev.index or 0), tile, cluster)
+        S, k, _pair_max_clusters(dev.index or 0), tile, cluster,
+        32 * pair_quantum(config))
     sums = torch.empty((S, 1), dtype=torch.float32, device=dev)
     gram = torch.empty((S, S), dtype=torch.float32, device=dev)
     p = _build.ptr

@@ -160,8 +160,12 @@ class Controller:
             kernels on the controller's device; ``"numpy"`` on the host.
             NSA output is bit-identical across backends; out-of-domain
             inputs fall back to numpy automatically.
-        autotune : None or "off"
-            Anything else raises ``NotImplementedError``.
+        autotune : {None, "off", "cached", "force"}, optional
+            Kernel tile-tuning mode for every device leg
+            (:mod:`repro_torch.kernels.tuning`). ``None``/``"off"`` keep
+            the shipped tiles; ``"cached"`` reuses (or measures once and
+            persists under the store) a winner per shape; ``"force"``
+            re-measures. An unknown mode raises ``ValueError``.
 
         Returns
         -------
@@ -310,9 +314,10 @@ service_deadline_s :
             worker lives), idle poll interval, scenarios leased per claim,
             this participant's id (default ``host<index>-<pid>``), and an
             overall give-up deadline (``TimeoutError``).
-        autotune : None or "off"
-            Anything else raises ``NotImplementedError`` (the tile-tuning
-            slice).
+        autotune : {None, "off", "cached", "force"}, optional
+            Kernel tile-tuning mode for the monolithic and chunked sweeps'
+            device legs, as in :meth:`run` (the service mode runs its
+            batches with the shipped tiles, as the reference's does).
 
         Returns
         -------
@@ -323,8 +328,6 @@ service_deadline_s :
             also persisted as JSON; the fidelity matrices are on
             :attr:`last_fidelity` and under :attr:`fidelity_dir`.
         """
-        from repro_torch.kernels import ops
-
         if duration_s and not chunk_s:
             raise ValueError(
                 "duration_s requires chunk_s > 0 — multi-day sweeps run "
@@ -340,7 +343,6 @@ service_deadline_s :
                 "service mode is incompatible with chunk_s/checkpoint — "
                 "the service's durable work queue is its own checkpoint "
                 "and leases are scenario-granular")
-        ops.check_autotune(autotune)
         originals, t_pre = self._prepare_all(datasets, scale, seed,
                                              duration_s)
         if _resolve_backend(backend) == "numpy":
@@ -395,7 +397,7 @@ service_deadline_s :
             if chunk_s:
                 runner = engine.ChunkedSweepRunner(
                     plan, originals, self.store, backend=backend,
-                    device=self.device, checkpoint=ckpt)
+                    device=self.device, checkpoint=ckpt, autotune=autotune)
                 new_reports, fidelity = engine.run_sweep_chunked(
                     runner, consumer, queue_size=queue_size,
                     fidelity_window_s=fidelity_window_s, t_pre=t_pre,
@@ -408,7 +410,8 @@ service_deadline_s :
                 result = engine.execute_sweep(plan, originals, self.store,
                                               backend=backend,
                                               device=self.device,
-                                              checkpoint=ckpt)
+                                              checkpoint=ckpt,
+                                              autotune=autotune)
                 self.last_result = result
                 new_reports, fidelity = engine.run_sweep(
                     result, consumer, queue_size=queue_size,

@@ -174,22 +174,22 @@ class DeviceSweepResult:
     ``mode`` is ``"device"`` (kernel chain) or ``"host"`` (the numpy
     composition, also the wholesale domain fallback). ``device`` is the
     report-reduction device (the first shard device; unused in host mode).
-    ``autotune`` is ``None`` or ``"off"`` (the fixed tiles); anything else
-    raises ``NotImplementedError``.
+    ``autotune`` is the tile-tuning mode of every deferred device leg (the
+    host-group metrics and the fidelity matrices), whose winners persist
+    under the store (:mod:`repro_torch.kernels.tuning`; an unknown mode
+    raises ``ValueError`` when a leg runs).
     """
 
     def __init__(self, plan: SweepPlan, originals: Dict[str, Stream],
                  store, backend: str, mode: str, device=None,
                  autotune: Optional[str] = None):
-        from repro_torch.kernels import ops
-
-        ops.check_autotune(autotune)
         self.plan = plan
         self.originals = originals
         self.store = store
         self.backend = backend
         self.mode = mode
         self.device = device
+        self.autotune = autotune
         self.nsa_s: Dict[Tuple[str, int], float] = {}
         self.shard_results: List[ShardResult] = []
         #: cache-hit sims (host mode: ALL sims), loaded/computed on host
@@ -227,17 +227,26 @@ class DeviceSweepResult:
         self._ensure_host_group()
         return self._om
 
+    def _tuned(self):
+        """The store-backed tuner context of this result's device legs (the
+        reference gives the host-group metrics a tuner without the store;
+        here its winners persist with the rest of the run's)."""
+        from repro_torch.kernels import tuning
+        return tuning.tuner_context(self.autotune, store=self.store or None,
+                                    device=self.device)
+
     def _ensure_host_group(self) -> None:
         if self._host_group_done:
             return
         self._host_group_done = True
         datasets = list(self.plan.datasets)
         cached = [s.scenario for s in self.plan.cached]
-        ms = metrics_batched(
-            [self.originals[d] for d in datasets] +
-            [self.host_sims[sc] for sc in cached],
-            [None] * len(datasets) + [mr for _, mr in cached],
-            backend=self.backend, device=self.device)
+        with self._tuned():
+            ms = metrics_batched(
+                [self.originals[d] for d in datasets] +
+                [self.host_sims[sc] for sc in cached],
+                [None] * len(datasets) + [mr for _, mr in cached],
+                backend=self.backend, device=self.device)
         self._om = dict(zip(datasets, ms[:len(datasets)]))
         self._cached_sm = dict(zip(cached, ms[len(datasets):]))
 
@@ -449,11 +458,12 @@ class DeviceSweepResult:
             labels = [f"{d}/original" for d in row_ds] + \
                 [f"{d}/sim{mr}" for d in row_ds]
             if self.mode == "host":
-                matrix = trend_correlation_matrix(
-                    [self.om[d].counts for d in row_ds] +
-                    [self.sm[(d, mr)].counts for d in row_ds],
-                    window_s=window_s, backend=self.backend,
-                    device=self.device)
+                with self._tuned():
+                    matrix = trend_correlation_matrix(
+                        [self.om[d].counts for d in row_ds] +
+                        [self.sm[(d, mr)].counts for d in row_ds],
+                        window_s=window_s, backend=self.backend,
+                        device=self.device)
             else:
                 try:
                     om_mat, om_trs, om_totals, didx = \
@@ -471,8 +481,9 @@ class DeviceSweepResult:
                     qmat = torch.cat([om_sel, qb], dim=0)
                     lengths = np.concatenate([om_trs[sel], lb])
                     totals = np.concatenate([om_totals[sel], sim_totals])
-                    matrix = ops.trend_correlation_batched_device(
-                        qmat, lengths, window_s, totals=totals)
+                    with self._tuned():
+                        matrix = ops.trend_correlation_batched_device(
+                            qmat, lengths, window_s, totals=totals)
                 except ops.PallasDomainError:
                     matrix = trend_correlation_matrix(
                         [self.om[d].counts for d in row_ds] +
@@ -561,10 +572,9 @@ def execute_sweep(plan: SweepPlan, originals: Dict[str, Stream], store, *,
     in device mode). Returns a :class:`DeviceSweepResult`; NSA wall time is
     recorded per scenario (the shared total for co-simulated scenarios, 0.0
     for cache hits) and the simulated streams are **not** yet materialized.
+    ``autotune`` is the tile-tuning mode of every device leg, its winners
+    persisted under ``store`` (:mod:`repro_torch.kernels.tuning`).
     """
-    from repro_torch.kernels import ops
-
-    ops.check_autotune(autotune)
     resolved = _resolve_backend(backend)
     missing = list(plan.local_missing)
     device_ok = (resolved == "torch" and
@@ -588,29 +598,31 @@ def _execute_device(plan, originals, store, backend, multiple_mode,
                     device, autotune=None) -> Optional[DeviceSweepResult]:
     """The kernel path; returns None when a domain error demands the
     wholesale host fallback."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, tuning
 
     devices = _shard_devices(device)
     result = DeviceSweepResult(plan, originals, store, backend, "device",
                                device=devices[0], autotune=autotune)
     total_nsa = 0.0
     try:
-        for shard in plan.shards:
-            pairs = tuple(s.scenario for s in shard.specs)
-            dev = devices[shard.device_index % len(devices)]
-            t0 = time.perf_counter()
-            ss_kept, idx, totals, _ = nsa_sweep_device(
-                originals, pairs, multiple_mode=multiple_mode, device=dev,
-                autotune=autotune)
-            hist, mom = ops.stream_metrics_batched_device(
-                ss_kept, totals, shard.max_range)
-            mom_host = mom.cpu().numpy().astype(np.float64)  # O(rows)
-            dt = time.perf_counter() - t0
-            total_nsa += dt
-            result.shard_results.append(ShardResult(
-                shard=shard, pairs=pairs, ss_kept=ss_kept, idx=idx,
-                totals=np.asarray(totals, np.int64), hist=hist,
-                mom=mom_host, nsa_s=dt))
+        with tuning.tuner_context(autotune, store=store or None,
+                                  device=devices[0]):
+            for shard in plan.shards:
+                pairs = tuple(s.scenario for s in shard.specs)
+                dev = devices[shard.device_index % len(devices)]
+                t0 = time.perf_counter()
+                ss_kept, idx, totals, _ = nsa_sweep_device(
+                    originals, pairs, multiple_mode=multiple_mode,
+                    device=dev)
+                hist, mom = ops.stream_metrics_batched_device(
+                    ss_kept, totals, shard.max_range)
+                mom_host = mom.cpu().numpy().astype(np.float64)  # O(rows)
+                dt = time.perf_counter() - t0
+                total_nsa += dt
+                result.shard_results.append(ShardResult(
+                    shard=shard, pairs=pairs, ss_kept=ss_kept, idx=idx,
+                    totals=np.asarray(totals, np.int64), hist=hist,
+                    mom=mom_host, nsa_s=dt))
     except ops.PallasDomainError:
         return None   # out-of-domain scenario: host mode, wholesale
 
@@ -1078,7 +1090,6 @@ class ChunkedSweepRunner:
                  autotune: Optional[str] = None):
         from repro_torch.kernels import ops
 
-        ops.check_autotune(autotune)
         if plan.chunk_s <= 0:
             raise ValueError(
                 "plan has no chunk axis — build it with plan_sweep("
@@ -1125,10 +1136,11 @@ class ChunkedSweepRunner:
         devices = _shard_devices(self.device)
         for shard in self.plan.shards:
             dev = devices[shard.device_index % len(devices)]
+            # no tuner of its own: its chunks run inside run()'s
+            # store-backed one
             cn = ChunkedNSA(self.originals,
                             [(s.dataset, s.span_s) for s in shard.specs],
-                            multiple_mode=self.multiple_mode, device=dev,
-                            autotune=self.autotune)
+                            multiple_mode=self.multiple_mode, device=dev)
             self._shard_states.append({
                 "shard": shard,
                 "nsa": cn,
@@ -1148,11 +1160,18 @@ class ChunkedSweepRunner:
         any scenario's chunk ``k+1`` — and each feed is closed after its
         scenario's last chunk, so the chunked replay walk starts as soon as
         chunk 0 lands. On any error every feed is closed before re-raising
-        (the producer side unblocks instead of deadlocking).
+        (the producer side unblocks instead of deadlocking). Every device
+        leg runs under the ``autotune`` mode's tuner, its winners persisted
+        under the store.
         """
+        from repro_torch.kernels import tuning
         try:
-            self.result = (self._run_device(feeds) if self.mode == "device"
-                           else self._run_host(feeds))
+            with tuning.tuner_context(self.autotune,
+                                      store=self.store or None,
+                                      device=self.device):
+                self.result = (self._run_device(feeds)
+                               if self.mode == "device"
+                               else self._run_host(feeds))
             return self.result
         except BaseException:
             if feeds:

@@ -169,19 +169,20 @@ def metrics_batched(streams: Sequence[Stream],
         wholesale (:class:`~repro_torch.kernels.ops.PallasDomainError`).
     device : torch device, optional
         ``None`` means CUDA.
-    autotune : None or "off"
-        Anything else raises ``NotImplementedError``.
+    autotune : {None, "off", "cached", "force"}
+        Tile-tuning mode of the kernel call
+        (:mod:`repro_torch.kernels.tuning`); ``None``/``"off"`` keep the
+        shipped tiles; an unknown mode raises ``ValueError``.
 
     Returns
     -------
     list of StreamMetrics
         ``counts`` bit-exact across backends; ``volatility`` within 1e-3.
     """
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, tuning
 
     if len(streams) != len(time_ranges):
         raise ValueError("streams and time_ranges must align")
-    ops.check_autotune(autotune)
     if use_scale_stamps is None:
         use_scale_stamps = [None] * len(streams)
     series = [_bucket_series(s, tr, uss)
@@ -191,8 +192,9 @@ def metrics_batched(streams: Sequence[Stream],
     if resolved != "torch" or max_tr == 0 or not series:
         return [_numpy_metrics(b, tr) for b, tr in series]
     try:
-        hist, mom, _ = ops.stream_metrics_batched(
-            [b for b, _ in series], max_tr, device=device)
+        with tuning.tuner_context(autotune, device=device):
+            hist, mom, _ = ops.stream_metrics_batched(
+                [b for b, _ in series], max_tr, device=device)
     except ops.PallasDomainError:
         return [_numpy_metrics(b, tr) for b, tr in series]
     hist = hist.cpu().numpy().astype(np.int64)
@@ -336,8 +338,9 @@ def trend_correlation_matrix(counts: Sequence[np.ndarray],
         ``"torch"`` runs counts -> B4 -> trends -> resample -> centered
         Gram (B5) on ``device`` (``None`` means CUDA); ``"numpy"`` mirrors
         it in float64. The backends agree within 1e-3.
-    autotune : None or "off"
-        Anything else raises ``NotImplementedError``.
+    autotune : {None, "off", "cached", "force"}
+        Tile-tuning mode of the B4 and B5 calls; an unknown mode raises
+        ``ValueError``.
 
     Returns
     -------
@@ -352,16 +355,16 @@ def trend_correlation_matrix(counts: Sequence[np.ndarray],
         If ``window_s < 1`` or ``n_points < 1``. Device-domain violations
         do not raise here: they fall back to numpy.
     """
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, tuning
 
-    ops.check_autotune(autotune)
     if window_s < 1:
         raise ValueError("window_s must be >= 1")
     counts = [np.asarray(q).reshape(-1) for q in counts]
     if _resolve_backend(backend) == "torch" and counts:
         try:
-            return ops.trend_correlation_batched(counts, window_s, n_points,
-                                                 device=device)
+            with tuning.tuner_context(autotune, device=device):
+                return ops.trend_correlation_batched(
+                    counts, window_s, n_points, device=device)
         except ops.PallasDomainError:
             pass  # totals outside the int32 scan domain -> host path
     return _corr_matrix_numpy(counts, window_s, n_points)

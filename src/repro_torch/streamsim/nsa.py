@@ -146,9 +146,11 @@ def nsa(stream: Stream, max_range: int, *, keep: str = "systematic",
         compaction on ``device``.
     device : torch device, optional
         Where the torch backend runs; ``None`` means CUDA.
-    autotune : None or "off"
-        Tile tuning is not ported; anything else raises
-        ``NotImplementedError``.
+    autotune : {None, "off", "cached", "force"}, optional
+        Tile-tuning mode for the device dispatches
+        (:mod:`repro_torch.kernels.tuning`); ``None``/``"off"`` keep the
+        shipped tiles. An unknown mode raises ``ValueError`` on the torch
+        backend.
 
     Returns
     -------
@@ -166,7 +168,6 @@ def nsa(stream: Stream, max_range: int, *, keep: str = "systematic",
 
     if max_range <= 0:
         raise ValueError("max_range must be positive")
-    ops.check_autotune(autotune)
     m = _multiple(len(stream), stream.time_range, max_range, multiple_mode)
     if (_resolve_backend(backend) == "torch" and keep == "systematic"
             and len(stream) > 0):
@@ -239,7 +240,6 @@ def nsa_sweep(streams: Dict[str, Stream], max_ranges: Sequence[int], *,
     pairs = [(name, int(mr)) for name, mr in pairs]
     if any(mr <= 0 for _, mr in pairs):
         raise ValueError("max_range must be positive")
-    ops.check_autotune(autotune)
 
     def _host() -> Dict[Tuple[str, int], Stream]:
         return {(name, mr): nsa(streams[name], mr,
@@ -268,9 +268,9 @@ def nsa_sweep_device(streams: Dict[str, Stream],
     Runs ONE ``stream_sample`` launch (B1) plus ONE batched compaction (B2)
     for the scenario rows ``pairs`` (each a ``(stream name, max_range)``;
     the streams must be non-empty) on ``device`` (``None`` means CUDA),
-    then gathers each row's kept stamps on the device. ``autotune`` is
-    ``None`` or ``"off"`` (the fixed tiles); anything else raises
-    ``NotImplementedError`` (tile tuning is not ported).
+    then gathers each row's kept stamps on the device. ``autotune`` is the
+    tile-tuning mode of both launches (:mod:`repro_torch.kernels.tuning`;
+    an unknown mode raises ``ValueError``).
 
     Returns
     -------
@@ -291,15 +291,15 @@ def nsa_sweep_device(streams: Dict[str, Stream],
     """
     import torch
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, tuning
 
-    ops.check_autotune(autotune)
     ts = [streams[name].t for name, _ in pairs]
     mults = [_multiple(len(streams[name]), streams[name].time_range, mr,
                        multiple_mode) for name, mr in pairs]
-    ss_b, keep_b, lengths = ops.stream_sample_batched(
-        ts, [mr for _, mr in pairs], mults, device=device)
-    idx_b, totals = ops.compact_mask_batched(keep_b)
+    with tuning.tuner_context(autotune, device=device):
+        ss_b, keep_b, lengths = ops.stream_sample_batched(
+            ts, [mr for _, mr in pairs], mults, device=device)
+        idx_b, totals = ops.compact_mask_batched(keep_b)
     N = idx_b.shape[1]
     width = min(max(int(-(-int(totals.max(initial=1)) // ops.TILE)
                         * ops.TILE), ops.TILE), N)
@@ -414,9 +414,10 @@ class ChunkedNSA:
         As in :func:`nsa`.
     device : torch device, optional
         Where the tables live and the kernels run (``None`` means CUDA).
-    autotune : None or "off"
-        Anything else raises ``NotImplementedError`` (tile tuning is not
-        ported).
+    autotune : {None, "off", "cached", "force"}, optional
+        Tile-tuning mode of each chunk's B1 and B2 launches, whose config
+        is chosen per chunk (an unknown mode raises ``ValueError`` at the
+        first chunk).
 
     Raises
     ------
@@ -434,7 +435,7 @@ class ChunkedNSA:
 
         from repro_torch.kernels import ops
 
-        ops.check_autotune(autotune)
+        self.autotune = autotune
         self.pairs = [(name, int(rng)) for name, rng in pairs]
         if not self.pairs:
             raise ValueError("need at least one scenario row")
@@ -515,7 +516,7 @@ class ChunkedNSA:
         handles without waiting for the device."""
         import torch
 
-        from repro_torch.kernels import ops
+        from repro_torch.kernels import ops, tuning
         from repro_torch.kernels.stream_sample import stream_sample
 
         b1_in, a = self.sample_inputs(lo, hi)
@@ -523,8 +524,14 @@ class ChunkedNSA:
         Nc = b1_in[0].shape[1]
         kept = self._kept_cum[:, hi] - self._kept_cum[:, lo]
         K = min(_tiles(kept.max(), ops.TILE), Nc)
-        ss, keep = stream_sample(*b1_in)
-        idx, totals = ops.compact_mask_batched_device(keep)
+        end = self.lengths if hi >= self.width else self._starts_np[:, hi]
+        with tuning.tuner_context(self.autotune, device=self.device):
+            cfg = tuning.config_for(
+                "stream_sample", s=len(self.pairs),
+                n=max(int((end - a).max()), 1), r=self.width,
+                device=self.device)
+            ss, keep = stream_sample(*b1_in, config=cfg)
+            idx, totals = ops.compact_mask_batched_device(keep)
         idx = idx[:, :K].contiguous()
         ss_kept = torch.gather(ss, 1, torch.clamp(idx, max=Nc - 1).long())
         return ChunkHandles(ss_kept=ss_kept, idx=idx, totals=totals,

@@ -306,5 +306,12 @@ def test_nsa_batched_numpy_backend_and_guards(originals):
         T.nsa_batched(streams, 0, device=CPU)
     with pytest.raises(ValueError):
         T.nsa_sweep(streams, [60, -1], device=CPU)
-    with pytest.raises(NotImplementedError):
-        T.nsa_sweep(streams, [60], device=CPU, autotune="cached")
+    # every autotune mode gives the "off" sweep; an unknown one raises
+    off = T.nsa_sweep(streams, [60], device=CPU)
+    cached = T.nsa_sweep(streams, [60], device=CPU, autotune="cached")
+    forced = T.nsa_batched(streams, 60, device=CPU, autotune="force")
+    for k in streams:
+        _same_stream(cached[(k, 60)], off[(k, 60)])
+        _same_stream(forced[k], off[(k, 60)])
+    with pytest.raises(ValueError, match="autotune"):
+        T.nsa_sweep(streams, [60], device=CPU, autotune="fastest")

@@ -151,10 +151,20 @@ def test_simulate_stream_facade():
 
 
 def test_autotune_other_than_off_raises(tmp_path):
-    c = T.Controller(str(tmp_path), device=CPU)
-    with pytest.raises(NotImplementedError):
-        c.run("traffic", 40, _consumer, scale=0.002, seed=9,
-              backend="torch", autotune="cached")
+    # (the name is kept from when "cached" raised NotImplementedError):
+    # "cached" runs and equals the "off" run; an unknown mode raises
+    kw = dict(scale=0.002, seed=9, backend="torch")
+    off = T.Controller(str(tmp_path / "off"), device=CPU).run(
+        "traffic", 40, _consumer, **kw)
+    c = T.Controller(str(tmp_path / "cached"), device=CPU)
+    rep = c.run("traffic", 40, _consumer, autotune="cached", **kw)
+    assert rep.simulated_rows == off.simulated_rows > 0
+    assert rep.consumer_metrics == off.consumer_metrics
+    np.testing.assert_allclose(rep.simulated_volatility.variance,
+                               off.simulated_volatility.variance, rtol=1e-5)
+    with pytest.raises(ValueError, match="autotune"):
+        T.Controller(str(tmp_path / "bad"), device=CPU).run(
+            "traffic", 40, _consumer, autotune="fastest", **kw)
 
 
 def _plan(store, originals, max_ranges, n_devices=1):

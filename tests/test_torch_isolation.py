@@ -68,7 +68,8 @@ def test_port_has_the_slice_modules():
                 "serving/engine.py", "serving/load.py",
                 "streamsim/tasks.py", "launch/serve.py",
                 "streamsim/service.py", "distributed/api.py",
-                "distributed/__init__.py", "streamsim/taskbench.py"):
+                "distributed/__init__.py", "streamsim/taskbench.py",
+                "kernels/tuning.py"):
         assert mod in names
     import importlib
     for mod, attr in (("kernels.metrics_fused", "stream_metrics_carry"),
@@ -84,7 +85,8 @@ def test_port_has_the_slice_modules():
                       ("streamsim", "SweepService"),
                       ("streamsim", "nsa_sweep"),
                       ("kernels.ops", "compact_mask"),
-                      ("distributed", "process_topology")):
+                      ("distributed", "process_topology"),
+                      ("kernels.tuning", "KernelTuner")):
         assert hasattr(importlib.import_module(f"repro_torch.{mod}"), attr)
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "stream_sample.cu", "compact.cu", "metrics_fused.cu",
@@ -128,6 +130,13 @@ with tempfile.TemporaryDirectory() as d:
         scale=0.002, seed=9, backend="torch", service=True)
 assert [r.status for r in reps] == ["ok", "ok"]
 assert all(fr.provenance for fr in ctl.last_fidelity)
+with tempfile.TemporaryDirectory() as d:
+    ctl = Controller(d, device="cpu")
+    for mode in ("force", "cached"):
+        rep = ctl.run("traffic", 40, lambda q: {"n": sum(len(b) for b in q)},
+                      scale=0.002, seed=9, backend="torch", autotune=mode)
+        assert rep.consumer_metrics["n"] == rep.simulated_rows > 0
+    assert ctl.store.get_marker("_tune", "cpu-plain")["entries"]
 from repro_torch.configs import get_smoke
 from repro_torch.models import transformer
 from repro_torch.serving import Request, ServingEngine

@@ -761,11 +761,41 @@ class TestDeviceRules:
         assert not tops.on_cuda(torch.zeros(1)) and tops.on_cuda("cuda:1")
 
     @pytest.mark.parametrize("mode", ["cached", "force"])
-    def test_autotune_is_not_ported(self, mode):
-        tops.check_autotune(None)
-        tops.check_autotune("off")
-        with pytest.raises(NotImplementedError):
-            tops.check_autotune(mode)
+    def test_autotune_is_not_ported(self, mode, tmp_path):
+        # (the name is kept from when tile tuning was not ported): the ops
+        # wrappers under a "cached" or "force" tuner give the "off"
+        # outputs -- integers exact, moments within 1e-5 -- and an
+        # unknown mode raises ValueError at the knob
+        from repro_torch.kernels import tuning
+        from repro_torch.streamsim.store import StreamStore
+        assert not hasattr(tops, "check_autotune")
+        rng = np.random.default_rng(5)
+        ts = [np.sort(rng.uniform(0.0, 900.0, n)) for n in (700, 2500)]
+        q = [rng.integers(0, 9, n) for n in (300, 1800)]
+
+        def run():
+            ss, keep, lens = tops.stream_sample_batched(ts, [60, 300], 2.0,
+                                                        device=CPU)
+            idx, tot = tops.compact_mask_batched(keep)
+            hist, mom, _ = tops.stream_metrics_batched(
+                [s[k] for s, k in zip(ss, keep)], 300, device=CPU)
+            trend, _ = tops.trend_scan_batched(q, 7, device=CPU)
+            corr = tops.trend_correlation_batched(q, 7, device=CPU)
+            return (ss, keep, idx, tot, hist, trend), mom, corr
+
+        want, mom0, corr0 = run()
+        store = StreamStore(tmp_path / "store")
+        with tuning.tuner_context(mode, store=store, device=CPU):
+            got, mom, corr = run()
+        for g, w in zip(got, want):
+            assert torch.equal(torch.as_tensor(g), torch.as_tensor(w))
+        torch.testing.assert_close(mom, mom0, rtol=1e-5, atol=0.0)
+        np.testing.assert_allclose(corr, corr0, rtol=1e-5, atol=1e-6)
+        assert store.get_marker(tuning.TUNE_NAMESPACE,
+                                tuning.CPU_KIND)["entries"]
+        with pytest.raises(ValueError, match="autotune"):
+            with tuning.tuner_context("fastest", device=CPU):
+                pass  # pragma: no cover
 
 
 # ------------------------------------------------ pairwise trend corr

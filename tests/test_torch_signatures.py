@@ -1,11 +1,11 @@
 """Signatures of the port's sweep entry points against the JAX package's.
 
-A keyword the reference takes must be taken by the port too: a knob the
-port has not ported yet (``autotune``, the tile-tuning slice) raises
-``NotImplementedError`` for any value other than the reference's default,
-never ``TypeError``; the sweep service's lease knobs reach the service. The
-comparison of the signatures is made here, in the test only; the port
-imports nothing of the reference.
+A keyword the reference takes must be taken by the port too, never
+``TypeError``: ``autotune`` runs every mode the reference has ("cached"
+and "force" give the "off" results, an unknown mode raises ``ValueError``
+as the reference's tuner does) and the sweep service's lease knobs reach
+the service. The comparison of the signatures is made here, in the test
+only; the port imports nothing of the reference.
 """
 
 import importlib
@@ -172,30 +172,56 @@ def _sweep_result(originals, autotune):
                          ids=["nsa_sweep_device", "ChunkedNSA",
                               "DeviceSweepResult"])
 @pytest.mark.parametrize("autotune,raises", [
-    (None, None), ("off", None), ("cached", NotImplementedError),
-    ("force", NotImplementedError)])
+    (None, None), ("off", None), ("cached", None), ("force", None),
+    ("fastest", ValueError)])
 def test_autotune_modes(originals, make, autotune, raises):
+    # every mode runs and gives the "off" outputs; an unknown one raises
+    # where the device leg enters the tuner (the sweep's launches, the
+    # first chunk, the original's metrics)
+    def leg(out):
+        if make is _sweep_device:
+            return out
+        if make is _chunked_nsa:
+            return out.chunk(0, 20)
+        return out.om["traffic"]
+
     if raises is not None:
         with pytest.raises(raises, match="autotune"):
-            make(originals, autotune)
+            leg(make(originals, autotune))
         return
-    out = make(originals, autotune)
+    got, want = leg(make(originals, autotune)), leg(make(originals, None))
     if make is _sweep_device:
-        ss_kept, idx, totals, lengths = out
-        ref_ss, ref_idx, ref_totals, _ = _sweep_device(originals, None)
+        ss_kept, idx, totals, lengths = got
+        ref_ss, ref_idx, ref_totals, _ = want
         assert np.array_equal(totals, ref_totals) and totals[0] > 0
         assert np.array_equal(idx.numpy(), ref_idx.numpy())
+        assert np.array_equal(ss_kept.numpy(), ref_ss.numpy())
     elif make is _chunked_nsa:
-        h = out.chunk(0, 20)
-        assert int(h.totals.sum()) == int(h.kept.sum()) > 0
+        assert int(got.totals.sum()) == int(got.kept.sum()) > 0
+        assert np.array_equal(got.idx.numpy(), want.idx.numpy())
+        assert np.array_equal(got.ss_kept.numpy(), want.ss_kept.numpy())
     else:
-        assert out.mode == "device"
+        assert np.array_equal(got.counts, want.counts)
+        np.testing.assert_allclose(got.volatility.variance,
+                                   want.volatility.variance, rtol=1e-5)
 
 
-def test_execute_sweep_threads_autotune(originals):
+def test_execute_sweep_threads_autotune(originals, tmp_path):
+    # "force" measures and persists a winner for every key the sweep
+    # dispatches, under the store; the reports equal the "off" run's
+    store = T.StreamStore(tmp_path / "store")
     res = T.execute_sweep(_plan(originals, None), originals, None,
                           backend="torch", device=CPU, autotune="off")
-    assert res.mode == "device"
-    with pytest.raises(NotImplementedError, match="autotune"):
+    forced = T.execute_sweep(_plan(originals, store), originals, store,
+                             backend="torch", device=CPU, autotune="force")
+    assert res.mode == forced.mode == "device"
+    assert np.array_equal(res.shard_results[0].totals,
+                          forced.shard_results[0].totals)
+    np.testing.assert_allclose(forced.shard_results[0].mom,
+                               res.shard_results[0].mom, rtol=1e-5)
+    entries = store.get_marker("_tune", "cpu-plain")["entries"]
+    assert {k.split("/")[0] for k in entries} == {
+        "stream_sample", "compact", "metrics_fused"}
+    with pytest.raises(ValueError, match="autotune"):
         T.execute_sweep(_plan(originals, None), originals, None,
-                        backend="torch", device=CPU, autotune="force")
+                        backend="torch", device=CPU, autotune="fastest")

@@ -164,8 +164,11 @@ def test_nsa_rejects_bad_arguments(originals):
         T.nsa(torig, 0)
     with pytest.raises(ValueError):
         T.nsa(torig, 10, backend="pallas")
-    with pytest.raises(NotImplementedError):
-        T.nsa(torig, 10, backend="torch", device=CPU, autotune="force")
+    with pytest.raises(ValueError, match="autotune"):
+        T.nsa(torig, 10, backend="torch", device=CPU, autotune="fastest")
+    _same_stream(
+        T.nsa(torig, 10, backend="torch", device=CPU, autotune="force"),
+        T.nsa(torig, 10, backend="numpy"))
 
 
 def test_scale_stamps_and_helpers_match(originals):

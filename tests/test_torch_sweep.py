@@ -466,14 +466,14 @@ def test_chunk_feed_values_not_ported():
     ({"duration_s": 86_400}, ValueError),
     ({"service": True}, None),
     ({"n_hosts": 2, "host_index": 0}, None),
-    ({"autotune": "cached"}, NotImplementedError)],
+    ({"autotune": "cached"}, None)],
     ids=["checkpoint", "chunk_s", "duration_s", "service", "n_hosts",
          "autotune"])
 def test_unported_knobs_raise(tmp_path, knob, raises):
     # checkpoint and chunk_s (the chunked slice), service and n_hosts (the
     # sweep-service slice) are ported and run: host 0 of 2 takes the one
     # scenario; duration_s without chunk_s raises the reference's
-    # ValueError; autotune raises until tile tuning is ported
+    # ValueError; autotune (the tile-tuning slice) runs too
     c = T.Controller(str(tmp_path), device=CPU)
     if raises is None:
         reps = c.run_many(["traffic"], [20], _drain, scale=SCALE, seed=9,

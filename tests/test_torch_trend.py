@@ -333,9 +333,9 @@ class TestMetricsLayer:
                                                        backend="pallas"))
         with pytest.raises(ValueError):
             tmetrics.trend_correlation_matrix([_counts(10)], 0, device=CPU)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="autotune"):
             tmetrics.trend_correlation_matrix([_counts(10)], 3, device=CPU,
-                                              autotune="force")
+                                              autotune="fastest")
 
     def test_torch_path_never_runs_host_cumsum(self, monkeypatch):
         def _boom(*a, **k):
