@@ -152,10 +152,27 @@ Phases, each of which raises on failure (nothing catches it):
    sweep, launches equal to phase 4's, the cache listing every key the
    run dispatched, both runs' simulated streams byte-equal to phase 4's
    numpy run;
-15. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
+15. drive ``python -m repro_torch.launch.train`` on the paper's consumer
+   LM at full size (12 layers, d 768, vocab 32,768, f32) fed by the
+   userbehavior stream at max_range 600, scale 0.02, batch 8 x 256, 60
+   steps, a checkpoint every 20 and a crash injected at step 45: one
+   restart, step 60 reached, a finite loss, the last 10 steps' mean loss
+   below the first 10's, the stream consumed, no kernel launched; the
+   first 3 steps replayed on the CPU from the same parameters and batches
+   within 1e-4 relative, with TF32 off;
+16. train llama3-8b at full width (d 4096, 32/8 heads, d_ff 14,336, vocab
+   128,256, bf16), depth cut to 4 layers, on one 4096-token sequence:
+   the step-0 loss and gradient norm with remat none and full within
+   1e-2 (each one's peak device memory printed), the loss within 0.5 of
+   ln V + 1/2; then 3 in-place train steps under a ``TrainLoop`` that
+   checkpoints the bf16 state once, restored bit for bit; step time,
+   tokens/s, peak memory and the checkpoint's seconds printed beside the
+   card's name and power limit;
+17. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
    ``multiday``, ``serve``, ``serve_llama3``, ``taskbench``, ``api``,
-   ``service``, ``multihost``, ``tuning`` and ``kernels`` JSON lines and,
-   last, the ``{"ok": true, "device": ...}`` line.
+   ``service``, ``multihost``, ``tuning``, ``train``, ``train_llama3`` and
+   ``kernels`` JSON lines and, last, the ``{"ok": true, "device": ...}``
+   line.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -2146,6 +2163,7 @@ def _capture_decode(cfg, params, cache, toks, layers, attn=None):
     swap is this script's, not an option of the package)."""
     import torch
 
+    from repro_torch import tree
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
 
@@ -2159,7 +2177,7 @@ def _capture_decode(cfg, params, cache, toks, layers, attn=None):
         return real(q, k, v, lengths, **kw) if attn is None else \
             attn(q, k, v, lengths)
 
-    work = transformer._tree_map(lambda t: t.clone(), cache)
+    work = tree.tree_map(torch.clone, cache)
     ops.flash_decode = hook
     try:
         logits, _ = transformer.decode_step(cfg, params, work, toks)
@@ -2185,6 +2203,7 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
 
     import torch
 
+    from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
@@ -2196,7 +2215,7 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
     params = transformer.init_params(cfg, seed, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree.leaves(params))
     if n_params != cfg.n_params():
         raise AssertionError(f"{cfg.name}: {n_params} parameters, the "
                              f"config says {cfg.n_params()}")
@@ -2928,15 +2947,294 @@ def run_tuning_path(device: str, scale: float, seed: int, workdir: Path,
         "sweeps": sweeps}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# ------------------------------------------ phases 15-16: training on the card
+#: the launcher's run: the paper's consumer LM at full size on the
+#: userbehavior stream, one crash injected after the checkpoint of step 40
+TRAIN_ARGV = ("--dataset", "userbehavior", "--max-range", "600", "--scale",
+              "0.02", "--batch", "8", "--seq", "256", "--steps", "60",
+              "--ckpt-every", "20", "--inject-failure", "45")
+#: steps of the launcher's run replayed on the CPU, and their tolerance
+TRAIN_CPU_STEPS, TRAIN_CPU_RTOL = 3, 1e-4
+#: llama3-8b's widths, depth cut to 4 layers by the card's 80 GB (32
+#: layers of bf16 weights and grads and f32 moments take ~128 GB); batch 1
+#: of the train_4k shape's sequence
+TRAIN_LLAMA_LAYERS, TRAIN_LLAMA_BATCH, TRAIN_LLAMA_STEPS = 4, 1, 3
+TRAIN_REMAT_RTOL = 1e-2
+
+
+def _args(argv) -> dict:
+    """``--flag value`` pairs of an argument list, by flag name."""
+    return {k.lstrip("-").replace("-", "_"): v
+            for k, v in zip(argv[::2], argv[1::2])}
+
+
+def run_train_path(device: str, seed: int, workdir: Path,
+                   argv=TRAIN_ARGV, cpu_steps: int = TRAIN_CPU_STEPS):
+    """Phase 15: ``repro_torch.launch.train.main`` on the paper's consumer
+    LM at full size (12 layers, d 768, 12/4 heads, vocab 32,768, f32, no
+    remat) fed by the userbehavior stream (POSD -> numpy NSA -> PSDA
+    producer -> StreamBatcher -> TrainLoop), with a crash injected at step
+    45, the launch counts zeroed just before and read just after (no
+    kernel runs on this path). It must restart once from the step-40
+    checkpoint, end at step 60 with a finite loss, descend (the mean loss
+    of its last 10 steps below that of its first 10) and consume the
+    stream. Then the launcher's first ``cpu_steps`` steps are run again
+    on the CPU from the same parameters (drawn on the card from the seed
+    and copied) and the same batches (the stream rebuilt): each loss
+    within 1e-4 relative of the card's, with TF32 off."""
+    import types
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.paper_stream import consumer_lm
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import AdamW, adamw_init
+    from repro_torch.training.steps import jit_train_step
+
+    flags = _args(argv)
+    steps = int(flags["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = train.main(["--device", device, "--seed", str(seed),
+                      "--ckpt-dir", str(workdir / "train_ckpt"),
+                      "--out", str(workdir / "train_metrics.json"), *argv])
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary, history = out["summary"], out["history"]
+    if summary["restarts"] != 1 or summary["final_step"] != steps or \
+            not np.isfinite(summary["final_loss"]):
+        raise AssertionError(f"train: {summary}")
+    losses = [h["loss"] for h in history]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not last < first:
+        raise AssertionError(f"train: no descent, mean loss {first} over "
+                             f"the first 10 steps, {last} over the last 10")
+    stream = summary["stream"]
+    if stream["buckets_consumed"] < 1 or stream["records_consumed"] < 1:
+        raise AssertionError(f"train: stream counters {stream}")
+    if any(launches.values()):
+        raise AssertionError(f"train launched kernels: {launches}")
+
+    # the first steps again on the CPU, from the same weights and batches
+    # (the launcher's model: its remat rule keeps none at 12 layers)
+    cfg = get_smoke(flags["arch"]) if "arch" in flags else consumer_lm()
+    cfg = cfg.replace(remat="none") if cfg.n_layers <= 12 else cfg
+    params = tree.tree_map(lambda t: t.cpu(), transformer.init_params(
+        cfg, seed, device=device))
+    batches, _ = train.build_batches(types.SimpleNamespace(
+        dataset=flags["dataset"], scale=float(flags["scale"]), seed=seed,
+        max_range=int(flags["max_range"]), batch=int(flags["batch"]),
+        seq=int(flags["seq"])), cfg.vocab_size)
+    step = jit_train_step(cfg, AdamW(lr=float(flags.get("lr", 3e-4)),
+                                     total_steps=steps), donate=False)
+    opt_state = adamw_init(params)
+    cpu_losses = []
+    t0 = time.perf_counter()
+    for _ in range(cpu_steps):
+        params, opt_state, m = step(params, opt_state, next(batches))
+        cpu_losses.append(float(m["loss"]))
+    cpu_s = time.perf_counter() - t0
+    card_losses = losses[:cpu_steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+    if max(rel) > TRAIN_CPU_RTOL:
+        raise AssertionError(f"train: card losses {card_losses} vs CPU "
+                             f"{cpu_losses} beyond {TRAIN_CPU_RTOL}")
+    tokens = int(flags["batch"]) * int(flags["seq"])
+    step_ms = float(np.median([h["wall_s"] for h in history[1:]])) * 1e3
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    report = {
+        "card": _card_line(), "arch": cfg.name, "params": n_params,
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "remat": cfg.remat, "argv": list(argv), "summary": summary,
+        "wall_s": wall, "steps_run": len(history),
+        "first10_mean_loss": first, "last10_mean_loss": last,
+        "train_step_ms": step_ms, "train_tokens_per_s": tokens * 1e3 / step_ms,
+        "peak_mem_gb": peak_gb, "tf32": bool(
+            torch.backends.cuda.matmul.allow_tf32),
+        "cpu_steps": cpu_steps, "cpu_s": cpu_s, "card_losses": card_losses,
+        "cpu_losses": cpu_losses, "cpu_max_rel_err": max(rel)}
+    print(f"train: {cfg.name} {n_params / 1e6:.1f} M, step {step_ms:.2f} ms "
+          f"({report['train_tokens_per_s']:.0f} tokens/s), peak "
+          f"{peak_gb:.2f} GB; first {cpu_steps} losses within "
+          f"{max(rel):.2e} of the CPU's with TF32 off [{report['card']}]")
+    return launches, report
+
+
+def _timed_saves(mgr):
+    """``mgr`` (a ``CheckpointManager``) with each save's seconds (host
+    copy and write, for a blocking save) appended to ``mgr.save_s``."""
+    mgr.save_s, save = [], mgr.save
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        save(*a, **kw)
+        mgr.save_s.append(time.perf_counter() - t0)
+    mgr.save = timed
+    return mgr
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    def bits(t):
+        t = t.reshape(-1)
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(bits(a), bits(b))
+
+
+def run_train_llama3_path(device: str, seed: int, workdir: Path, cfg=None,
+                          seq: int = None):
+    """Phase 16: llama3-8b at full width (d 4096, 32/8 heads, head_dim 128,
+    d_ff 14,336, vocab 128,256, bf16), depth cut to 4 layers, loss_chunk
+    512, on one sequence of the train_4k shape (S 4096, batch cut to 1)
+    from ``SyntheticBatcher``. First the step-0 loss and gradient norm
+    with ``remat="none"`` and ``"full"`` (equal within 1e-2 relative; the
+    peak device memory of each), the loss within 0.5 of ln V + 1/2 (the
+    random init gives each position unit-variance logits: the final norm
+    makes the hidden state's mean square 1 and the head is N(0, 1/d), and
+    E[logsumexp] of V such logits is ln V + 1/2). Then 3 steps of
+    ``jit_train_step`` (donated: in place) under a ``TrainLoop`` that
+    checkpoints the bf16 state once, at its end, with the launch counts
+    zeroed just before and read just after; the checkpoint restored and
+    compared bit for bit with the state. Prints step time, tokens/s, the
+    peaks and the checkpoint's save and restore seconds. ``cfg`` and
+    ``seq`` replace the shape (a small one rehearses the phase on the
+    CPU)."""
+    import gc
+    import itertools
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import transformer
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.data import SyntheticBatcher
+    from repro_torch.training.optimizer import AdamW, adamw_init, global_norm
+    from repro_torch.training.steps import jit_train_step, value_and_grad
+    from repro_torch.training.train_loop import TrainLoop, TrainLoopConfig
+
+    if cfg is None:
+        cfg = get_config("llama3-8b").replace(
+            n_layers=TRAIN_LLAMA_LAYERS, remat="full", loss_chunk=512)
+    seq = SHAPES["train_4k"].seq_len if seq is None else seq
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    batches = iter(SyntheticBatcher(TRAIN_LLAMA_BATCH, seq, cfg.vocab_size,
+                                    seed=seed))
+    first = next(batches)
+
+    remat = {}
+    for mode in ("none", "full"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (loss, _), grads = value_and_grad(cfg.replace(remat=mode), params,
+                                          first)
+        gnorm = float(global_norm(grads))
+        remat[mode] = {"loss": float(loss), "grad_norm": gnorm,
+                       "s": time.perf_counter() - t0,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del grads, loss
+    for k in ("loss", "grad_norm"):
+        a, b = remat["none"][k], remat["full"][k]
+        if not abs(a - b) <= TRAIN_REMAT_RTOL * abs(a):
+            raise AssertionError(f"train_llama3: step-0 {k} {a} with remat "
+                                 f"none, {b} with full")
+    expect = math.log(cfg.vocab_size) + 0.5
+    if not abs(remat["full"]["loss"] - expect) < 0.5:
+        raise AssertionError(f"train_llama3: step-0 loss "
+                             f"{remat['full']['loss']}, random init "
+                             f"expects about {expect}")
+
+    ckdir = workdir / "train_llama3_ckpt"
+    ckpt = _timed_saves(CheckpointManager(ckdir, keep=1))
+    free_gb = shutil.disk_usage(workdir).free / 1e9
+    loop = TrainLoop(
+        jit_train_step(cfg, AdamW(total_steps=TRAIN_LLAMA_STEPS)), params,
+        adamw_init(params), itertools.chain([first], batches), ckpt,
+        TrainLoopConfig(total_steps=TRAIN_LLAMA_STEPS,
+                        checkpoint_every=TRAIN_LLAMA_STEPS + 1,
+                        async_checkpoint=False))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    summary = loop.run()
+    run_s = time.perf_counter() - t0
+    launches = _read_launches()
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in loop.history]
+    if summary["final_step"] != TRAIN_LLAMA_STEPS or \
+            not all(np.isfinite(losses)) or ckpt.steps() != [
+                TRAIN_LLAMA_STEPS] or len(ckpt.save_s) != 1:
+        raise AssertionError(f"train_llama3: {summary}, checkpoints "
+                             f"{ckpt.steps()}")
+    if not abs(losses[0] - remat["full"]["loss"]) <= \
+            TRAIN_REMAT_RTOL * abs(losses[0]):
+        raise AssertionError(f"train_llama3: loop step 0 loss {losses[0]}, "
+                             f"value_and_grad {remat['full']['loss']}")
+    if any(launches.values()):
+        raise AssertionError(f"train_llama3 launched kernels: {launches}")
+    ck_bytes = sum(f.stat().st_size for f in ckdir.rglob("*") if
+                   f.is_file())
+    t0 = time.perf_counter()
+    restored = ckpt.restore(loop._state())
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state = tree.leaves(loop._state())
+    got = tree.leaves(restored)
+    if len(got) != len(state) or not all(
+            _bit_equal(a, b) for a, b in zip(got, state)):
+        raise AssertionError("train_llama3: the restored checkpoint differs "
+                             "from the state")
+    if tree.leaves(loop.params)[0].dtype != torch.bfloat16:
+        raise AssertionError("train_llama3: parameters are not bf16")
+    tokens = TRAIN_LLAMA_BATCH * seq
+    step_ms = float(np.median([h["wall_s"] for h in loop.history[1:]])) * 1e3
+    report = {
+        "card": _card_line(), "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim_,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+        "remat": cfg.remat, "loss_chunk": cfg.loss_chunk,
+        "batch": TRAIN_LLAMA_BATCH, "seq": seq, "params": n_params,
+        "init_s": init_s, "step0": remat, "ln_vocab_plus_half": expect,
+        "losses": losses, "step_walls_s": [h["wall_s"] for h in
+                                           loop.history],
+        "train_step_ms": step_ms, "train_tokens_per_s": tokens * 1e3 / step_ms,
+        "run_s": run_s, "peak_mem_gb": train_peak,
+        "ckpt_bytes": ck_bytes, "ckpt_save_s": ckpt.save_s[0],
+        "ckpt_restore_s": restore_s, "disk_free_gb_before": free_gb}
+    print(f"train_llama3: {n_params / 1e9:.3f} B params, step "
+          f"{step_ms:.1f} ms ({report['train_tokens_per_s']:.0f} tokens/s), "
+          f"peak {train_peak:.2f} GB [{report['card']}]")
+    print(f"train_llama3: loss+grad peak {remat['none']['peak_gb']:.2f} GB "
+          f"with remat none, {remat['full']['peak_gb']:.2f} GB with full "
+          f"[{report['card']}]")
+    print(f"train_llama3: checkpoint {ck_bytes / 1e9:.2f} GB saved in "
+          f"{ckpt.save_s[0]:.2f} s, restored in {restore_s:.2f} s "
+          f"[{report['card']}]")
+    del loop, restored, state, got
+    shutil.rmtree(ckdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
 
 
 def _host_ms(fn, reps: int) -> float:
@@ -3047,13 +3345,20 @@ def main() -> int:
             card=_card_line(), build_s=build_s,
             instance_build_s=dict(sorted(_build.build_seconds.items())),
             **tiles, run=tuned)}), flush=True)
+        train_launches, trained = run_train_path("cuda", MAIN_SEED,
+                                                 Path(tmp))
+        print(json.dumps({"train": trained}), flush=True)
+        tl_launches, trained_llama = run_train_llama3_path(
+            "cuda", MAIN_SEED, Path(tmp))
+        print(json.dumps({"train_llama3": trained_llama}), flush=True)
 
     by_path = {"run": run_launches, "run_many": sweep_launches,
                "run_many_chunked": chunked_launches, "multiday": md_launches,
                "serve": serve_launches, "serve_llama3": llama_launches,
                "taskbench": tb_launches, "api": api_launches,
                "service": svc_launches, "multihost": mh_launches,
-               "tuning": tune_launches}
+               "tuning": tune_launches, "train": train_launches,
+               "train_llama3": tl_launches}
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
                           "src/repro/kernels/stream_sample.py:146",

@@ -12,8 +12,11 @@ Layers, named as in the JAX package ``repro`` they mirror:
 - ``repro_torch.models``, ``configs``, ``serving``, ``training``,
   ``launch`` : the dense GQA consumer LMs (llama3-8b, the paper's consumer
   LM, ...), the continuous-batching serving engine driven by the simulated
-  stream (``streamsim.ServingTask``) and its CLI
-  (``python -m repro_torch.launch.serve``).
+  stream (``streamsim.ServingTask``), the stream-fed fault-tolerant
+  training loop, and their CLIs (``python -m repro_torch.launch.serve``,
+  ``python -m repro_torch.launch.train``).
+- ``repro_torch.tree`` : the pytrees (nested dicts and lists of tensors)
+  the models and the training stack walk, in JAX's leaf order.
 
 The package imports ``torch`` and numpy only. Entry points that take a
 ``device`` run on CUDA unless the caller passes ``device="cpu"``.

@@ -100,13 +100,18 @@ def _start(target: Target):
     is renamed into place by :func:`_finish`."""
     if _path(target).exists():
         return None
+    nvcc = nvcc_path()          # raises before any file is created
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
     name, defines = target
-    proc = subprocess.Popen(
-        [nvcc_path(), *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        proc = subprocess.Popen(
+            [nvcc, *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except BaseException:
+        os.unlink(tmp)
+        raise
     return proc, tmp, time.perf_counter()
 
 
@@ -141,7 +146,10 @@ def target(name: str, defines=()) -> Target:
 def build_many(targets: Iterable) -> Dict[Target, str]:
     """Compile every target (a source name, or ``(name, defines)``) not yet
     built, one ``nvcc`` process each, all started together; returns the
-    error of each build that failed (empty when all succeeded)."""
+    error of each build that failed (empty when all succeeded). A start
+    that fails (no toolkit, or ``nvcc`` not runnable: ``OSError``) is a
+    failure of its target; every process already started is still waited
+    for, and no temporary output is left behind."""
     targets = [target(t) if isinstance(t, str) else target(*t)
                for t in targets]
     failed: Dict[Target, str] = {}
@@ -150,12 +158,12 @@ def build_many(targets: Iterable) -> Dict[Target, str]:
         for t in dict.fromkeys(targets):
             try:
                 started.append((t, _start(t)))
-            except KernelBuildError as e:
+            except (KernelBuildError, OSError) as e:
                 failed[t] = str(e)
         for t, st in started:
             try:
                 _finish(t, st)
-            except KernelBuildError as e:
+            except (KernelBuildError, OSError) as e:
                 failed[t] = str(e)
     return failed
 

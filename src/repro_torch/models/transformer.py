@@ -14,18 +14,30 @@ The decode cache is ``{"runs": [{"k", "v"} (R, B, S, Kh, Dh) per run],
 "pos": (B,) int32}``. :func:`decode_step` updates it in place and returns
 it (the reference returns an updated copy and donates the old one).
 
-Other block kinds (``local`` windows, RG-LRU, RWKV6, MoE, MLA) raise
-``NotImplementedError`` naming the slice that brings them; the training
-losses (``lm_loss``, ``loss_fn``) come with the training slice.
+Training: :func:`forward` wraps each block in :func:`_remat`
+(``cfg.remat``: none, full or dots, as the reference wraps its scan
+body), and :func:`lm_loss` takes the next-token cross-entropy chunk by
+chunk, so (B, S, V) logits never exist at once. Gradients come from
+autograd (:mod:`repro_torch.training.steps`).
+
+Other block kinds (``local`` windows, RG-LRU, RWKV6, MoE, MLA) and the
+multi-token-prediction loss raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from repro_torch import tree
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
@@ -102,11 +114,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict:
                      "mix": attn.attn_init(cfg, gen),
                      "mlp": swiglu_init(gen, d, cfg.d_ff, dt)}
             if stacked is None:       # one allocation per leaf of the run
-                stacked = _tree_map(lambda t: torch.empty(
+                stacked = tree.tree_map(lambda t: torch.empty(
                     (count,) + tuple(t.shape), dtype=t.dtype, device=dev),
                     layer)
-            _tree_zip(lambda dst, src, i=i: dst[i].copy_(src), stacked,
-                      layer)
+            tree.tree_map(lambda dst, src, i=i: dst[i].copy_(src), stacked,
+                          layer)
         runs.append(stacked)
     p: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, d, dt),
@@ -118,26 +130,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict:
     return p
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _tree_zip(fn, a, b) -> None:
-    if isinstance(a, dict):
-        for k in a:
-            _tree_zip(fn, a[k], b[k])
-    elif isinstance(a, list):
-        for x, y in zip(a, b):
-            _tree_zip(fn, x, y)
-    else:
-        fn(a, b)
-
-
-def params_from_numpy(cfg: ModelConfig, tree, device=None) -> Dict:
+def params_from_numpy(cfg: ModelConfig, tree_np, device=None) -> Dict:
     """The reference's parameter pytree, given as numpy arrays (for
     example ``jax.tree.map(np.asarray, params)``), as the port's parameters
     on ``device`` (default CUDA). bfloat16 leaves (``ml_dtypes``' type,
@@ -145,20 +138,34 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> Dict:
     their 16-bit pattern."""
     check_supported(cfg)
     dev = resolve_device(device)
+    return tree.tree_map(lambda a: tree.from_numpy(a, dev), tree_np)
 
-    def leaf(a):
-        a = np.array(a)                       # a writable host copy
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.int16)).view(
-                torch.bfloat16).to(dev)
-        return torch.from_numpy(a).to(dev)
 
-    return _tree_map(leaf, tree)
+def opt_state_from_numpy(cfg: ModelConfig, state, device=None) -> Dict:
+    """The reference's AdamW state ``{"step", "m", "v"}``, given as numpy
+    arrays, as the port's on ``device`` (default CUDA): ``step`` a 0-dim
+    int32 tensor, the moments float32 trees of the parameters' layout."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return {"step": tree.from_numpy(state["step"], dev).to(torch.int32),
+            "m": tree.tree_map(lambda a: tree.from_numpy(a, dev),
+                               state["m"]),
+            "v": tree.tree_map(lambda a: tree.from_numpy(a, dev),
+                               state["v"])}
+
+
+def params_to_numpy(cfg: ModelConfig, params: Dict):
+    """The reverse of :func:`params_from_numpy`: ``(arrays, dtypes)``, the
+    parameters as host numpy arrays (bfloat16 leaves as their 16-bit
+    patterns, ``uint16``) and a tree of their dtype names
+    (:func:`repro_torch.tree.tree_to_numpy`)."""
+    check_supported(cfg)
+    return tree.tree_to_numpy(params)
 
 
 # =================================================================== forward
 def _layer(stacked: Dict, i: int) -> Dict:
-    return _tree_map(lambda t: t[i], stacked)
+    return tree.tree_map(lambda t: t[i], stacked)
 
 
 def _embed_inputs(cfg: ModelConfig, params: Dict,
@@ -178,20 +185,52 @@ def _block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     return x + swiglu(p["mlp"], h2)
 
 
+#: the weight products of a block and of the logits head: ``matmul`` of
+#: an activation (B, S, d) by a 2-D weight runs as ``aten.mm`` (the
+#: attention's score and value products, which have a batch axis, run as
+#: ``aten.bmm``). Under ``remat="dots"`` their outputs are saved and
+#: everything else is recomputed, the counterpart of the reference's
+#: ``dots_with_no_batch_dims_saveable``.
+_DOTS_SAVED = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``: ``"none"`` keeps every activation for
+    the backward pass, ``"full"`` keeps only ``fn``'s inputs and runs it
+    again in the backward pass, ``"dots"`` also keeps the outputs of the
+    weight products (:data:`_DOTS_SAVED`)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        # the contexts are made anew for every call (``context_fn``)
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn)
+    return functools.partial(checkpoint, fn, use_reentrant=False)  # "full"
+
+
 def forward(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """inputs: (B, S) tokens or (B, S, d) embeddings. Returns (hidden
-    (B, S, d), aux losses — empty for dense models)."""
+    (B, S, d), aux losses — empty for dense models). Each block runs
+    under :func:`_remat`."""
     check_supported(cfg)
     x = _embed_inputs(cfg, params, inputs)
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+    body = _remat(cfg, functools.partial(_block_apply, cfg))
     for (kind, count), stacked in zip(_runs(cfg.blocks()), params["runs"]):
         for i in range(count):
-            x = _block_apply(cfg, _layer(stacked, i), x, positions)
+            x = body(_layer(stacked, i), x, positions)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32), {}
 
 
@@ -199,6 +238,55 @@ def _head_table(cfg: ModelConfig, params: Dict) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"]
     return params["lm_head"].T  # (V, d) view for unembed
+
+
+# ====================================================================== loss
+def lm_loss(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
+            labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing (B, S, V):
+    ``cfg.loss_chunk`` positions at a time through the f32 logits head,
+    each chunk's body under :func:`_remat` unless ``cfg.remat`` is
+    ``"none"``. Returns a 0-dim f32 tensor."""
+    b, s, d = hidden.shape
+    c = min(cfg.loss_chunk, s)
+    assert s % c == 0, (s, c)
+    table = _head_table(cfg, params)
+    labels = torch.as_tensor(labels, device=hidden.device).long()
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    mask = torch.as_tensor(mask, device=hidden.device).float()
+
+    def chunk(h, y, m):
+        logits = unembed(h, table, cfg.logit_softcap)        # (B, C, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        return ((lse - gold) * m).sum(), m.sum()
+
+    if cfg.remat != "none":
+        chunk = _remat(cfg, chunk)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for j in range(0, s, c):
+        nll, n = chunk(hidden[:, j:j + c], labels[:, j:j + c],
+                       mask[:, j:j + c])
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
+            aux_weights: Tuple[float, float] = (0.01, 1e-3)
+            ) -> Tuple[torch.Tensor, Dict]:
+    """batch: ``{"inputs": tokens (B, S) or embeddings (B, S, d),
+    "labels": (B, S)}`` and an optional ``"mask"`` (B, S), as tensors or
+    numpy arrays (moved to the parameters' device) -> (0-dim loss,
+    ``{"ce", "loss"}``). ``aux_weights`` weigh the MoE losses, which come
+    with the MoE slice (:func:`check_supported` raises for MoE models)."""
+    check_supported(cfg)
+    dev = params["embed"].device
+    hidden, _ = forward(cfg, params,
+                        torch.as_tensor(batch["inputs"], device=dev))
+    loss = lm_loss(cfg, params, hidden, batch["labels"], batch.get("mask"))
+    return loss, {"ce": loss, "loss": loss}
 
 
 # ===================================================================== cache

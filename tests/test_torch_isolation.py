@@ -69,7 +69,10 @@ def test_port_has_the_slice_modules():
                 "streamsim/tasks.py", "launch/serve.py",
                 "streamsim/service.py", "distributed/api.py",
                 "distributed/__init__.py", "streamsim/taskbench.py",
-                "kernels/tuning.py"):
+                "kernels/tuning.py", "tree.py", "training/optimizer.py",
+                "training/steps.py", "training/checkpoint.py",
+                "training/ft.py", "training/train_loop.py",
+                "launch/train.py"):
         assert mod in names
     import importlib
     for mod, attr in (("kernels.metrics_fused", "stream_metrics_carry"),
@@ -86,7 +89,10 @@ def test_port_has_the_slice_modules():
                       ("streamsim", "nsa_sweep"),
                       ("kernels.ops", "compact_mask"),
                       ("distributed", "process_topology"),
-                      ("kernels.tuning", "KernelTuner")):
+                      ("kernels.tuning", "KernelTuner"),
+                      ("models.transformer", "loss_fn"),
+                      ("models.transformer", "opt_state_from_numpy"),
+                      ("training", "TrainLoop")):
         assert hasattr(importlib.import_module(f"repro_torch.{mod}"), attr)
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "stream_sample.cu", "compact.cu", "metrics_fused.cu",
@@ -147,6 +153,15 @@ for i in range(3):
     eng.submit(Request(rid=i, prompt=[1 + i, 2, 3], max_new_tokens=4))
 eng.drain()
 assert eng.metrics.finished == 3
+import contextlib, io
+from repro_torch.launch import train
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(
+        io.StringIO()):
+    out = train.main(["--device", "cpu", "--arch", "llama3-8b", "--dataset",
+                      "synthetic", "--steps", "3", "--ckpt-every", "2",
+                      "--inject-failure", "2", "--ckpt-dir", d + "/ck",
+                      "--out", d + "/m.json"])
+assert out["summary"]["final_step"] == 3 and out["summary"]["restarts"] == 1
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
           and sys.modules[m] is not None]
 assert not loaded, loaded

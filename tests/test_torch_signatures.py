@@ -1,4 +1,5 @@
-"""Signatures of the port's sweep entry points against the JAX package's.
+"""Signatures of the port's sweep entry points and of its training stack
+against the JAX package's.
 
 A keyword the reference takes must be taken by the port too, never
 ``TypeError``: ``autotune`` runs every mode the reference has ("cached"
@@ -8,8 +9,12 @@ the service. The comparison of the signatures is made here, in the test
 only; the port imports nothing of the reference.
 """
 
+import dataclasses
+import functools
 import importlib
 import inspect
+import re
+import sys
 
 import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 import numpy as np
@@ -225,3 +230,82 @@ def test_execute_sweep_threads_autotune(originals, tmp_path):
     with pytest.raises(ValueError, match="autotune"):
         T.execute_sweep(_plan(originals, None), originals, None,
                         backend="torch", device=CPU, autotune="fastest")
+
+
+# ------------------------------------------------------------------ training
+TRAINING_NAMES = {
+    "training.optimizer": ("adamw_init", "_schedule", "global_norm",
+                           "adamw_update"),
+    "training.steps": ("make_train_step", "make_forward_step",
+                       "make_serve_step", "jit_train_step", "jit_serve_step",
+                       "jit_prefill_step"),
+    "training.checkpoint": ("CheckpointManager.__init__",
+                            "CheckpointManager.save",
+                            "CheckpointManager.wait",
+                            "CheckpointManager.steps",
+                            "CheckpointManager.latest_step",
+                            "CheckpointManager.restore",
+                            "CheckpointManager.manifest"),
+    "training.ft": ("SimulatedFailure.__init__", "FailureInjector.check",
+                    "StragglerMonitor.observe", "StragglerMonitor.summary",
+                    "elastic_plan"),
+    "training.train_loop": ("TrainLoop.__init__", "TrainLoop.run",
+                            "TrainLoop.summary"),
+    "models.transformer": ("forward", "lm_loss", "loss_fn", "_remat"),
+    "launch.train": ("build_batches",),
+}
+TRAINING_DATACLASSES = [("training.optimizer", "AdamW"),
+                        ("training.ft", "FailureInjector"),
+                        ("training.ft", "StragglerMonitor"),
+                        ("training.train_loop", "TrainLoopConfig")]
+
+
+def _both(mod, name):
+    get = lambda pkg: functools.reduce(
+        getattr, name.split("."), importlib.import_module(f"{pkg}.{mod}"))
+    return get("repro_torch"), get("repro")
+
+
+@pytest.mark.parametrize("mod,name", [
+    (mod, name) for mod, names in TRAINING_NAMES.items() for name in names],
+    ids=lambda x: x)
+def test_training_signatures_are_the_references(mod, name):
+    """Names, order, kinds and defaults."""
+    port, ref = _both(mod, name)
+    assert _params(port) == _params(ref)
+
+
+@pytest.mark.parametrize("mod,cls", TRAINING_DATACLASSES, ids=lambda x: x)
+def test_training_dataclass_fields_are_the_references(mod, cls):
+    fields = lambda c: [(f.name, f.type, f.default)
+                        for f in dataclasses.fields(c)]
+    port, ref = _both(mod, cls)
+    assert fields(port) == fields(ref)
+
+
+def test_training_package_exports_the_references_names():
+    import repro.training as jt
+    import repro_torch.training as tt
+    names = {n for n in vars(jt) if not n.startswith("_")} - {"data"}
+    assert names <= set(vars(tt))
+
+
+def _cli_flags(main, argv, capsys, monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["train", "--help"])
+    with pytest.raises(SystemExit):
+        main(*argv)
+    return set(re.findall(r"--[a-z][a-z-]*", capsys.readouterr().out))
+
+
+def test_train_launcher_flags_are_the_references(capsys, monkeypatch):
+    """``main(argv)`` takes an argument list (the reference's reads
+    ``sys.argv``): its flags are the reference's and ``--device``."""
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train as ttrain
+    assert _params(jtrain.main) == []
+    assert _params(ttrain.main) == [
+        ("argv", inspect.Parameter.POSITIONAL_OR_KEYWORD, None)]
+    want = _cli_flags(jtrain.main, (), capsys, monkeypatch)
+    got = _cli_flags(ttrain.main, (["--help"],), capsys, monkeypatch)
+    assert "--inject-failure" in want
+    assert got == want | {"--device"}
