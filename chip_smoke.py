@@ -50,20 +50,25 @@ Phases, each of which raises on failure (nothing catches it):
      whose seeded total ends just under 2^31 - 1 — exact, tail included,
      ``init = 0`` equal to B4 bit for bit, two calls in a row
      bit-identical, a smaller call after a larger one;
-   - B8 (flash_decode) on the consumer LM's heads in f32 (G = 3, D = 64)
-     and llama3-8b's in bf16 (G = 4, D = 128), ragged lengths with 1, S a
-     multiple of no block, lengths past S, and junk past each length
-     (999s, NaN and +inf: bit-equal output) — within 2e-5 (f32) and 5e-2
-     (bf16) of the plain version, two calls in a row bit-identical, the
-     serve shape after the decode_32k shape unchanged;
+   - B8 (flash_decode) on the consumer LM's heads in f32 (G = 3, D = 64),
+     llama3-8b's in bf16 (G = 4, D = 128), recurrentgemma-2b's local
+     layers' (bf16, G = 10, D = 256, S 512 and 2048), command-r+'s (bf16,
+     G = 12) and the smoke configs' (D = 16: f32 G = 2, bf16 G = 4),
+     ragged lengths with 1, S a multiple of no block, lengths past S, and
+     junk past each length (999s, NaN and +inf: bit-equal output) —
+     within 2e-5 (f32) and 5e-2 (bf16) of the plain version, two calls in
+     a row bit-identical, the serve shape after the decode_32k shape
+     unchanged;
    - one device kernel per call of B1, B2 (its sentinel fill included),
      B3 and B6 (the histogram's zeroing and the moments included), B4, B5
      (its splits' fold included), B7 and B8 (``torch.profiler`` over five
-     calls at the timing shapes; copies and fills not counted);
+     calls at the timing shapes, and B8 at recurrentgemma's, command-r+'s
+     and a smoke shape; copies and fills not counted);
    timing kernel, plain version and the one-call library yardstick (CUDA
    events, median of several runs; B2 against ``torch.cumsum`` and, on
    one row, ``torch.nonzero``; B8 at B = 16, S = 32 768 with llama3-8b's
-   heads, against ``scaled_dot_product_attention``);
+   heads and at recurrentgemma-2b's full rings, B = 8, S = 2048, against
+   ``scaled_dot_product_attention``);
    - every non-default tile instance of B1-B7 (B1 1024 and 4096 records a
      block, B2 4096, 8192 and 16384 records a tile, B3/B6 2048-8192
      records times 256-1024 buckets a partial, B4/B7 1024 and 4096, B5's
@@ -168,11 +173,26 @@ Phases, each of which raises on failure (nothing catches it):
    checkpoints the bf16 state once, restored bit for bit; step time,
    tokens/s, peak memory and the checkpoint's seconds printed beside the
    card's name and power limit;
-17. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
+17. serve the other families at their published widths, each with seeded
+   random bf16 weights on the card and its parameter leaves equal to the
+   reference's (``FAMILY_LEAVES``): ``Controller.run("sogouq", 120,
+   consumer=ServingTask(...))`` as in phase 9 on recurrentgemma-2b and
+   rwkv6-1_6b whole, llama4-scout at 4 of its 48 layers and deepseek-v3
+   at 5 of its 61 (the card's 80 GB): every request finishes, B8 runs
+   exactly once per decode step and GQA layer (8, 0, 4, 0), B1-B3 at
+   least as phase 9; then recurrentgemma's ring wrap (a 2560-token
+   prompt with max_len 4096, 4 decode steps: B8 held to its plain
+   version on a local layer's captured inputs, the logits reported
+   against the teacher-forced forward), three full-depth train steps of
+   recurrentgemma-2b and rwkv6-1_6b (B 1, S 512, remat full; the step-0
+   loss under remat none and full within 1e-2, the parameters changed),
+   and ``launch.serve --arch`` / ``launch.train --arch`` on the four
+   families' and llama3-8b's smoke configs;
+18. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
    ``multiday``, ``serve``, ``serve_llama3``, ``taskbench``, ``api``,
-   ``service``, ``multihost``, ``tuning``, ``train``, ``train_llama3`` and
-   ``kernels`` JSON lines and, last, the ``{"ok": true, "device": ...}``
-   line.
+   ``service``, ``multihost``, ``tuning``, ``train``, ``train_llama3``,
+   ``families`` and ``kernels`` JSON lines and, last, the ``{"ok": true,
+   "device": ...}`` line.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -1507,12 +1527,18 @@ def time_instances_chunk(b1_in, timing_reps: int = 20):
 
 
 # ----------------------------------------------------------- B8 (phase 3)
-#: the JAX flash-decode tests' tolerances (rtol = atol)
-DECODE_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+#: (rtol, atol) of B8 against its plain version: f32 as the JAX
+#: flash-decode tests; bf16 one output rounding (2^-7 relative at most)
+#: and twice the largest absolute difference measured on the H100 (1.95e-3),
+#: well below a typical output at recurrentgemma's full ring (~0.036)
+DECODE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 4e-3)}
 #: B8's timing shape: the decode_32k cache length of configs/__init__.py
 #: with llama3-8b's heads, the batch cut from 128 to 16 (one layer's K and
 #: V are then 2.15 GB)
 DECODE_TIMING = dict(B=16, S=32_768, H=32, Kh=8, D=128)
+#: recurrentgemma-2b's local layers at serving batch (8 slots): a full
+#: 2048-slot ring, 10 query heads over one KV head, head_dim 256, bf16
+DECODE_RING = dict(B=8, S=2048, H=10, Kh=1, D=256)
 
 
 def _decode_inputs(gen, B, S, H, Kh, D, dtype, lengths, device):
@@ -1525,13 +1551,52 @@ def _decode_inputs(gen, B, S, H, Kh, D, dtype, lengths, device):
 
 def _decode_err(name: str, got, want, dtype: str) -> float:
     import torch
-    tol = DECODE_TOL[dtype]
+    rtol, atol = DECODE_TOL[dtype]
     if got.dtype != want.dtype or got.shape != want.shape or not \
-            torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
         raise AssertionError(f"{name}: kernel and plain version differ by "
                              f"{(got.float() - want.float()).abs().max()} "
-                             f"(tolerance {tol})")
+                             f"(rtol {rtol}, atol {atol})")
     return float((got.float() - want.float()).abs().max())
+
+
+def _decode_faults(q, k, v, lengths, got):
+    """Outputs of B8 with planted faults, from the plain version on the
+    same inputs: the second 64-position tile skipped, the second group
+    slice fed the first slice's query rows (two slices of G / 2), and the
+    softmax scaled by 1/sqrt(D / 2). :func:`_decode_err` must reject each
+    one on the rows that span the whole cache alone, where the softmax is
+    spread widest and the outputs are smallest; returns the faults'
+    largest absolute differences from ``got`` on those rows."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    ln = lengths.long()
+    skip = torch.cat([k[:, :64], k[:, 128:]], 1), \
+        torch.cat([v[:, :64], v[:, 128:]], 1)
+    short = torch.where(ln > 128, ln - 64, ln.clamp(max=64)).to(torch.int32)
+    B, H, D = q.shape
+    G = H // k.shape[2]
+    q2 = q.reshape(B, -1, G, D).clone()
+    q2[:, :, G // 2:2 * (G // 2)] = q2[:, :, :G // 2]
+    faults = {"skipped_tile": flash_decode_plain(q, *skip, short),
+              "wrong_group_slice": flash_decode_plain(
+                  q2.reshape(B, H, D), k, v, lengths),
+              "wrong_scale": flash_decode_plain(
+                  (q.float() * 2 ** 0.5).to(q.dtype), k, v, lengths)}
+    full = (ln >= k.shape[1]).nonzero().flatten()
+    got = got[full]
+    out = {}
+    for name, bad in faults.items():
+        bad = bad[full]
+        try:
+            _decode_err(name, bad, got, str(q.dtype).split(".")[-1])
+        except AssertionError:
+            out[name] = float((bad.float() - got.float()).abs().max())
+            continue
+        raise AssertionError(f"flash_decode: the gate passes a planted "
+                             f"fault ({name})")
+    return out
 
 
 def _decode_bound(lengths, S, H, Kh, D, itemsize):
@@ -1545,12 +1610,16 @@ def _decode_bound(lengths, S, H, Kh, D, itemsize):
 
 def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
                         plain_reps: int = 3):
-    """Phase 3 for B8: the kernel against its plain version on the
-    consumer LM's heads in f32 (G = 3, D = 64) and llama3-8b's in bf16
-    (G = 4, D = 128), ragged lengths with 1, S a multiple of no block,
-    lengths past S, and junk past the length (bit-equal outputs); then the
-    timing row at :data:`DECODE_TIMING` with SDPA as the library
-    yardstick."""
+    """Phase 3 for B8: the kernel against its plain version within
+    :data:`DECODE_TOL` at every (dtype, head_dim, group) the main paths
+    give it (the consumer LM's f32 G 3 D 64; llama3-8b's, llama4-scout's
+    and command-r+'s bf16 D 128 at G 4, 5 and 12; recurrentgemma's bf16
+    D 256 G 10 at S 512 and 2048; the smoke configs' D 16 at G 1, 2 and
+    4), ragged lengths with 1, S a multiple of no block, lengths past S,
+    and junk past the length (bit-equal outputs); planted faults the gate
+    must reject at recurrentgemma's full ring (:func:`_decode_faults`);
+    then the timing rows at :data:`DECODE_TIMING`, the serve shape and
+    :data:`DECODE_RING` with SDPA as the library yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -1569,7 +1638,32 @@ def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
                           [1, 64, 65, 700, 777]),
         "past_s": (4, 300, 32, 8, 128, "bfloat16", [301, 1000, 2 ** 30, 300]),
         "mha_f32": (2, 130, 4, 4, 64, "float32", [130, 129]),
+        # recurrentgemma-2b's local layers (G = 10 in two group slices,
+        # D = 256) at phase 17's max_len and at the full ring
+        "recurrentgemma_s512": (8, 512, 10, 1, 256, "bfloat16",
+                                [1, 17, 64, 65, 200, 300, 511, 512]),
+        "recurrentgemma_s2048": (8, 2048, 10, 1, 256, "bfloat16",
+                                 [1, 100, 777, 1500, 2047, 2048, 2048,
+                                  3000]),
+        # command-r-plus-104b: 96 query heads over 8 (G = 12)
+        "command_r_plus": (4, 512, 96, 8, 128, "bfloat16",
+                           [1, 100, 300, 512]),
+        # llama4-scout-17b-a16e at phase 17's serving cache: 40 query heads
+        # over 8 (G = 5)
+        "llama4_scout": (8, 512, 40, 8, 128, "bfloat16",
+                         [1, 17, 20, 24, 31, 64, 300, 512]),
+        # the smoke configs: D = 16 in f32 (G = 2, llama3's and
+        # llama4-scout's; G = 4, recurrentgemma's; G = 1) and in bf16
+        "smoke_f32_d16": (4, 40, 8, 4, 16, "float32", [1, 16, 33, 40]),
+        "smoke_f32_d16_g4": (3, 24, 4, 1, 16, "float32", [1, 12, 24]),
+        "smoke_f32_d16_g1": (2, 30, 4, 4, 16, "float32", [7, 30]),
+        "smoke_bf16_d16": (2, 24, 4, 1, 16, "bfloat16", [5, 24]),
     }
+    #: the cases also counted as one device kernel a call
+    per_call = ("recurrentgemma_s512", "recurrentgemma_s2048",
+                "command_r_plus", "llama4_scout", "smoke_f32_d16")
+    faults = {}
+    kernels_per_call = {}
     errs = {"float32": 0.0, "bfloat16": 0.0}
     for name, (B, S, H, Kh, D, dtype, lengths) in cases.items():
         q, k, v, lens = _decode_inputs(gen, B, S, H, Kh, D, dtype, lengths,
@@ -1578,6 +1672,8 @@ def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
         errs[dtype] = max(errs[dtype], _decode_err(
             f"flash_decode/{name}", got, flash_decode_plain(q, k, v, lens),
             dtype))
+        if name == "recurrentgemma_s2048":
+            faults = _decode_faults(q, k, v, lens, got)
         if name == "past_s":
             full = flash_decode(q, k, v, torch.full_like(lens, S))
             if not torch.equal(got, full):
@@ -1585,6 +1681,9 @@ def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
                                      "differ from lengths = S")
         _same_twice(f"flash_decode/{name}",
                     lambda: flash_decode(q, k, v, lens))
+        if name in per_call:
+            kernels_per_call[name] = _kernels_per_call(
+                f"flash_decode/{name}", lambda: flash_decode(q, k, v, lens))
         # junk past the length (prefill padding, or any bits the engine's
         # cache holds there, NaN and inf included) changes nothing
         for junk_k, junk_v in ((999.0, -999.0), (float("nan"), float("inf")),
@@ -1645,6 +1744,12 @@ def check_decode_kernel(device: str, seed: int, timing_reps: int = 20,
         raise AssertionError("flash_decode: the serve shape after the "
                              "decode_32k shape differs from before it")
     timed["serve"] = row(serve_in, timing_reps, True)
+    r = DECODE_RING
+    timed["recurrentgemma"] = row(_decode_inputs(
+        gen, r["B"], r["S"], r["H"], r["Kh"], r["D"], "bfloat16",
+        [r["S"]] * r["B"], device), timing_reps, True)
+    timed["kernels_per_call_shapes"] = kernels_per_call
+    timed["planted_faults_rejected"] = faults
     return {"flash_decode": timed}
 
 
@@ -2187,6 +2292,47 @@ def _capture_decode(cfg, params, cache, toks, layers, attn=None):
     return logits, seen
 
 
+def _b8_layers(cfg) -> int:
+    """Layers whose decode attention runs through B8: GQA, global or
+    local (MLA's latent decode is not B8's function)."""
+    return 0 if cfg.mla else sum(k.split(":")[0] in ("attn", "local")
+                                 for k in cfg.blocks())
+
+
+def _serve_run(device: str, seed: int, store: Path, name: str, cfg,
+               params):
+    """``Controller(store).run("sogouq", 120, ServingTask(...))`` with
+    :data:`SERVE_TASK`, the launch counts zeroed just before and read just
+    after: the run must be in device mode, finish every request, launch
+    B8 exactly once per decode step and GQA layer, and B1-B3 at least
+    :data:`MIN_LAUNCHES`. Returns (launches, the report, the task, run
+    seconds, peak device GB)."""
+    import torch
+
+    from repro_torch.streamsim import Controller, ServingTask
+
+    task = ServingTask(cfg, params, device=device, **SERVE_TASK)
+    torch.cuda.reset_peak_memory_stats()
+    ctl = Controller(str(store), device=device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    rep = ctl.run(SERVE_DATASET, SERVE_RANGE, task, seed=seed)
+    run_s = time.perf_counter() - t0
+    launches = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m = rep.consumer_metrics
+    if ctl.last_result.mode != "device":
+        raise AssertionError(f"{name} ran in {ctl.last_result.mode} mode")
+    if m["serving_finished"] != m["task_records"] or m["task_records"] < 1:
+        raise AssertionError(f"{name}: {m['serving_finished']} of "
+                             f"{m['task_records']} requests finished")
+    _check_launches(name, launches, {
+        "flash_decode": m["serving_decode_steps"] * _b8_layers(cfg)},
+        exact=True)
+    _check_launches(name, launches, MIN_LAUNCHES, exact=False)
+    return launches, rep, task, run_s, peak_gb
+
+
 def run_serve_llama3_path(device: str, seed: int, workdir: Path,
                           cfg=None, reps: int = 10):
     """Phase 9: ``Controller.run("sogouq", 120, consumer=ServingTask(...))``
@@ -2208,7 +2354,6 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
     from repro_torch.models import transformer
-    from repro_torch.streamsim import Controller, ServingTask
 
     cfg = get_config(SERVE_ARCH) if cfg is None else cfg
     t0 = time.perf_counter()
@@ -2219,26 +2364,9 @@ def run_serve_llama3_path(device: str, seed: int, workdir: Path,
     if n_params != cfg.n_params():
         raise AssertionError(f"{cfg.name}: {n_params} parameters, the "
                              f"config says {cfg.n_params()}")
-    task = ServingTask(cfg, params, device=device, **SERVE_TASK)
-    torch.cuda.reset_peak_memory_stats()
-    ctl = Controller(str(workdir / "serve_llama3"), device=device)
-    _zero_launches()
-    t0 = time.perf_counter()
-    rep = ctl.run(SERVE_DATASET, SERVE_RANGE, task, seed=seed)
-    run_s = time.perf_counter() - t0
-    launches = _read_launches()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches, rep, task, run_s, peak_gb = _serve_run(
+        device, seed, workdir / "serve_llama3", "serve_llama3", cfg, params)
     m = rep.consumer_metrics
-    if ctl.last_result.mode != "device":
-        raise AssertionError(f"serve_llama3 ran in {ctl.last_result.mode} "
-                             "mode")
-    if m["serving_finished"] != m["task_records"] or m["task_records"] < 1:
-        raise AssertionError(f"serve_llama3: {m['serving_finished']} of "
-                             f"{m['task_records']} requests finished")
-    _check_launches("serve_llama3", launches, {
-        "flash_decode": m["serving_decode_steps"] * cfg.n_layers},
-        exact=True)
-    _check_launches("serve_llama3", launches, MIN_LAUNCHES, exact=False)
 
     # outside the counted run: a batch of 8 ragged prompts from a seed
     rng = np.random.default_rng(seed)
@@ -3237,6 +3365,343 @@ def run_train_llama3_path(device: str, seed: int, workdir: Path, cfg=None,
     return launches, report
 
 
+# --------------------------------------- phase 17: the other model families
+#: the families served at their published widths, by depth (None: whole).
+#: llama4-scout is cut from 48 layers to 4 and deepseek-v3 from 61 to 5 by
+#: the card's 80 GB: whole, their bf16 weights are 215 GB and 1.34 TB; at
+#: 4 and 5 layers 21.8 GB and 54.6 GB (deepseek's 5 keep its 3 dense
+#: layers, two MoE layers in one run and the MTP head)
+FAMILIES = {"recurrentgemma-2b": None, "rwkv6-1_6b": None,
+            "llama4-scout-17b-a16e": 4, "deepseek-v3-671b": 5}
+#: their parameter leaves, counted from the reference's ``init_params``
+#: under ``jax.eval_shape`` (``ModelConfig.n_params()`` is not exact for
+#: these families)
+FAMILY_LEAVES = {"recurrentgemma-2b": 2_688_043_520,
+                 "rwkv6-1_6b": 1_583_941_632,
+                 "llama4-scout-17b-a16e": 10_877_383_680,
+                 "deepseek-v3-671b": 27_304_638_464}
+#: the ring-wrap check: one prompt longer than recurrentgemma's 2048-slot
+#: ring, then decode steps; its prefill runs the chunked windowed path with
+#: 512-position KV chunks (2560 is not a multiple of the default 1024)
+RING_PROMPT, RING_MAX_LEN, RING_STEPS, RING_CHUNK_KV = 2560, 4096, 4, 512
+#: the training check: whole depth, one sequence, three steps
+FAMILY_TRAIN = ("recurrentgemma-2b", "rwkv6-1_6b")
+FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS = 512, 3
+#: the launchers, each on its smoke config
+LAUNCH_ARCHS = ("recurrentgemma-2b", "rwkv6-1_6b", "llama4-scout-17b-a16e",
+                "deepseek-v3-671b", "llama3-8b")
+
+
+def _family_cfg(arch: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if FAMILIES[arch] is None else cfg.replace(
+        n_layers=FAMILIES[arch])
+
+
+def _serve_family(device: str, seed: int, workdir: Path, cfg, params,
+                  reps: int):
+    """The counted serve run of phase 9 (:func:`_serve_run`), then prefill
+    and decode step times outside it. For a config whose decode runs B8,
+    the inputs B8 is given in its first and last such layer of one decode
+    step from the prefill's cache are captured and B8 is held to its plain
+    version on them (:data:`DECODE_TOL`)."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.models import transformer
+
+    launches, rep, task, run_s, peak_gb = _serve_run(
+        device, seed, workdir / f"serve_{cfg.name}", f"families/{cfg.name}",
+        cfg, params)
+    m = rep.consumer_metrics
+
+    rng = np.random.default_rng(seed)
+    slots, p_len = SERVE_TASK["slots"], SERVE_TASK["prompt_len"]
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (slots, p_len),
+                                         dtype=np.int32)).to(device)
+    lens = torch.from_numpy(rng.integers(1, p_len + 1, slots,
+                                         dtype=np.int32)).to(device)
+
+    def prefill():
+        return transformer.prefill(cfg, params, toks, lens,
+                                   SERVE_TASK["max_len"])
+    with torch.no_grad():
+        prefill_ms = _host_ms(prefill, reps)
+        logits, cache = prefill()
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        decode_ms = _host_ms(lambda: transformer.decode_step(
+            cfg, params, cache, nxt), reps)
+        b8_err, b8_shapes = None, []
+        if _b8_layers(cfg):
+            _, seen = _capture_decode(cfg, params, cache, nxt,
+                                      (0, _b8_layers(cfg) - 1))
+            b8_err = 0.0
+            for layer, (q, k, v, ln) in sorted(seen.items()):
+                b8_shapes.append(f"B={q.shape[0]} S={k.shape[1]} "
+                                 f"H={q.shape[1]} Kh={k.shape[2]} "
+                                 f"D={q.shape[2]} {q.dtype}")
+                b8_err = max(b8_err, _decode_err(
+                    f"flash_decode/{cfg.name} layer {layer}",
+                    flash_decode(q, k, v, ln),
+                    flash_decode_plain(q, k, v, ln), cfg.dtype))
+            del seen
+    del task, cache, logits
+    return launches, {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "b8_layers": _b8_layers(cfg), "run_s": run_s,
+        "task_records": m["task_records"],
+        "serving_finished": m["serving_finished"],
+        "serving_tokens_out": m["serving_tokens_out"],
+        "serving_decode_steps": m["serving_decode_steps"],
+        "task_wall_s": m["task_wall_s"],
+        "tokens_per_s": m["serving_tokens_out"] / m["task_wall_s"],
+        "decode_step_ms": decode_ms, "prefill_ms": prefill_ms,
+        "prefill_shape": f"B={slots} P={p_len} "
+                         f"max_len={SERVE_TASK['max_len']}",
+        "peak_mem_gb": peak_gb, "b8_captured_shapes": b8_shapes,
+        "b8_max_abs_err": b8_err, "launches": launches}
+
+
+def _ring_wrap(device: str, seed: int, cfg, params):
+    """recurrentgemma-2b: one prompt of 2560 tokens with max_len 4096, so
+    the 2048-slot rings wrap (the prefill rolls them), then 4 greedy
+    decode steps. B8 is held to its plain version on the inputs captured
+    from the first and last local layer of the first step (lengths = the
+    ring) and the step's logits through B8 and through the plain version
+    are set side by side; the prefill and decode logits are reported
+    against the port's teacher-forced forward (naive attention) over the
+    prompt and the generated tokens."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import unembed
+
+    rcfg = cfg.replace(attn_chunk_kv=RING_CHUNK_KV)
+    rng = np.random.default_rng(seed + 1)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, RING_PROMPT),
+                                         dtype=np.int32)).to(device)
+    lens = torch.full((1,), RING_PROMPT, dtype=torch.int32, device=device)
+    with torch.no_grad():
+        logits, cache = transformer.prefill(rcfg, params, toks, lens,
+                                            RING_MAX_LEN)
+        rings = {tuple(run["k"].shape[2:3]) for run in cache["runs"]
+                 if "k" in run}
+        if rings != {(cfg.window,)}:
+            raise AssertionError(f"ring_wrap: local caches of {rings} "
+                                 f"slots, the window is {cfg.window}")
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        last = _b8_layers(cfg) - 1
+        lk, seen = _capture_decode(rcfg, params, cache, nxt, (0, last))
+        lp, _ = _capture_decode(rcfg, params, cache, nxt, (),
+                                flash_decode_plain)
+        swap = float((lk - lp).abs().max())
+        del lk, lp
+        b8_err = 0.0
+        for layer, (q, k, v, ln) in sorted(seen.items()):
+            if ln.tolist() != [cfg.window]:
+                raise AssertionError(f"ring_wrap: B8 lengths {ln.tolist()} "
+                                     f"at a full ring of {cfg.window}")
+            b8_err = max(b8_err, _decode_err(
+                f"flash_decode/ring_wrap layer {layer}",
+                flash_decode(q, k, v, ln), flash_decode_plain(q, k, v, ln),
+                cfg.dtype))
+        outs, gen = [logits], []
+        for _ in range(RING_STEPS):
+            gen.append(nxt)
+            logits, cache = transformer.decode_step(rcfg, params, cache, nxt)
+            outs.append(logits)
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+        seq = torch.cat([toks, torch.stack(gen, 1)], 1)
+        hidden, _ = transformer.forward(rcfg.replace(attn_impl="naive"),
+                                        params, seq)
+        want = unembed(hidden[0, RING_PROMPT - 1:],
+                       transformer._head_table(cfg, params),
+                       cfg.logit_softcap)
+        got = torch.cat(outs, 0)
+    torch.cuda.synchronize()
+    diff = (got - want).abs().amax(-1)
+    out = {"prompt": RING_PROMPT, "max_len": RING_MAX_LEN,
+           "ring": cfg.window, "decode_steps": RING_STEPS,
+           "kv_chunk": RING_CHUNK_KV, "b8_max_abs_err": b8_err,
+           "plain_swap_max_abs_logit_diff": swap,
+           "max_abs_logit_diff_vs_forward": [float(x) for x in diff],
+           "top1_agreement_vs_forward": float(
+               (got.argmax(-1) == want.argmax(-1)).float().mean())}
+    print(f"families/ring_wrap: B8 within {b8_err:.2e} of plain (logits "
+          f"{swap:.3e} apart); logits vs forward "
+          f"{out['max_abs_logit_diff_vs_forward']}")
+    return out
+
+
+def _train_family(device: str, seed: int, cfg, params):
+    """Three donated ``jit_train_step`` steps at full depth (B 1, S 512,
+    remat full) after the step-0 loss under remat none and full; the
+    parameters change, the losses are finite and the two step-0 losses
+    agree within 1e-2."""
+    import gc
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.training.data import SyntheticBatcher
+    from repro_torch.training.optimizer import AdamW, adamw_init
+    from repro_torch.training.steps import jit_train_step, value_and_grad
+
+    cfg = cfg.replace(remat="full")
+    batches = iter(SyntheticBatcher(1, FAMILY_TRAIN_SEQ, cfg.vocab_size,
+                                    seed=seed))
+    first = next(batches)
+    step0 = {}
+    for mode in ("none", "full"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), grads = value_and_grad(cfg.replace(remat=mode), params,
+                                          first)
+        step0[mode] = {"loss": float(loss),
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del grads, loss
+    a, b = step0["none"]["loss"], step0["full"]["loss"]
+    name = f"families/train {cfg.name}"
+    if not (np.isfinite(a) and abs(a - b) <= TRAIN_REMAT_RTOL * abs(a)):
+        raise AssertionError(f"{name}: step-0 loss {a} with remat none, "
+                             f"{b} with full")
+    probes = [t[:1].clone() for t in tree.leaves(params)]
+    step = jit_train_step(cfg, AdamW(total_steps=FAMILY_TRAIN_STEPS))
+    opt_state = adamw_init(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    batch = first
+    for _ in range(FAMILY_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        batch = next(batches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    changed = sum(not torch.equal(p, t[:1]) for p, t in zip(
+        probes, tree.leaves(params)))
+    if not all(np.isfinite(losses)) or not changed:
+        raise AssertionError(f"{name}: losses {losses}, {changed} leaves "
+                             "changed")
+    if abs(losses[0] - b) > TRAIN_REMAT_RTOL * abs(b):
+        raise AssertionError(f"{name}: step 0 loss {losses[0]}, "
+                             f"value_and_grad {b}")
+    step_ms = float(np.median(walls[1:])) * 1e3
+    out = {"seq": FAMILY_TRAIN_SEQ, "batch": 1, "remat": "full",
+           "step0": step0, "losses": losses, "step_walls_s": walls,
+           "train_step_ms": step_ms, "peak_mem_gb": peak_gb,
+           "leaves_changed": changed, "leaves": len(probes)}
+    print(f"{name}: step {step_ms:.1f} ms, peak {peak_gb:.2f} GB, losses "
+          f"{losses} [{_card_line()}]")
+    del opt_state, m
+    return out
+
+
+def _run_launchers(device: str, workdir: Path):
+    """``launch.serve --arch`` and ``launch.train --arch`` on each smoke
+    config of :data:`LAUNCH_ARCHS`: every arrival served, B8 once per
+    decode step and attention layer, three train steps with a finite
+    loss."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve, train
+
+    out = {}
+    for arch in LAUNCH_ARCHS:
+        cfg = get_smoke(arch)
+        _zero_launches()
+        t0 = time.perf_counter()
+        summary = serve.main(["--device", device, "--arch", arch, "--out",
+                              str(workdir / f"serve_{arch}.json")])
+        serve_s = time.perf_counter() - t0
+        launches = _read_launches()
+        if summary["finished"] != summary["arrivals"] or \
+                summary["arrivals"] < 1:
+            raise AssertionError(f"launch.serve --arch {arch}: {summary}")
+        _check_launches(f"launch.serve --arch {arch}", launches, {
+            "flash_decode": summary["decode_steps"] * _b8_layers(cfg)},
+            exact=True)
+        t0 = time.perf_counter()
+        trained = train.main(["--device", device, "--arch", arch,
+                              "--dataset", "synthetic", "--steps", "3",
+                              "--batch", "2", "--seq", "32",
+                              "--ckpt-dir", str(workdir / f"ckpt_{arch}"),
+                              "--out", str(workdir / f"train_{arch}.json")])
+        train_s = time.perf_counter() - t0
+        if trained["summary"]["final_step"] != 3 or \
+                not np.isfinite(trained["summary"]["final_loss"]):
+            raise AssertionError(f"launch.train --arch {arch}: "
+                                 f"{trained['summary']}")
+        out[arch] = {"serve": summary, "serve_s": serve_s,
+                     "flash_decode": launches["flash_decode"],
+                     "train_final_loss": trained["summary"]["final_loss"],
+                     "train_s": train_s}
+    return out
+
+
+def run_families_path(device: str, seed: int, workdir: Path,
+                      reps: int = 5):
+    """Phase 17: the four other families at their published widths
+    (:data:`FAMILIES`), each with seeded random weights on the card and
+    its leaf count held to :data:`FAMILY_LEAVES`, served under
+    ``Controller.run`` as in phase 9 (B8 exactly decode steps x its
+    attention layers: 8 for recurrentgemma, 4 for llama4-scout, none for
+    rwkv6 and deepseek, and B8 held to its plain version on the inputs
+    captured from a decode step); recurrentgemma's ring wrap and the
+    training of recurrentgemma and rwkv6 at full depth; then the
+    launchers on the smoke configs. Returns the launches of the four serve
+    runs, summed, and the report."""
+    import gc
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.models import transformer
+
+    report, total = {}, {}
+    for arch in FAMILIES:
+        cfg = _family_cfg(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leaves = sum(t.numel() for t in tree.leaves(params))
+        if leaves != FAMILY_LEAVES[arch]:
+            raise AssertionError(f"families/{arch}: {leaves} parameters, "
+                                 f"the reference has {FAMILY_LEAVES[arch]}")
+        launches, rep = _serve_family(device, seed, workdir, cfg, params,
+                                      reps)
+        rep.update(params=leaves, init_s=init_s, card=_card_line())
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"families/{arch}: {cfg.n_layers} layers, {leaves / 1e9:.3f} "
+              f"B params (init {init_s:.1f} s), decode step "
+              f"{rep['decode_step_ms']:.2f} ms, prefill "
+              f"{rep['prefill_ms']:.2f} ms, {rep['tokens_per_s']:.1f} "
+              f"tokens/s, peak {rep['peak_mem_gb']:.2f} GB"
+              + ("" if rep["b8_max_abs_err"] is None else
+                 f", B8 within {rep['b8_max_abs_err']:.2e} of plain on "
+                 "captured inputs") + f" [{rep['card']}]")
+        if arch == "recurrentgemma-2b":
+            rep["ring_wrap"] = _ring_wrap(device, seed, cfg, params)
+        if arch in FAMILY_TRAIN:
+            rep["train"] = _train_family(device, seed, cfg, params)
+        report[arch] = rep
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launchers"] = _run_launchers(device, workdir)
+    return total, report
+
+
 def _host_ms(fn, reps: int) -> float:
     """Median wall time of ``fn()`` ending in a device synchronise, after
     one warm-up (a step or request time, not a kernel time)."""
@@ -3351,6 +3816,11 @@ def main() -> int:
         tl_launches, trained_llama = run_train_llama3_path(
             "cuda", MAIN_SEED, Path(tmp))
         print(json.dumps({"train_llama3": trained_llama}), flush=True)
+        t0 = time.perf_counter()
+        fam_launches, families = run_families_path("cuda", MAIN_SEED,
+                                                   Path(tmp))
+        families["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"families": families}), flush=True)
 
     by_path = {"run": run_launches, "run_many": sweep_launches,
                "run_many_chunked": chunked_launches, "multiday": md_launches,
@@ -3358,7 +3828,7 @@ def main() -> int:
                "taskbench": tb_launches, "api": api_launches,
                "service": svc_launches, "multihost": mh_launches,
                "tuning": tune_launches, "train": train_launches,
-               "train_llama3": tl_launches}
+               "train_llama3": tl_launches, "families": fam_launches}
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
                           "src/repro/kernels/stream_sample.py:146",
@@ -3385,7 +3855,9 @@ def main() -> int:
     extra = ("sim", "sweep", "chunk", "week", "S37", "S2_K1024", "S2_K4096",
              "max_scaled_err", "records", "multiday", "fidelity", "serve",
              "max_abs_err_f32", "max_abs_err_bf16", "library_max_abs_err",
-             "library_nonzero_ms", "kernels_per_call", "host_ms")
+             "library_nonzero_ms", "kernels_per_call", "host_ms",
+             "recurrentgemma", "kernels_per_call_shapes",
+             "planted_faults_rejected")
     kernels = []
     for name, (source, tpu, path) in replaces.items():
         r = rows[name]

@@ -16,8 +16,12 @@
 // program per sequence, carrying the online softmax (m, l, acc) in VMEM
 // scratch. On Hopper one block per (KV head, sequence) would leave most of
 // the 132 SMs idle, so the cache axis is split: one block per (split, KV
-// head, sequence), `chunk` positions each, holding the G <= 8 query rows of
-// its KV head.
+// head, group slice, sequence), `chunk` positions each, holding up to
+// kMaxGroup = 8 query rows of its KV head. A group of G > 8 query heads
+// per KV head (command-r+'s 12, recurrentgemma's 10) is cut into
+// ceil(G / 8) slices of equal size (the last one smaller where G does not
+// divide), side by side in the grid, so the blocks that read one KV head's
+// rows run together and the second read of those rows comes from L2.
 //
 // What bounds it: the bytes of K and V below each row's length, read once
 // (2 * len * Kh * D * sizeof(T) per row); the arithmetic is 4 flops per
@@ -29,9 +33,11 @@
 //     cp.async.cg copies. Two tiles are in flight while the third is
 //     consumed, and two blocks fit on an SM (104 KB of ring each), so
 //     about 136 KB per SM are in flight, well above the ~25 KB that
-//     3.35 TB/s needs at HBM latency on 132 SMs. One __syncthreads per
-//     tile: after it the tile has landed and the stage consumed last is
-//     free for the next copy.
+//     3.35 TB/s needs at HBM latency on 132 SMs. At bf16 and D = 256 one
+//     block's ring is 198 KB (3 x 2 x 64 x 264 x 2 B), one block an SM,
+//     with 128 KB in flight. One __syncthreads per tile: after it the
+//     tile has landed and the stage consumed last is free for the next
+//     copy.
 //   - Locality: one position's row of one KV head is 256 bytes (bf16,
 //     D = 128) between the other heads' rows, so the copies carry a
 //     256-byte L2 prefetch hint and the grid runs the KV heads fastest,
@@ -50,7 +56,8 @@
 //     tile.
 //     f32: FMA without TF32; each lane dots whole K rows from the ring with
 //     up to four query rows, the softmax runs per (warp, query row) over a
-//     quad of lanes, and each lane accumulates p.v for its columns of d.
+//     quad of lanes, and each lane accumulates p.v for its columns of d
+//     (at D = 16, lanes 16-31 hold no column).
 //   - One launch: the warps' states merge in a fixed order; a row whose
 //     length needs one split normalises and writes its output at once. A
 //     row with several splits has each split write its partial (m, l, acc)
@@ -64,7 +71,7 @@
 // 2^-26 relative, below f32's own rounding) differ from the plain version,
 // which keeps p in f32; f32 runs f32 products and sums in another order.
 // expf without fast math. Within 2e-5 of the plain version in f32 and
-// within bf16 rounding (5e-2) of it in bf16.
+// within one bf16 rounding of the output (under 1%) in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -288,7 +295,10 @@ struct WarpState<bf16, D> {
 // share of l; lane holds acc(g, d = lane + 32 i) for every g.
 template <int D>
 struct WarpState<float, D> {
-  static constexpr int kCols = D / 32;
+  static_assert(D % 32 == 0 || D < 32, "a lane's columns: d = lane + 32 i");
+  static constexpr int kCols = (D + 31) / 32;
+  // whether this lane holds a column (every lane does once D >= 32)
+  __device__ static bool has_col(int lane) { return D >= 32 || lane < D; }
   float acc[kMaxGroup][kCols];
   float m, l;
   const float* qs;
@@ -370,8 +380,9 @@ struct WarpState<float, D> {
         for (int i = 0; i < kCols; ++i) acc[g][i] *= cr;
       }
     }
+    const int rows = has_col(lane) ? kWarpRows : 0;
 #pragma unroll 4
-    for (int j = 0; j < kWarpRows; ++j) {
+    for (int j = 0; j < rows; ++j) {
       const float* vr = vs_tile + (row0 + j) * S::kLd + lane;
       float vv[kCols];
 #pragma unroll
@@ -397,6 +408,7 @@ struct WarpState<float, D> {
       wm[g] = m;
       wl[g] = lt;
     }
+    if (!has_col(lane)) return;
 #pragma unroll
     for (int g2 = 0; g2 < kMaxGroup; ++g2)
       if (g2 < G_)
@@ -409,22 +421,28 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
-                    int S, int Kh, int G, int chunk, int n_splits, float scale,
-                    float* __restrict__ ws_ml, float* __restrict__ ws_acc,
+                    int S, int Kh, int G, int slice, int n_slices, int chunk,
+                    int n_splits, float scale, float* __restrict__ ws_ml,
+                    float* __restrict__ ws_acc,
                     unsigned* __restrict__ tickets, T* __restrict__ out) {
   using Sh = Shape<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float wm[kWarps][kMaxGroup], wl[kWarps][kMaxGroup];
   __shared__ int s_last;
 
-  const int kh = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  // blockIdx.x runs over (KV head, group slice), the slices fastest
+  const int kh = blockIdx.x / n_slices, g0 = (blockIdx.x % n_slices) * slice;
+  const int split = blockIdx.y, b = blockIdx.z;
   const int H = Kh * G;
+  const int Gb = min(slice, G - g0);     // query rows of this block
+  const int h0 = kh * G + g0;            // its first query head
   const int len = min(max(lengths[b], 0), S);
   const int s0 = split * chunk;
-  T* out_bh = out + (static_cast<size_t>(b) * H + kh * G) * D;
+  T* out_bh = out + (static_cast<size_t>(b) * H + h0) * D;
   if (s0 >= len) {
     if (len == 0 && split == 0)          // a row of length 0 gives zeros
-      for (int i = threadIdx.x; i < G * D; i += kThreads) store(out_bh + i, 0.f);
+      for (int i = threadIdx.x; i < Gb * D; i += kThreads)
+        store(out_bh + i, 0.f);
     return;
   }
   const int s1 = min(s0 + chunk, len);
@@ -437,7 +455,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t row = static_cast<size_t>(Kh) * D;   // between positions
   const T* kb = k + (static_cast<size_t>(b) * S * Kh + kh) * D;
   const T* vb = v + (static_cast<size_t>(b) * S * Kh + kh) * D;
-  const T* qg = q + (static_cast<size_t>(b) * H + kh * G) * D;
+  const T* qg = q + (static_cast<size_t>(b) * H + h0) * D;
 
   // stage `st` <- positions [s0 + 64 t, +64) of K and V, zero past s1
   auto stage_tile = [&](int t, int st) {
@@ -462,10 +480,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (std::is_same<T, float>::value) {
     float* qs = extra;
     for (int i = threadIdx.x; i < kMaxGroup * D; i += kThreads)
-      qs[i] = i < G * D ? qg[i] : 0.f;
-    ws.init(qs, G);                      // qs is read after the first sync
+      qs[i] = i < Gb * D ? qg[i] : 0.f;
+    ws.init(qs, Gb);                     // qs is read after the first sync
   } else {
-    ws.init(qg, G);
+    ws.init(qg, Gb);
   }
   float* scratch = extra + kMaxGroup * D;   // f32 only
 
@@ -488,12 +506,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();     // the ring is free: it takes the warps' partials
 
   float* wacc = reinterpret_cast<float*>(smem);   // [warp][g][d]
-  ws.dump(wm[warp], wl[warp], wacc + warp * kMaxGroup * D, G);
+  ws.dump(wm[warp], wl[warp], wacc + warp * kMaxGroup * D, Gb);
   __syncthreads();
 
   // merge the warps in order; one split: normalise and write
-  const size_t slot0 = (static_cast<size_t>(b) * H + kh * G) * n_splits;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+  const size_t slot0 = (static_cast<size_t>(b) * H + h0) * n_splits;
+  for (int i = threadIdx.x; i < Gb * D; i += kThreads) {
     const int g = i / D, d = i % D;
     float m = -INFINITY;
 #pragma unroll
@@ -523,7 +541,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned* ticket = tickets + static_cast<size_t>(b) * Kh + kh;
+    unsigned* ticket = tickets + static_cast<size_t>(b) * gridDim.x +
+                       blockIdx.x;
     const unsigned prev = atomicAdd(ticket, 1u);
     s_last = prev == static_cast<unsigned>(nv - 1);
     if (s_last) atomicExch(ticket, 0u);
@@ -531,7 +550,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+  for (int i = threadIdx.x; i < Gb * D; i += kThreads) {
     const int g = i / D, d = i % D;
     const size_t base = slot0 + static_cast<size_t>(g) * n_splits;
     float m = -INFINITY;
@@ -547,12 +566,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Once per device: the instance's dynamic shared memory above 48 KB.
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, int B, int S, int Kh, int G,
-                   int chunk, int n_splits, float* ws_ml, float* ws_acc,
-                   unsigned* tickets, void* out, cudaStream_t stream) {
-  using Sh = Shape<T, D>;
+cudaError_t prepare() {
   static bool ready[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -561,18 +577,54 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (!ready[dev]) {
     err = cudaFuncSetAttribute(flash_decode_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Sh::kSmemBytes));
+                               static_cast<int>(Shape<T, D>::kSmemBytes));
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
+  return cudaSuccess;
+}
+
+// Blocks of the instance an SM holds at once on the current device, or a
+// negative CUDA error code.
+template <typename T, int D>
+int blocks_per_sm() {
+  cudaError_t err = prepare<T, D>();
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, flash_decode_kernel<T, D>, kThreads, Shape<T, D>::kSmemBytes);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* lengths, int B, int S, int Kh, int G,
+                   int slice, int chunk, int n_splits, float* ws_ml,
+                   float* ws_acc, unsigned* tickets, void* out,
+                   cudaStream_t stream) {
+  cudaError_t err = prepare<T, D>();
+  if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const int n_slices = (G + slice - 1) / slice;
   flash_decode_kernel<T, D>
-      <<<dim3(Kh, n_splits, B), kThreads, Sh::kSmemBytes, stream>>>(
+      <<<dim3(Kh * n_slices, n_splits, B), kThreads,
+         Shape<T, D>::kSmemBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), lengths, S, Kh, G, chunk, n_splits,
-          scale, ws_ml, ws_acc, tickets, static_cast<T*>(out));
+          static_cast<const T*>(v), lengths, S, Kh, G, slice, n_slices,
+          chunk, n_splits, scale, ws_ml, ws_acc, tickets,
+          static_cast<T*>(out));
   return cudaGetLastError();
 }
+
+// The (dtype code, element type, D) instances built: 0 float32, 1 bfloat16.
+#define FLASH_DECODE_INSTANCES(X) \
+  X(0, float, 16)                 \
+  X(0, float, 64)                 \
+  X(0, float, 128)                \
+  X(1, bf16, 16)                  \
+  X(1, bf16, 64)                  \
+  X(1, bf16, 128)                 \
+  X(1, bf16, 256)
 
 }  // namespace
 
@@ -581,22 +633,27 @@ extern "C" {
 // Positions per shared-memory stage: the split size must be a multiple.
 int flash_decode_tile() { return kTile; }
 
-// Largest number of query heads per KV head one block holds.
+// Largest number of query heads one block holds (a group slice).
 int flash_decode_max_group() { return kMaxGroup; }
 
-// dtype: 0 float32, 1 bfloat16. chunk: positions per split, a multiple of
-// 64; n_splits = ceil(S / chunk). Workspace from the caller, kept per
-// stream: ws_ml (B, H, n_splits, 2) f32 and ws_acc (B, H, n_splits, D) f32
-// (no initial value needed), tickets (B, Kh) unsigned, zero when first
-// allocated (each call leaves them zero). q, k and v 16-byte aligned. Returns
+// dtype: 0 float32, 1 bfloat16; D: 16, 64 or 128 in float32, 16, 64, 128
+// or 256 in bfloat16. slice: query heads per block, 1..kMaxGroup and at
+// most G; the grid holds n_slices = ceil(G / slice) blocks per KV head.
+// chunk: positions per split, a multiple of 64; n_splits = ceil(S /
+// chunk). Workspace from the caller, kept per stream: ws_ml (B, H,
+// n_splits, 2) f32 and ws_acc (B, H, n_splits, D) f32 (no initial value
+// needed), tickets (B, Kh * n_slices) unsigned, zero when first allocated
+// (each call leaves them zero). q, k and v 16-byte aligned. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, without
 // launching, for a shape the kernel does not take).
 int flash_decode_launch(int dtype, const void* q, const void* k,
                         const void* v, const int* lengths, int B, int S,
-                        int Kh, int G, int D, int chunk, int n_splits,
-                        void* ws_ml, void* ws_acc, void* tickets, void* out,
-                        void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || Kh < 1 || G < 1 || G > kMaxGroup ||
+                        int Kh, int G, int D, int slice, int chunk,
+                        int n_splits, void* ws_ml, void* ws_acc,
+                        void* tickets, void* out, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || Kh < 1 || G < 1 || slice < 1 ||
+      slice > kMaxGroup || slice > G ||
+      static_cast<long long>(Kh) * ((G + slice - 1) / slice) > 0x7fffffff ||
       chunk < kTile || chunk % kTile != 0 || n_splits > 65535 ||
       n_splits != (S + chunk - 1) / chunk ||
       reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
@@ -607,20 +664,25 @@ int flash_decode_launch(int dtype, const void* q, const void* k,
   float* ml = static_cast<float*>(ws_ml);
   float* acc = static_cast<float*>(ws_acc);
   unsigned* tk = static_cast<unsigned*>(tickets);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64)
-    err = launch<float, 64>(q, k, v, lengths, B, S, Kh, G, chunk, n_splits,
-                            ml, acc, tk, out, st);
-  else if (dtype == 0 && D == 128)
-    err = launch<float, 128>(q, k, v, lengths, B, S, Kh, G, chunk, n_splits,
-                             ml, acc, tk, out, st);
-  else if (dtype == 1 && D == 64)
-    err = launch<bf16, 64>(q, k, v, lengths, B, S, Kh, G, chunk, n_splits,
-                           ml, acc, tk, out, st);
-  else if (dtype == 1 && D == 128)
-    err = launch<bf16, 128>(q, k, v, lengths, B, S, Kh, G, chunk, n_splits,
-                            ml, acc, tk, out, st);
-  return static_cast<int>(err);
+#define FLASH_DECODE_CASE(code, T, DIM)                                     \
+  if (dtype == code && D == DIM)                                            \
+    return static_cast<int>(launch<T, DIM>(q, k, v, lengths, B, S, Kh, G,   \
+                                           slice, chunk, n_splits, ml, acc, \
+                                           tk, out, st));
+  FLASH_DECODE_INSTANCES(FLASH_DECODE_CASE)
+#undef FLASH_DECODE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the (dtype, D) instance an SM holds at once on the current
+// device (shared memory, registers and threads as built); a negative CUDA
+// error code, or -cudaErrorInvalidValue for an instance not built.
+int flash_decode_blocks_per_sm(int dtype, int D) {
+#define FLASH_DECODE_CASE(code, T, DIM) \
+  if (dtype == code && D == DIM) return blocks_per_sm<T, DIM>();
+  FLASH_DECODE_INSTANCES(FLASH_DECODE_CASE)
+#undef FLASH_DECODE_CASE
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

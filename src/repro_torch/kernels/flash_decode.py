@@ -10,7 +10,10 @@ Contract of both: q (B, H, D), k and v (B, S, Kh, D) with H = Kh * G,
 lengths (B,) int32. For each (b, h), a softmax of ``q·k / sqrt(D)`` over
 the cache positions ``s < min(lengths[b], S)``, then the weighted sum of
 v, accumulated in float32 and returned in q's dtype. A length above S
-means the whole cache, and a row of length 0 gives zeros.
+means the whole cache, and a row of length 0 gives zeros. The kernel
+takes any group G >= 1 (a block holds up to 8 query rows; a larger group
+runs as :func:`group_slices` side by side in one launch) and the head
+dimensions of :data:`HEAD_DIMS`; another shape raises ``ValueError``.
 
 Positions at or past a row's length: the CUDA kernel never reads them, so
 its output does not depend on what they hold, NaN and inf included. The
@@ -30,10 +33,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dimensions the CUDA kernel is built for
-HEAD_DIMS = (64, 128)
-#: blocks per SM the split aims for over a full cache
-BLOCKS_PER_SM = 8
+#: head dimensions the CUDA kernel is built for, by dtype: every
+#: (dtype, head_dim) of a config in ``configs/`` (the smoke configs' 16,
+#: musicgen's and the consumer LM's 64, the 128 of most, recurrentgemma's
+#: 256 in bfloat16)
+HEAD_DIMS = {torch.float32: (16, 64, 128),
+             torch.bfloat16: (16, 64, 128, 256)}
+#: tiles a split keeps at least, so that its ring has a tile in flight
+#: while one is read
+MIN_SPLIT_TILES = 2
 
 
 def flash_decode_plain(q, k, v, lengths):
@@ -62,7 +70,8 @@ def flash_decode_plain(q, k, v, lengths):
 def _entry():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("flash_decode", "flash_decode_launch",
-                       [i, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p])
+                       [i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p,
+                        p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,28 +82,63 @@ def _limits():
             _build.bind("flash_decode", "flash_decode_max_group", [])())
 
 
-def split_size(B: int, Kh: int, S: int, sm_count: int, tile: int) -> int:
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device: int, dtype_code: int, head_dim: int) -> int:
+    """Blocks of the (dtype, head_dim) instance one SM of ``device`` holds
+    at once, from the CUDA occupancy calculator (the instance's shared
+    memory decides it: one block at bf16 D = 256 or f32 D = 128, two at
+    bf16 D = 128)."""
+    i = ctypes.c_int
+    with torch.cuda.device(device):
+        n = _build.bind("flash_decode", "flash_decode_blocks_per_sm",
+                        [i, i])(dtype_code, head_dim)
+    if n < 1:
+        raise RuntimeError(f"flash_decode: occupancy {n} for dtype code "
+                           f"{dtype_code}, D={head_dim}")
+    return n
+
+
+def group_slices(G: int, max_group: int) -> tuple:
+    """``(n_slices, slice)``: a group of ``G`` query heads per KV head cut
+    into the fewest slices of at most ``max_group`` heads (one block's
+    query rows), of equal size but the last, which may be smaller."""
+    n = -(-G // max_group)
+    return n, -(-G // n)
+
+
+def split_size(B: int, Kh: int, S: int, sm_count: int, tile: int,
+               blocks_per_sm: int) -> int:
     """Cache positions per split: the whole cache in whole tiles of
-    ``tile`` positions (the kernel's stage), halved (down to one tile)
-    until the (split, KV head, sequence) grid has at least
-    :data:`BLOCKS_PER_SM` blocks per SM over a full cache, about four waves
-    of the two blocks an SM holds at once."""
+    ``tile`` positions (the kernel's stage), halved while the halves keep
+    at least :data:`MIN_SPLIT_TILES` tiles and the (split, KV head,
+    sequence) grid over a full cache still fits in one wave, the
+    ``blocks_per_sm`` blocks of the instance that each of ``sm_count`` SMs
+    holds at once. Fewer, longer splits keep each block's copies
+    pipelined and the merge short; more blocks than a wave only queue.
+    ``Kh`` counts the blocks across the heads: KV heads times their group
+    slices (:func:`group_slices`)."""
     chunk = -(-S // tile) * tile
-    while chunk > tile and B * Kh * -(-S // chunk) < BLOCKS_PER_SM * sm_count:
-        chunk = max(tile, chunk // 2 // tile * tile)
-    return chunk
+    wave = blocks_per_sm * sm_count
+    while True:
+        half = chunk // 2 // tile * tile
+        if half < MIN_SPLIT_TILES * tile or B * Kh * -(-S // half) > wave:
+            return chunk
+        chunk = half
 
 
 #: one workspace per (device, CUDA stream)
 _workspaces = {}
 
 
-def flash_decode(q, k, v, lengths, *, block_s: int = 512):
+def flash_decode(q, k, v, lengths, *, block_s: int = 512,
+                 _chunk: int | None = None):
     """B8 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (same contract as :func:`flash_decode_plain`).
     ``block_s`` is the reference's block knob, kept for its signature: the
-    kernel's split follows from the shapes and the SM count
-    (:func:`split_size`), and the result does not depend on it. One launch
+    kernel's split follows from the shapes, the SM count and the
+    instance's occupancy (:func:`split_size`), and the result does not
+    depend on it. ``_chunk`` forces the positions per split (a multiple
+    of the tile), for timing the splits against each other. One launch
     per call; each adds one to ``flash_decode.launches``."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths)
@@ -115,14 +159,14 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not built; the kernel takes "
-                         f"{HEAD_DIMS}")
-    if H % Kh or not 1 <= H // Kh <= _limits()[1]:
-        raise ValueError(f"{H} query heads over {Kh} KV heads: the kernel "
-                         f"takes groups of 1..{_limits()[1]}")
-    if B > 65535 or Kh > 65535 or S < 1:
-        raise ValueError(f"B={B}, Kh={Kh}, S={S} outside one launch")
+    if D not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head_dim {D} not built in {q.dtype}; the kernel "
+                         f"takes {HEAD_DIMS[q.dtype]}")
+    if Kh < 1 or H % Kh or H < Kh:
+        raise ValueError(f"{H} query heads over {Kh} KV heads: not a whole "
+                         "group per KV head")
+    if B > 65535 or S < 1:
+        raise ValueError(f"B={B}, S={S} outside one launch")
     tensors = (q, k, v, lengths)
     if any(t.device != q.device for t in tensors) or \
             not all(t.is_contiguous() for t in tensors):
@@ -131,8 +175,12 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries")
     dev = q.device
-    chunk = split_size(B, Kh, S, _build.sm_count(dev.index or 0),
-                       _limits()[0])
+    dtype_code = 0 if q.dtype == torch.float32 else 1
+    tile, max_group = _limits()
+    n_slices, slice_ = group_slices(H // Kh, max_group)
+    chunk = _chunk or split_size(B, Kh * n_slices, S,
+                                 _build.sm_count(dev.index), tile,
+                                 _blocks_per_sm(dev.index, dtype_code, D))
     n_splits = -(-S // chunk)
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     n_ml = B * H * n_splits * 2
@@ -140,11 +188,12 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512):
     with torch.cuda.device(dev):
         ws, stream = _build.per_stream(_workspaces, dev,
                                        _build.SplitWorkspace)
-        partials, tickets = ws.take(n_ml + B * H * n_splits * D, B * Kh)
+        partials, tickets = ws.take(n_ml + B * H * n_splits * D,
+                                    B * Kh * n_slices)
         ws_ml = partials.data_ptr()
-        code = _entry()(0 if q.dtype == torch.float32 else 1, p(q), p(k),
-                        p(v), p(lengths), B, S, Kh, H // Kh, D, chunk,
-                        n_splits, ctypes.c_void_p(ws_ml),
+        code = _entry()(dtype_code, p(q), p(k), p(v), p(lengths), B, S, Kh,
+                        H // Kh, D, slice_, chunk, n_splits,
+                        ctypes.c_void_p(ws_ml),
                         ctypes.c_void_p(ws_ml + 4 * n_ml), p(tickets),
                         p(out), stream)
     _build.check(code, "flash_decode")

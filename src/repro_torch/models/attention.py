@@ -1,23 +1,35 @@
-"""GQA attention: full-sequence paths (naive and chunked causal) and the
-one-token decode path over a KV cache.
+"""Attention mixers: GQA (global and sliding-window), full-sequence paths
+(naive and chunked causal), MLA (DeepSeek), and their one-token decode
+paths over a KV cache.
 
-Counterpart of the GQA part of ``repro/models/attention.py``, with the
-same parameter layouts (wq (d, H, Dh), wk/wv (d, Kh, Dh), wo (H, Dh, d)).
-Two differences of the port, neither of function:
+Counterpart of ``repro/models/attention.py``, with the same parameter
+layouts (wq (d, H, Dh), wk/wv (d, Kh, Dh), wo (H, Dh, d); MLA's w_dq,
+w_uq, w_dkv, w_ukv, wo and the two norms). Differences of the port:
 
-- decode attention of a global layer runs through kernel B8
+- decode attention of a GQA layer runs through kernel B8
   (:func:`repro_torch.kernels.ops.flash_decode`) with ``lengths =
-  min(pos + 1, S)``, which is exactly the reference's mask
-  ``cache_pos <= pos``. B8 keeps the softmax weights in f32 for the
+  min(pos + 1, S)``. For a global layer that is exactly the reference's
+  mask ``cache_pos <= pos``. B8 keeps the softmax weights in f32 for the
   product with v, where the reference rounds them to the compute dtype
   first: the same in f32 configs, a bf16 rounding apart in bf16 ones;
-- the decode path writes the new K/V row into the cache in place (the
-  reference returns an updated copy, donated under jit). A write at
-  ``pos >= S`` is dropped, as the reference's one-hot scatter drops it.
+- a ``local`` layer's cache is a ring of ``S = min(max_len, window)``
+  slots: the new row goes to slot ``pos % S``, so the slots below
+  ``min(pos + 1, S)`` hold exactly the positions ``(pos - S, pos]`` and
+  B8 over them is the windowed softmax (its sum does not depend on the
+  slots' order). This masks the slots not written yet, as the
+  reference's own forward does; the reference's decode attends to them
+  (its ``_cache_positions`` gives them negative positions, which pass
+  ``cache_pos <= pos``) until the ring is full, so the two decodes
+  differ while a prompt plus its generated tokens is shorter than the
+  ring;
+- the decode paths write the new cache row in place (the reference
+  returns an updated copy, donated under jit). A write at ``pos >= S``
+  of a global or MLA cache is dropped, as the reference's one-hot
+  scatter drops it.
 
-Sliding-window decode (``local`` blocks) and MLA raise
-``NotImplementedError``: they come with the recurrentgemma and deepseek
-slices.
+MLA decode is the reference's absorbed form in plain PyTorch: its scores
+are a 512-wide latent product plus a 64-wide rope product, which is not
+B8's function.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
+from repro_torch.models.layers import apply_rope, dense_init, matmul, rmsnorm
 
 NEG_INF = -1e30
 
@@ -53,6 +65,27 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator) -> Dict:
         p["q_norm"] = torch.zeros((dh,), dtype=torch.float32, device=dev)
         p["k_norm"] = torch.zeros((dh,), dtype=torch.float32, device=dev)
     return p
+
+
+def mla_init(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    qh = cfg.qk_nope_dim + cfg.qk_rope_dim
+    dt = getattr(torch, cfg.dtype)
+    dev = gen.device
+    return {
+        "w_dq": dense_init(gen, d, cfg.q_lora_rank, dt),
+        "q_norm": torch.zeros((cfg.q_lora_rank,), dtype=torch.float32,
+                              device=dev),
+        "w_uq": dense_init(gen, cfg.q_lora_rank, h * qh, dt).reshape(
+            cfg.q_lora_rank, h, qh),
+        "w_dkv": dense_init(gen, d, r + cfg.qk_rope_dim, dt),
+        "kv_norm": torch.zeros((r,), dtype=torch.float32, device=dev),
+        "w_ukv": dense_init(gen, r, h * (cfg.qk_nope_dim + cfg.v_head_dim),
+                            dt).reshape(r, h, cfg.qk_nope_dim +
+                                        cfg.v_head_dim),
+        "wo": dense_init(gen, h * cfg.v_head_dim, d, dt).reshape(
+            h, cfg.v_head_dim, d),
+    }
 
 
 # ============================================================ QKV plumbing
@@ -186,17 +219,16 @@ def attn_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                 cache_k: torch.Tensor, cache_v: torch.Tensor,
                 pos: torch.Tensor, *, window: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token decode. x: (B, 1, d); cache_{k,v}: (B, S, Kh, Dh), written
-    in place; pos: (B,) int32 absolute position of the new token. Returns
-    (y (B, 1, d), cache_k, cache_v)."""
-    if window > 0:
-        raise NotImplementedError("sliding-window decode (local blocks) "
-                                  "comes with the recurrentgemma slice")
+    """One-token decode. x: (B, 1, d); cache_{k,v}: (B, S, Kh, Dh) (a ring
+    of ``S <= window`` slots when ``window > 0``), written in place; pos:
+    (B,) int32 absolute position of the new token. Returns (y (B, 1, d),
+    cache_k, cache_v)."""
     b = x.shape[0]
     s_cache = cache_k.shape[1]
     q, k_new, v_new = _qkv(cfg, p, x, pos[:, None])
-    _scatter_cache(cache_k, k_new, pos)
-    _scatter_cache(cache_v, v_new, pos)
+    slot = torch.remainder(pos, s_cache) if window > 0 else pos
+    _scatter_cache(cache_k, k_new, slot)
+    _scatter_cache(cache_v, v_new, slot)
     lengths = torch.clamp(pos + 1, max=s_cache).to(torch.int32)
     out = ops.flash_decode(q[:, 0].contiguous(), cache_k, cache_v, lengths)
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim_)
@@ -205,23 +237,82 @@ def attn_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 
 def _scatter_cache(cache: torch.Tensor, new: torch.Tensor,
                    slot: torch.Tensor) -> None:
-    """cache (B, S, Kh, D) <- new (B, 1, Kh, D) at row ``slot[b]`` of each
+    """cache (B, S, ...) <- new (B, 1, ...) at row ``slot[b]`` of each
     sequence, in place. A slot at or past S is dropped (the row it would
     land on is written back unchanged), as the reference's one-hot drops
     it; nothing is read back to the host."""
     s_cache = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     at = torch.clamp(slot.long(), max=s_cache - 1)
-    keep = (slot < s_cache)[:, None, None]
+    keep = (slot < s_cache).reshape((-1,) + (1,) * (cache.ndim - 2))
     cache[rows, at] = torch.where(keep, new[:, 0].to(cache.dtype),
                                   cache[rows, at])
 
 
-def _cache_positions(pos: torch.Tensor, s_cache: int,
-                     window: int) -> torch.Tensor:
-    """Absolute position stored at each cache slot (ring-aware)."""
-    idx = torch.arange(s_cache, device=pos.device)[None, :]
-    if window <= 0:
-        return idx.expand(pos.shape[0], s_cache)
-    cur = pos[:, None].long()
-    return cur - torch.remainder(cur - idx, s_cache)
+# ==================================================================== MLA
+def _mla_q(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+           positions: torch.Tensor):
+    """q_nope (B, S, H, nope) and q_rope (B, S, H, rope), rope applied."""
+    cq = rmsnorm(matmul(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
+    q = _project(cq, p["w_uq"])
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], -1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_latent(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               positions: torch.Tensor):
+    """The cached latent of each position: c_kv (B, S, R) through its
+    norm and k_rope (B, S, rope), rope applied."""
+    dkv = matmul(x, p["w_dkv"])
+    c_kv, k_rope = torch.split(dkv, [cfg.kv_lora_rank, cfg.qk_rope_dim], -1)
+    c_kv = rmsnorm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """DeepSeek MLA over the full sequence (train, prefill): per-head K and
+    V rebuilt from the latent, then causal attention with qk dim
+    ``nope + rope`` (its softmax scale ``1 / sqrt(nope + rope)``) and v
+    dim ``v_head_dim``."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = mla_latent(cfg, p, x, positions)
+    kv = _project(c_kv, p["w_ukv"])
+    k_nope, v = torch.split(kv, [cfg.qk_nope_dim, cfg.v_head_dim], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, cfg.qk_rope_dim)], -1)
+    out = _full_attention(cfg, torch.cat([q_nope, q_rope], -1), k, v,
+                          positions, 0)
+    return _out_proj(out, p["wo"], x.dtype)
+
+
+def mla_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               cache_ckv: torch.Tensor, cache_kr: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+    """Absorbed-matrix MLA decode: attention runs in the ``kv_lora_rank``
+    latent space, so the cache holds only c_kv (B, S, R) and k_rope
+    (B, S, rope), both written in place at ``pos`` (a write at ``pos >=
+    S`` is dropped). x: (B, 1, d); pos: (B,). Returns y (B, 1, d)."""
+    b = x.shape[0]
+    s_cache = cache_ckv.shape[1]
+    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])
+    c_new, kr_new = mla_latent(cfg, p, x, pos[:, None])
+    _scatter_cache(cache_ckv, c_new, pos)
+    _scatter_cache(cache_kr, kr_new, pos)
+    w_uk = p["w_ukv"][:, :, :cfg.qk_nope_dim]                 # (R, H, nope)
+    w_uv = p["w_ukv"][:, :, cfg.qk_nope_dim:]                 # (R, H, v)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk).to(x.dtype)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    sc = (torch.einsum("bshr,btr->bhst", q_lat.float(), cache_ckv.float())
+          + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                         cache_kr.float())) * scale
+    valid = torch.arange(s_cache, device=x.device)[None, :] <= pos[:, None]
+    wgt = torch.softmax(sc.masked_fill(~valid[:, None, None], NEG_INF), -1)
+    o_lat = torch.einsum("bhst,btr->bshr", wgt.to(x.dtype).float(),
+                         cache_ckv.float()).to(x.dtype)
+    out = torch.einsum("bshr,rhk->bshk", o_lat, w_uv).to(x.dtype)
+    return _out_proj(out, p["wo"], x.dtype)

@@ -19,8 +19,10 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.flash_decode import (flash_decode,
-                                              flash_decode_plain, split_size)
+from repro_torch.kernels.flash_decode import (HEAD_DIMS, MIN_SPLIT_TILES,
+                                              flash_decode,
+                                              flash_decode_plain,
+                                              group_slices, split_size)
 
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 
@@ -49,9 +51,13 @@ def _close(got, want, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
-# the consumer LM's heads (G = 3, D = 64), llama3-8b's (G = 4, D = 128)
-# and an MHA row (G = 1); S not a multiple of any block
-SHAPES = [(2, 12, 4, 64, 100), (3, 32, 8, 128, 75), (2, 4, 4, 64, 130)]
+# the consumer LM's heads (G = 3, D = 64), llama3-8b's (G = 4, D = 128),
+# an MHA row (G = 1), recurrentgemma's (G = 10, D = 256), command-r+'s
+# (G = 12, D = 128) and two smoke configs' (D = 16, G = 2 and 4); S not a
+# multiple of any block
+SHAPES = [(2, 12, 4, 64, 100), (3, 32, 8, 128, 75), (2, 4, 4, 64, 130),
+          (2, 10, 1, 256, 70), (2, 24, 2, 128, 50), (3, 8, 4, 16, 40),
+          (2, 4, 1, 16, 33)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -250,17 +256,63 @@ def test_one_split_skips_the_merge_with_the_same_result(G):
     np.testing.assert_array_equal(direct, merged)
 
 
-@pytest.mark.parametrize("B,Kh,S,chunk", [
-    (8, 8, 512, 64),          # serve_llama3's decode shape: one tile a split
-    (16, 8, 32_768, 2048),    # decode_32k (batch 16): 16 splits, 2048 blocks
-    (8, 4, 64, 64),           # the consumer LM's serve shape
-    (1, 1, 100, 64),          # one sequence, one head: down to one tile
+@pytest.mark.parametrize("B,Kh,S,blocks,chunk", [
+    (8, 8, 512, 2, 128),      # serve_llama3's decode shape (bf16 D 128)
+    (16, 8, 32_768, 2, 16_384),   # decode_32k (batch 16): 256 blocks
+    (8, 4, 64, 2, 64),        # the consumer LM's serve shape
+    (1, 1, 100, 2, 128),      # one sequence, one head: two tiles a split
+    (8, 16, 4096, 2, 2048),   # command-r+ (G 12 in two slices), 4096 long
 ])
-def test_split_size_at_the_main_path_shapes(B, Kh, S, chunk):
+def test_split_size_at_the_main_path_shapes(B, Kh, S, blocks, chunk):
     """The split follows from the shapes, the SM count (132, an H100
-    SXM's) and the kernel's 64-position stage alone."""
-    assert split_size(B, Kh, S, 132, _TILE) == chunk
+    SXM's), the blocks an SM holds of the instance and the kernel's
+    64-position stage alone: the most splits whose grid fits one wave,
+    each of at least two tiles."""
+    assert split_size(B, Kh, S, 132, _TILE, blocks) == chunk
     assert chunk % _TILE == 0
+    assert chunk >= min(MIN_SPLIT_TILES * _TILE, -(-S // _TILE) * _TILE)
+
+
+@pytest.mark.parametrize("B,Kh,S,chunk", [
+    (8, 1, 2048, 256),        # recurrentgemma's local layers, ring full
+    (8, 1, 512, 128),         # the same at phase 17's max_len
+    (1, 1, 2048, 128),        # one sequence: 16 splits x 2 group slices
+])
+def test_split_size_at_recurrentgemmas_decode_shape(B, Kh, S, chunk):
+    """recurrentgemma's 10 query heads over one KV head run as two group
+    slices of 5, so the grid counts two blocks per KV head and split; the
+    bf16 D = 256 instance's 198 KB ring leaves one block an SM, so a wave
+    is 132 blocks."""
+    n, size = group_slices(10, 8)
+    assert (n, size) == (2, 5)
+    assert split_size(B, Kh * n, S, 132, _TILE, 1) == chunk
+    assert B * Kh * n * -(-S // chunk) <= 132
+
+
+@pytest.mark.parametrize("G,want", [(1, (1, 1)), (4, (1, 4)), (8, (1, 8)),
+                                    (10, (2, 5)), (12, (2, 6)),
+                                    (17, (3, 6)), (96, (12, 8))])
+def test_group_slices_cover_the_group(G, want):
+    """The fewest slices of at most 8 query rows, equal but the last, and
+    none empty."""
+    n, size = group_slices(G, 8)
+    assert (n, size) == want
+    assert size <= 8 and (n - 1) * size < G <= n * size
+
+
+def test_every_config_head_shape_is_built():
+    """Each (dtype, head_dim) a config in ``configs/`` reaches has a kernel
+    instance (the smoke configs run in f32 and, in one test, in bf16)."""
+    from repro_torch import configs
+    for arch in configs.ARCH_IDS:
+        for cfg in (configs.get_config(arch), configs.get_smoke(arch)):
+            if cfg.mla or not any(k.split(":")[0] in ("attn", "local")
+                                  for k in cfg.blocks()):
+                continue
+            assert cfg.head_dim_ in HEAD_DIMS[getattr(torch, cfg.dtype)]
+            assert cfg.head_dim_ in HEAD_DIMS[torch.bfloat16]
+    from repro_torch.configs.paper_stream import consumer_lm
+    assert consumer_lm().head_dim_ in HEAD_DIMS[torch.float32]
 
 
 @pytest.mark.parametrize("junk_k,junk_v", [

@@ -72,7 +72,8 @@ def test_port_has_the_slice_modules():
                 "kernels/tuning.py", "tree.py", "training/optimizer.py",
                 "training/steps.py", "training/checkpoint.py",
                 "training/ft.py", "training/train_loop.py",
-                "launch/train.py"):
+                "launch/train.py", "models/rglru.py", "models/rwkv6.py",
+                "models/moe.py"):
         assert mod in names
     import importlib
     for mod, attr in (("kernels.metrics_fused", "stream_metrics_carry"),

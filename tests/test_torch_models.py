@@ -158,11 +158,41 @@ def test_chunked_attention_matches_reference():
 
 
 @pytest.mark.parametrize("window", [0, 4])
-def test_cache_positions_match_reference(window):
-    pos = np.array([0, 3, 4, 9, 17], np.int32)
-    want = jattn._cache_positions(jnp.asarray(pos), 6, window)
-    got = tattn._cache_positions(_t(pos), 6, window)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+def test_cache_positions_match_reference(window, monkeypatch):
+    """The port's cache placement (the prefill's rolled ring and the
+    decode's write at slot ``pos % S``, or ``pos`` without a window) puts
+    at every slot below ``min(pos + 1, S)`` the position the reference's
+    ``_cache_positions`` names, for prompts shorter and longer than the
+    ring and decodes through its wraps. K carries its own position, so
+    the cache reads back as positions."""
+    cfg = tconfigs.get_smoke("recurrentgemma-2b")
+    heads, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+
+    def qkv(cfg, p, x, positions):
+        pos = positions.to(torch.float32)[..., None, None]
+        b, s = positions.shape
+        return (torch.zeros(b, s, heads, dh), pos.expand(b, s, kh, dh),
+                pos.expand(b, s, kh, dh))
+    monkeypatch.setattr(tattn, "_qkv", qkv)
+    p = {"wo": torch.zeros(heads, dh, cfg.d_model)}
+    max_len = 20
+    s_cache = min(max_len, window) if window > 0 else max_len
+    for prompt in (3, 9):
+        ck = torch.zeros(1, s_cache, kh, dh)
+        cv = torch.zeros_like(ck)
+        positions = torch.arange(prompt, dtype=torch.int32)[None]
+        TT._attn_prefill(cfg, p, torch.zeros(1, prompt, cfg.d_model),
+                         positions, ck, cv, window)
+        for pos in range(prompt - 1, 18):
+            if pos >= prompt:
+                tattn.attn_decode(cfg, p, torch.zeros(1, 1, cfg.d_model), ck,
+                                  cv, torch.tensor([pos], dtype=torch.int32),
+                                  window=window)
+            n = min(pos + 1, s_cache)
+            want = np.asarray(jattn._cache_positions(
+                jnp.asarray([pos], jnp.int32), s_cache, window))[0, :n]
+            np.testing.assert_array_equal(ck[0, :n, 0, 0].numpy(), want)
+            np.testing.assert_array_equal(cv[0, :n, -1, -1].numpy(), want)
 
 
 # ------------------------------------------------------------------ models
@@ -313,19 +343,6 @@ def test_init_params_is_seeded_on_the_device():
     assert jax.tree.map(lambda x: tuple(x.shape), a) == shapes
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-1_6b",
-                                  "deepseek-v3-671b",
-                                  "llama4-scout-17b-a16e"])
-def test_unported_block_kinds_raise(arch):
-    cfg = tconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TT.init_params(cfg, 0, device=CPU)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TT.init_cache(cfg, 1, 8, CPU)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TT.loss_fn(cfg, {}, _batch(cfg))
-
-
 # ------------------------------------------------------------------ training
 DENSE_ARCHS = ["llama3-8b", "qwen3-32b", "qwen1_5-110b", "command-r-plus-104b",
                "musicgen-medium", "llava-next-34b"]
@@ -405,7 +422,7 @@ def test_dots_policy_saves_only_the_weight_products():
         x = torch.randn(2, 16, cfg.d_model, requires_grad=True)
         pos = torch.arange(16, dtype=torch.int32).expand(2, 16)
         body = TT._remat(cfg, lambda h: TT._block_apply(
-            cfg, TT._layer(params["runs"][0], 0), h, pos))
+            cfg, "attn:dense", TT._layer(params["runs"][0], 0), h, pos)[0])
         y = body(x).sum()
         with Count() as c:
             y.backward()
