@@ -188,11 +188,25 @@ Phases, each of which raises on failure (nothing catches it):
    loss under remat none and full within 1e-2, the parameters changed),
    and ``launch.serve --arch`` / ``launch.train --arch`` on the four
    families' and llama3-8b's smoke configs;
-18. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
+18. distribution on a one-rank NCCL mesh (``make_host_mesh(1, 1)``):
+   llama3-8b at full width (seeded bf16 weights laid out by
+   ``param_pspecs(tp)``) through ``jit_prefill_step(cfg, mesh)`` and 8
+   steps of ``jit_serve_step(cfg, mesh, batch=8, max_len=512)`` beside the
+   unsharded steps on the same prompts and tokens: logits and cache bit
+   for bit, the cache in ``cache_pspecs``'s layout, B8 launched exactly
+   8 x 32 times by the sharded steps alone; the consumer LM at full size,
+   3 train steps of 8 x 256 under ``fsdp_tp`` and ``tp`` beside the
+   unsharded step (TF32 off): losses, gradient norms and parameters bit
+   for bit, outputs in the tables' layouts, peak memory printed; the
+   ``fsdp_tp`` state saved and restored with ``shardings`` bit for bit;
+   30 steps of ``make_compressed_dp_grad`` with the reference test's
+   optimizer (last loss below 0.7 x the first; every ``all_reduce`` SUM
+   payload int32 of int8 values);
+19. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
    ``multiday``, ``serve``, ``serve_llama3``, ``taskbench``, ``api``,
    ``service``, ``multihost``, ``tuning``, ``train``, ``train_llama3``,
-   ``families`` and ``kernels`` JSON lines and, last, the ``{"ok": true,
-   "device": ...}`` line.
+   ``families``, ``distributed`` and ``kernels`` JSON lines and, last,
+   the ``{"ok": true, "device": ...}`` line.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -3702,6 +3716,349 @@ def run_families_path(device: str, seed: int, workdir: Path,
     return total, report
 
 
+# ------------------------------------------------ phase 18: distribution
+#: the sharded serve step: llama3-8b at full width, 8 sequences of 512
+#: positions from phase 9's prompt shape, 8 decode steps
+DIST_SERVE_STEPS = 8
+#: the sharded train steps: the consumer LM at full size, 3 steps of
+#: 8 x 256 tokens under each policy
+DIST_TRAIN_STEPS, DIST_TRAIN_BATCH, DIST_TRAIN_SEQ = 3, 8, 256
+#: the compressed-gradient run: the reference test's optimizer and batch
+#: shape (tests/test_training.py, TestCompression), 30 steps
+DIST_COMPRESS_STEPS = 30
+
+
+def _dist_group(device: str):
+    """A one-rank process group (NCCL on the card, gloo on the CPU) and
+    its ``(1, 1)`` host mesh; the caller destroys the group."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    kw = {}
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        kw["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1, **kw)
+    return make_host_mesh(1, 1, device=device)
+
+
+def _grow_cache(cfg, cache, max_len: int, device: str):
+    """A prefill cache (prompt length) as a decode cache of ``max_len``
+    positions, the prompt's rows first."""
+    from repro_torch.models import transformer
+    out = transformer.init_cache(cfg, cache["pos"].shape[0], max_len,
+                                 device=device)
+    for run, src in zip(out["runs"], cache["runs"]):
+        for k, t in run.items():
+            if k in ("k", "v", "ckv", "kr"):
+                t[:, :, :src[k].shape[2]] = src[k][:, :, :t.shape[2]]
+            else:
+                t.copy_(src[k])
+    out["pos"].copy_(cache["pos"])
+    return out
+
+
+def _placed_as(name: str, got, specs, mesh) -> None:
+    """Every leaf of ``got`` in the layout of the spec tree ``specs``."""
+    from repro_torch import tree
+    from repro_torch.distributed.sharding import named
+    want = [s.placements for s in tree.leaves(named(mesh, specs))]
+    have = [tuple(t.placements) for t in tree.leaves(got)]
+    if have != want:
+        raise AssertionError(f"{name}: placements {have[:3]} ..., the "
+                             f"tables say {want[:3]} ...")
+
+
+def _dist_serve(device: str, seed: int, mesh, cfg, reps: int):
+    """The sharded prefill and serve steps against the unsharded ones on
+    the same prompts: logits and cache bit for bit, the cache in
+    ``cache_pspecs``'s layout, B8 launched exactly once per decode step
+    and GQA layer by the sharded steps alone."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.distributed import layout
+    from repro_torch.distributed.sharding import (cache_pspecs, named,
+                                                  param_pspecs)
+    from repro_torch.models import transformer
+    from repro_torch.training.steps import jit_prefill_step, jit_serve_step
+
+    params = transformer.init_params(cfg, seed, device=device)
+    placed = layout.place(params, named(mesh, param_pspecs(
+        cfg, mesh, transformer.param_specs(cfg), "tp")))
+    rng = np.random.default_rng(seed)
+    slots, p_len = SERVE_TASK["slots"], SERVE_TASK["prompt_len"]
+    max_len = SERVE_TASK["max_len"]
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (slots, p_len),
+                                         dtype=np.int32)).to(device)
+    lens = torch.from_numpy(rng.integers(1, p_len + 1, slots,
+                                         dtype=np.int32)).to(device)
+    plain_pre, mesh_pre = jit_prefill_step(cfg), jit_prefill_step(cfg, mesh)
+    want_l, want_c = plain_pre(params, toks, lens)
+    got_l, got_c = mesh_pre(placed, toks, lens)
+    if not _bit_equal(got_l.full_tensor(), want_l) or not all(
+            _bit_equal(a.full_tensor(), b) for a, b in
+            zip(tree.leaves(got_c), tree.leaves(want_c))):
+        raise AssertionError("distribution: the sharded prefill differs "
+                             "from the unsharded one")
+    _placed_as("sharded prefill cache", got_c,
+               cache_pspecs(cfg, mesh, want_c), mesh)
+    start = _grow_cache(cfg, want_c, max_len, device)
+    plain_serve = jit_serve_step(cfg, donate=False)
+    mesh_serve = jit_serve_step(cfg, mesh, batch=slots, max_len=max_len,
+                                donate=False)
+    # the unsharded steps first (they launch B8 too), greedy from the
+    # prompts; then the sharded steps on the same tokens, counted alone
+    cache, nxt, feed, want = start, torch.argmax(want_l, -1).to(
+        torch.int32), [], []
+    for _ in range(DIST_SERVE_STEPS):
+        feed.append(nxt)
+        logits, cache = plain_serve(params, cache, nxt)
+        want.append(logits)
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+    want_cache = cache
+    torch.cuda.synchronize()
+    _zero_launches()
+    cache = start
+    got = []
+    for t in feed:
+        logits, cache = mesh_serve(placed, cache, t)
+        got.append(logits)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    _check_launches("distribution (sharded serve)", launches, {
+        "flash_decode": DIST_SERVE_STEPS * _b8_layers(cfg)}, exact=True)
+    if not all(_bit_equal(g.full_tensor(), w) for g, w in zip(got, want)):
+        raise AssertionError("distribution: sharded decode logits differ "
+                             "from the unsharded steps'")
+    if not all(_bit_equal(a.full_tensor(), b) for a, b in
+               zip(tree.leaves(cache), tree.leaves(want_cache))):
+        raise AssertionError("distribution: the sharded decode cache "
+                             "differs from the unsharded one")
+    _placed_as("sharded serve cache", cache, cache_pspecs(
+        cfg, mesh, transformer.init_cache(cfg, slots, max_len,
+                                          device="meta")), mesh)
+    timing_serve = jit_serve_step(cfg, mesh, batch=slots, max_len=max_len)
+    work = tree.tree_map(torch.clone, cache)
+    plain_work = tree.tree_map(torch.clone, want_cache)
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "decode_steps": DIST_SERVE_STEPS, "b8_launches": launches[
+            "flash_decode"],
+        "prefill_ms": _host_ms(lambda: mesh_pre(placed, toks, lens), reps),
+        "plain_prefill_ms": _host_ms(lambda: plain_pre(params, toks, lens),
+                                     reps),
+        "decode_step_ms": _host_ms(lambda: timing_serve(placed, work, nxt),
+                                   reps),
+        "plain_decode_step_ms": _host_ms(lambda: transformer.decode_step(
+            cfg, params, plain_work, nxt), reps),
+    }
+    del params, placed, start, cache, want_cache, work, plain_work, got, want
+    return launches, out
+
+
+def _dist_train(device: str, seed: int, mesh, cfg, opt, workdir: Path):
+    """Three sharded train steps under ``fsdp_tp`` and ``tp`` beside the
+    unsharded step on the same batches: losses, gradient norms and
+    parameters bit for bit, every output in its table's layout; then the
+    ``fsdp_tp`` state saved and restored with ``shardings``, bit for bit.
+    Returns the report and the restored state's check."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.distributed.sharding import P, named, param_pspecs
+    from repro_torch.models import transformer
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.data import SyntheticBatcher
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.steps import jit_train_step
+
+    it = iter(SyntheticBatcher(DIST_TRAIN_BATCH, DIST_TRAIN_SEQ,
+                               cfg.vocab_size, seed=seed))
+    batches = [{k: torch.as_tensor(v, device=device)
+                for k, v in next(it).items()}
+               for _ in range(DIST_TRAIN_STEPS)]
+    params = transformer.init_params(cfg, seed, device=device)
+    runs, out = {}, {"arch": cfg.name, "layers": cfg.n_layers,
+                     "d_model": cfg.d_model, "dtype": cfg.dtype,
+                     "steps": DIST_TRAIN_STEPS,
+                     "batch": f"{DIST_TRAIN_BATCH} x {DIST_TRAIN_SEQ}"}
+    # deterministic kernels where PyTorch has them (the embedding's
+    # gradient accumulates with atomics otherwise), so that two runs of
+    # the same step can be held bit for bit
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for policy in (None, "fsdp_tp", "tp"):
+            step = jit_train_step(cfg, opt, None if policy is None else mesh,
+                                  policy or "fsdp_tp", donate=False)
+            p, s = params, adamw_init(params)
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            losses, norms, ms = [], [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                p, s, m = step(p, s, b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"])
+                norms.append(m["grad_norm"])
+            runs[policy] = (p, s, losses, norms)
+            name = policy or "unsharded"
+            out[f"{name}_step_ms"] = ms
+            # the steps' own peak: over what the earlier runs left
+            # allocated (their states, kept for the comparison below)
+            out[f"{name}_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                      - start) / 1e9
+            out[f"{name}_losses"] = [float(x) for x in losses]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    ref_p, _, ref_l, ref_n = runs[None]
+    for policy in ("fsdp_tp", "tp"):
+        p, s, losses, norms = runs[policy]
+        whole = [t.full_tensor() for t in tree.leaves(p)]
+        if not (all(_bit_equal(a, b) for a, b in zip(losses, ref_l)) and
+                all(_bit_equal(a, b) for a, b in zip(norms, ref_n)) and
+                all(_bit_equal(a, b) for a, b in
+                    zip(whole, tree.leaves(ref_p)))):
+            raise AssertionError(f"distribution: {policy} train steps "
+                                 "differ from the unsharded step")
+        pspec = param_pspecs(cfg, mesh, transformer.param_specs(cfg),
+                             policy)
+        _placed_as(f"{policy} parameters", p, pspec, mesh)
+        _placed_as(f"{policy} AdamW state", s,
+                   {"step": P(), "m": pspec, "v": pspec}, mesh)
+        del whole
+    # the fsdp_tp state through a sharded checkpoint
+    p, s = runs["fsdp_tp"][:2]
+    state = {"params": p, "opt": s}
+    pspec = param_pspecs(cfg, mesh, transformer.param_specs(cfg), "fsdp_tp")
+    specs = {"params": pspec, "opt": {"step": P(), "m": pspec, "v": pspec}}
+    mgr = CheckpointManager(workdir / "dist_ckpt", keep=1)
+    t0 = time.perf_counter()
+    mgr.save(DIST_TRAIN_STEPS, state)
+    out["ckpt_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = mgr.restore(state, DIST_TRAIN_STEPS, named(mesh, specs))
+    torch.cuda.synchronize()
+    out["ckpt_restore_s"] = time.perf_counter() - t0
+    if not all(_bit_equal(a.full_tensor(), b.full_tensor()) for a, b in
+               zip(tree.leaves(back), tree.leaves(state))):
+        raise AssertionError("distribution: the sharded checkpoint did not "
+                             "restore bit for bit")
+    _placed_as("restored state", back, specs, mesh)
+    out["ckpt_leaves"] = len(tree.leaves(back))
+    del runs, state, back, p, s, params
+    return out
+
+
+def _dist_compress(device: str, seed: int, mesh, cfg):
+    """``make_compressed_dp_grad`` over the mesh's ``data`` axis for
+    :data:`DIST_COMPRESS_STEPS` steps on one seeded batch: the loss falls
+    below 0.7 times the first, and every payload summed by
+    ``all_reduce`` is int32 holding int8 values."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import (ef_init,
+                                                     make_compressed_dp_grad)
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import (AdamW, adamw_init,
+                                                adamw_update)
+    params = transformer.init_params(cfg, seed, device=device)
+    ef = ef_init(params)
+    opt = AdamW(lr=3e-3, warmup_steps=2, total_steps=40)
+    opt_state = adamw_init(params)
+    grad_fn = make_compressed_dp_grad(
+        lambda p, b: transformer.loss_fn(cfg, p, b)[0], mesh, "data")
+    chunk = np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (4, 33), dtype=np.int32)
+    batch = {"inputs": torch.from_numpy(chunk[:, :-1].copy()).to(device),
+             "labels": torch.from_numpy(chunk[:, 1:].copy()).to(device)}
+    payloads, real = [], dist.all_reduce
+
+    def spy(t, *a, **kw):
+        if kw.get("op") == dist.ReduceOp.SUM and t.numel() > 1:
+            payloads.append((str(t.dtype), int(t.abs().max())))
+        return real(t, *a, **kw)
+
+    dist.all_reduce = spy
+    losses = []
+    try:
+        for _ in range(DIST_COMPRESS_STEPS):
+            loss, grads, ef = grad_fn(params, batch, ef)
+            params, opt_state, _ = adamw_update(opt, grads, opt_state,
+                                                params)
+            losses.append(float(loss))
+    finally:
+        dist.all_reduce = real
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"distribution: compressed training did not "
+                             f"converge ({losses[0]} -> {losses[-1]})")
+    kinds = {k for k, _ in payloads}
+    top = max((v for _, v in payloads), default=0)
+    if kinds != {"torch.int32"} or top > 127 * dist.get_world_size():
+        raise AssertionError(f"distribution: all_reduce payloads {kinds} "
+                             f"up to {top}, want int32 of int8 values")
+    return {"steps": DIST_COMPRESS_STEPS, "first_loss": losses[0],
+            "last_loss": losses[-1], "payload_dtypes": sorted(kinds),
+            "payload_calls": len(payloads), "payload_max_abs": top}
+
+
+def run_distribution_path(device: str, seed: int, workdir: Path,
+                          serve_cfg=None, train_cfg=None, reps: int = 10):
+    """Phase 18: the sharded steps on a one-rank mesh (NCCL on the card).
+    llama3-8b at its published width served by ``jit_prefill_step`` and
+    ``jit_serve_step`` with a mesh beside the unsharded steps (bit for
+    bit, B8 exactly once per decode step and layer); the consumer LM
+    trained three steps under ``fsdp_tp`` and ``tp`` beside the unsharded
+    step (bit for bit, TF32 off) and checkpointed sharded; thirty steps of
+    int8 compressed gradients. ``serve_cfg`` / ``train_cfg`` replace the
+    configurations (small ones rehearse the phase on the CPU)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_stream import consumer_lm
+    from repro_torch.training.optimizer import AdamW
+
+    serve_cfg = get_config(SERVE_ARCH) if serve_cfg is None else serve_cfg
+    train_cfg = consumer_lm() if train_cfg is None else train_cfg
+    mesh = _dist_group(device)
+    try:
+        t0 = time.perf_counter()
+        launches, serve = _dist_serve(device, seed, mesh, serve_cfg, reps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = _dist_train(device, seed, mesh, train_cfg,
+                            AdamW(lr=1e-3, warmup_steps=1), workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        compress = _dist_compress(device, seed, mesh, train_cfg)
+        phase_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"card": _card_line(), "mesh": [1, 1],
+              "backend": "nccl" if device == "cuda" else "gloo",
+              "serve": serve, "train": train, "compression": compress,
+              "phase_s": phase_s}
+    print(f"distribution: decode step {serve['decode_step_ms']:.3f} ms "
+          f"sharded, {serve['plain_decode_step_ms']:.3f} ms unsharded; "
+          f"train step fsdp_tp {np.median(train['fsdp_tp_step_ms']):.1f} "
+          f"ms, tp {np.median(train['tp_step_ms']):.1f} ms, unsharded "
+          f"{np.median(train['unsharded_step_ms']):.1f} ms; peak "
+          f"{train['fsdp_tp_peak_gb']:.2f} GB; phase {phase_s:.1f} s")
+    return launches, report
+
+
 def _host_ms(fn, reps: int) -> float:
     """Median wall time of ``fn()`` ending in a device synchronise, after
     one warm-up (a step or request time, not a kernel time)."""
@@ -3821,6 +4178,9 @@ def main() -> int:
                                                    Path(tmp))
         families["phase_s"] = time.perf_counter() - t0
         print(json.dumps({"families": families}), flush=True)
+        dist_launches, distributed = run_distribution_path(
+            "cuda", MAIN_SEED, Path(tmp))
+        print(json.dumps({"distributed": distributed}), flush=True)
 
     by_path = {"run": run_launches, "run_many": sweep_launches,
                "run_many_chunked": chunked_launches, "multiday": md_launches,
@@ -3828,7 +4188,8 @@ def main() -> int:
                "taskbench": tb_launches, "api": api_launches,
                "service": svc_launches, "multihost": mh_launches,
                "tuning": tune_launches, "train": train_launches,
-               "train_llama3": tl_launches, "families": fam_launches}
+               "train_llama3": tl_launches, "families": fam_launches,
+               "distribution": dist_launches}
     replaces = {
         "stream_sample": ("src/repro_torch/csrc/stream_sample.cu",
                           "src/repro/kernels/stream_sample.py:146",

@@ -5,15 +5,19 @@ Each ``<arch>.py`` exposes ``config()`` (the exact published
 hyperparameters) and ``smoke()`` (a reduced same-family config for CPU
 tests: float32, tiny dims).
 
-The JAX package's ``input_specs`` (``ShapeDtypeStruct`` stand-ins for the
-dry-run) waits for the port of ``launch/dryrun.py``.
+``input_specs(cfg, shape)`` returns meta tensors standing in for every
+step input (shapes and dtypes, no allocation): the counterpart of the
+reference's ``ShapeDtypeStruct`` stand-ins, which the sharding tables
+and the dry-run read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Any, Dict
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -67,3 +71,34 @@ def cell_supported(cfg: ModelConfig, shape: str) -> bool:
     if shape == "long_500k":
         return cfg.supports_long_context()
     return True
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, Any]:
+    """Meta-tensor stand-ins for the step inputs of one cell, in the
+    reference's nesting; the decode cache from ``init_cache(...,
+    device="meta")``."""
+    from repro_torch.models import transformer
+
+    spec = SHAPES[shape]
+    b, s = spec.global_batch, spec.seq_len
+    meta = torch.device("meta")
+    dt = getattr(torch, cfg.dtype)
+    tok = torch.empty((b, s), dtype=torch.int32, device=meta)
+    if cfg.input_mode == "embeddings":
+        # modality frontend stub: precomputed frame/patch embeddings
+        inputs = torch.empty((b, s, cfg.d_model), dtype=dt, device=meta)
+    else:
+        inputs = tok
+    if spec.kind == "train":
+        return {"batch": {"inputs": inputs, "labels": tok}}
+    if spec.kind == "prefill":
+        return {"inputs": inputs,
+                "lengths": torch.empty((b,), dtype=torch.int32,
+                                       device=meta)}
+    # decode: one new token against a seq_len cache
+    cache = transformer.init_cache(cfg, b, s, device=meta)
+    if cfg.input_mode == "embeddings":
+        tokens = torch.empty((b, cfg.d_model), dtype=dt, device=meta)
+    else:
+        tokens = torch.empty((b,), dtype=torch.int32, device=meta)
+    return {"cache": cache, "tokens": tokens}

@@ -27,8 +27,13 @@ over the flattened (E, C) buffer. (``index_add_`` on the card adds with
 atomics in an order that changes from run to run, so in bf16 a greedy
 token could change between runs.)
 
-The reference's sharding constraints (``constrain``) are the identity
-without a mesh; they come with the distribution slice of the port.
+The reference's sharding constraints (``constrain``) stand at its
+points; on the local tensors of a sharded step they are the identity.
+Capacity and the load-balance statistics depend on every token of the
+batch, so under the sharded steps' rules the block runs on the rows of
+every data-parallel rank (:func:`repro_torch.distributed.layout.dp_rows`)
+and returns this rank's: the function of the global batch, as the
+reference's SPMD program computes it.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import layout
+from repro_torch.distributed.api import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init
 
@@ -125,6 +132,7 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
               ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, d) -> (y, aux losses)."""
+    x, lo, hi = layout.dp_rows(x)
     b, s, d = x.shape
     t, e, k = b * s, cfg.n_experts, cfg.top_k
     x2 = x.reshape(t, d)
@@ -139,12 +147,14 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
     tok_map[flat_ids, slot] = tok_of_assign        # column cap: the trash
     x_pad = torch.cat([x2, x2.new_zeros((1, d))])
     buf = x_pad[tok_map[:, :cap]]                                # (E, C, d)
+    buf = constrain(buf, "expert", None, None)
 
     w = p["experts"]
     g = _bmm_f32(buf, w["gate"])
     u = _bmm_f32(buf, w["up"])
     h = (F.silu(g) * u).to(x.dtype)
     out_buf = torch.bmm(h, w["down"]).to(x.dtype)
+    out_buf = constrain(out_buf, "expert", None, None)
 
     # combine: each token's contributions in ascending expert id, from 0
     order = torch.argsort(ids, dim=1)
@@ -158,7 +168,8 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor
     y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(k):
         y = y + contrib[:, j]
+    y = constrain(y, "batch", None)
 
     if "shared" in p:
         y = y + swiglu(p["shared"], x2)
-    return y.reshape(b, s, d), aux
+    return y.reshape(b, s, d)[lo:hi], aux

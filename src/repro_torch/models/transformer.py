@@ -28,6 +28,17 @@ them weighted by ``aux_weights`` over the MoE layer count, and 0.3 times
 the multi-token-prediction loss. :func:`lm_loss` takes the next-token
 cross-entropy chunk by chunk, so (B, S, V) logits never exist at once.
 Gradients come from autograd (:mod:`repro_torch.training.steps`).
+
+Distribution: the reference's ``constrain`` calls stand at its points
+(the identity on plain tensors). Parameters and caches may be DTensors
+(the sharded steps of :mod:`repro_torch.training.steps`): the leaves
+outside ``runs`` are gathered once per call, each layer's leaves just
+before the layer (inside :func:`_remat`, so the backward pass gathers
+them again), and :func:`decode_step` gathers a layer's cache for this
+rank's rows and writes its slice back
+(:mod:`repro_torch.distributed.layout`). The kernels see plain tensors
+only. :func:`param_specs` gives the parameters' shapes and dtypes on the
+meta device.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -43,6 +55,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch import tree
+from repro_torch.distributed import layout
+from repro_torch.distributed.api import constrain
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -179,9 +193,45 @@ def params_to_numpy(cfg: ModelConfig, params: Dict):
     return tree.tree_to_numpy(params)
 
 
+class _OnMeta(TorchFunctionMode):
+    """Every tensor a call makes lands on the meta device: its shape and
+    dtype, no storage and no random draw."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+def param_specs(cfg: ModelConfig, key=None):
+    """The parameter pytree of :func:`init_params` as meta tensors (shapes
+    and dtypes, no allocation, no draw), for the sharding tables; ``key``
+    is ignored, as the reference's. One layer of each run is built and
+    its leaves stacked."""
+    check_supported(cfg)
+    with _OnMeta():
+        gen = torch.Generator()                    # never draws: meta
+        runs = [tree.tree_map(lambda t, n=count: t.new_empty(
+            (n,) + tuple(t.shape)), _block_init(cfg, kind, gen))
+            for kind, count in _runs(cfg.blocks())]
+        p = init_params(cfg.replace(n_layers=0), 0, device="cpu")
+    p["runs"] = runs
+    return p
+
+
 # =================================================================== forward
 def _layer(stacked: Dict, i: int) -> Dict:
     return tree.tree_map(lambda t: t[i], stacked)
+
+
+def _gather_top(params: Dict) -> Dict:
+    """``params`` with every leaf outside ``runs`` (the embedding, the
+    head, the final norm, the MTP head) gathered whole where it is a
+    DTensor (:func:`repro_torch.distributed.layout.gather`); the runs'
+    layers are gathered one at a time in the layer loops."""
+    return {k: v if k == "runs" else layout.gather(v)
+            for k, v in params.items()}
 
 
 def _embed_inputs(cfg: ModelConfig, params: Dict,
@@ -195,9 +245,12 @@ def _embed_inputs(cfg: ModelConfig, params: Dict,
 
 def _block_apply(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor,
                  positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """One block over a sequence: (x, aux losses of its MoE, else {})."""
+    """One block over a sequence: (x, aux losses of its MoE, else {}).
+    DTensor leaves of ``p`` are gathered here, inside :func:`_remat`, so
+    the backward pass gathers them again instead of keeping them."""
     mixer, mlp = kind.split(":")
     aux: Dict[str, torch.Tensor] = {}
+    p = layout.gather(p)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.norm_f32)
     if mixer == "attn":
         y = (attn.mla_block(cfg, p["mix"], h, positions) if cfg.mla
@@ -219,7 +272,9 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor,
         y2, aux = moe_mod.moe_block(cfg, p["mlp"], h2)
     else:
         y2 = swiglu(p["mlp"], h2)
-    return x + y2, aux
+    x = x + y2
+    x = constrain(x, "batch", "seq", "embed")
+    return x, aux
 
 
 #: the weight products of a block and of the logits head: ``matmul`` of
@@ -258,13 +313,15 @@ def forward(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
     """inputs: (B, S) tokens or (B, S, d) embeddings. Returns (hidden
     (B, S, d), aux losses: the MoE layers' ``moe_lb`` and ``moe_z`` summed
     over the layers, empty without MoE). Each block runs under
-    :func:`_remat`."""
+    :func:`_remat`. DTensor parameters are gathered a layer at a time."""
     check_supported(cfg)
+    params = _gather_top(params)
     x = _embed_inputs(cfg, params, inputs)
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+    x = constrain(x, "batch", "seq", "embed")
     aux: Dict[str, torch.Tensor] = {}
     for (kind, count), stacked in zip(_runs(cfg.blocks()), params["runs"]):
         body = _remat(cfg, functools.partial(_block_apply, cfg, kind))
@@ -328,6 +385,7 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
     ``moe_z`` (per MoE layer, weighted into the loss by ``aux_weights``);
     with an MTP head ``mtp`` (weighted by 0.3)."""
     check_supported(cfg)
+    params = _gather_top(params)
     dev = params["embed"].device
     inputs = torch.as_tensor(batch["inputs"], device=dev)
     hidden, aux = forward(cfg, params, inputs)
@@ -376,9 +434,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed decode cache on ``device`` (default CUDA), mirroring the run
     structure: per run of R layers, k and v (R, B, S, Kh, Dh) with ``S =
     max_len``, or ``min(max_len, window)`` for a ``local`` ring; MLA's
-    ``ckv``/``kr``; the O(1) states of RG-LRU and RWKV6."""
+    ``ckv``/``kr``; the O(1) states of RG-LRU and RWKV6. ``device="meta"``
+    gives its shapes and dtypes without storage."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if device is not None and
+           torch.device(device).type == "meta" else resolve_device(device))
     dt = _dtype(cfg)
 
     def stacked(state, count):
@@ -459,18 +519,31 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """One serving step: tokens (B,) or embeddings (B, d) -> (logits (B, V)
     f32, cache). The cache is updated in place (each sequence's new cache
-    rows and states, then ``pos += 1``) and returned."""
+    rows and states, then ``pos += 1``) and returned.
+
+    With DTensor parameters and cache (the sharded serve step), ``tokens``
+    are this rank's rows and so are the logits: each layer's parameters
+    are gathered whole, and its cache over every mesh dim but the batch's
+    (:func:`repro_torch.distributed.layout.layer_cache`), then this rank's
+    slice of the updated layer is written back."""
     check_supported(cfg)
-    pos = cache["pos"]
+    params = _gather_top(params)
+    pos = layout.local(cache["pos"])
     if tokens.ndim == 1:
         x = embed_lookup(params["embed"], tokens[:, None])
     else:
         x = tokens[:, None, :].to(_dtype(cfg))
     for (kind, count), stacked_p, stacked_c in zip(
             _runs(cfg.blocks()), params["runs"], cache["runs"]):
+        sharded = any(layout.is_sharded(t) for t in stacked_c.values())
         for i in range(count):
-            x = _block_decode(cfg, kind, _layer(stacked_p, i), stacked_c, i,
-                              x, pos)
+            lp = layout.gather(_layer(stacked_p, i))
+            if sharded:
+                lc = layout.layer_cache(stacked_c, i)
+                x = _block_decode(cfg, kind, lp, lc, 0, x, pos)
+                layout.write_layer_cache(stacked_c, i, lc)
+            else:
+                x = _block_decode(cfg, kind, lp, stacked_c, i, x, pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
     logits = unembed(x[:, 0], _head_table(cfg, params), cfg.logit_softcap)
     pos.add_(1)
@@ -486,8 +559,10 @@ def prefill(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
     on the inputs' device). As in the reference, the norms of the blocks
     run in f32 whatever ``cfg.norm_f32`` says, every position's cache rows
     are written (padding included), and a recurrent state is the one after
-    the last padded position."""
+    the last padded position. DTensor parameters are gathered a layer at a
+    time; the cache is built for the rows of ``inputs``."""
     check_supported(cfg)
+    params = _gather_top(params)
     x = _embed_inputs(cfg, params, inputs)
     b, s_p = x.shape[0], x.shape[1]
     positions = torch.arange(s_p, dtype=torch.int32,
@@ -497,7 +572,7 @@ def prefill(cfg: ModelConfig, params: Dict, inputs: torch.Tensor,
             _runs(cfg.blocks()), params["runs"], cache["runs"]):
         mixer = kind.split(":")[0]
         for i in range(count):
-            lp = _layer(stacked_p, i)
+            lp = layout.gather(_layer(stacked_p, i))
             h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
             if mixer in ("attn", "local") and cfg.mla:
                 y = _mla_prefill(cfg, lp["mix"], h, positions,

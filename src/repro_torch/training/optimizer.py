@@ -14,6 +14,12 @@ were. :func:`adamw_update_in_place` does the same arithmetic and writes
 the results into the parameters and the state, leaf by leaf: the
 counterpart of the reference's buffer donation (``jit_train_step(...,
 donate=True)``), which keeps one copy of the state on the device.
+
+DTensor leaves (the sharded train step): each leaf is updated on its
+local shard, the gradient first laid out as its parameter, so every new
+leaf keeps its parameter's placements and the arithmetic is the same
+element by element. The global norm gathers one gradient leaf at a time
+and sums it whole, as on one device.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as pytree
+from repro_torch.distributed import layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,8 +51,10 @@ class AdamW:
 def adamw_init(params: Any) -> Dict:
     leaves = pytree.leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: (torch.zeros_like(p, dtype=torch.float32)
+                       if isinstance(p, DTensor) else
+                       torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device))
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
         "m": pytree.tree_map(zeros, params),
@@ -64,7 +74,7 @@ def _schedule(cfg: AdamW, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
+    sums = [torch.sum(torch.square(layout.whole(x).to(torch.float32)))
             for x in pytree.leaves(tree)]
     return torch.sqrt(sum(sums))
 
@@ -84,7 +94,7 @@ def adamw_update_in_place(cfg: AdamW, grads: Any, state: Dict, params: Any
 
 def _update(cfg: AdamW, grads: Any, state: Dict, params: Any,
             in_place: bool) -> Tuple[Any, Dict, Dict]:
-    step = state["step"] + 1
+    step = layout.local(state["step"]) + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
@@ -93,6 +103,11 @@ def _update(cfg: AdamW, grads: Any, state: Dict, params: Any,
     b2c = 1 - torch.pow(cfg.b2, step.to(torch.float32))
 
     def upd(p, g, m, v):
+        if isinstance(p, DTensor):
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            p, g, m, v = p.to_local(), g.to_local(), m.to_local(), \
+                v.to_local()
         g = g.to(torch.float32) * scale
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
@@ -109,13 +124,18 @@ def _update(cfg: AdamW, grads: Any, state: Dict, params: Any,
         for p, g, m, v in flat:
             new = upd(p, g, m, v)
             for dst, src in zip((p, m, v), new):
-                dst.copy_(src)
+                layout.local(dst).copy_(src)
             del new
-        state["step"].copy_(step)
+        layout.local(state["step"]).copy_(step)
         return params, state, {"grad_norm": gnorm, "lr": lr}
+    flat = list(flat)
     out = [upd(p, g, m, v) for p, g, m, v in flat]
-    new_p = pytree.unflatten(params, [o[0] for o in out])
-    new_m = pytree.unflatten(params, [o[1] for o in out])
-    new_v = pytree.unflatten(params, [o[2] for o in out])
+    new_p = pytree.unflatten(params, [layout.like(f[0], o[0])
+                                      for f, o in zip(flat, out)])
+    new_m = pytree.unflatten(params, [layout.like(f[2], o[1])
+                                      for f, o in zip(flat, out)])
+    new_v = pytree.unflatten(params, [layout.like(f[3], o[2])
+                                      for f, o in zip(flat, out)])
     stats = {"grad_norm": gnorm, "lr": lr}
-    return new_p, {"step": step, "m": new_m, "v": new_v}, stats
+    return new_p, {"step": layout.like(state["step"], step), "m": new_m,
+                   "v": new_v}, stats

@@ -73,7 +73,9 @@ def test_port_has_the_slice_modules():
                 "training/steps.py", "training/checkpoint.py",
                 "training/ft.py", "training/train_loop.py",
                 "launch/train.py", "models/rglru.py", "models/rwkv6.py",
-                "models/moe.py"):
+                "models/moe.py", "distributed/sharding.py",
+                "distributed/compression.py", "distributed/layout.py",
+                "launch/mesh.py"):
         assert mod in names
     import importlib
     for mod, attr in (("kernels.metrics_fused", "stream_metrics_carry"),
@@ -93,7 +95,13 @@ def test_port_has_the_slice_modules():
                       ("kernels.tuning", "KernelTuner"),
                       ("models.transformer", "loss_fn"),
                       ("models.transformer", "opt_state_from_numpy"),
-                      ("training", "TrainLoop")):
+                      ("training", "TrainLoop"),
+                      ("distributed", "param_pspecs"),
+                      ("distributed.compression", "compressed_psum"),
+                      ("launch.mesh", "make_host_mesh"),
+                      ("configs", "input_specs"),
+                      ("models.transformer", "param_specs"),
+                      ("training.steps", "sharded_value_and_grad")):
         assert hasattr(importlib.import_module(f"repro_torch.{mod}"), attr)
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "stream_sample.cu", "compact.cu", "metrics_fused.cu",

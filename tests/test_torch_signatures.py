@@ -251,8 +251,18 @@ TRAINING_NAMES = {
                     "elastic_plan"),
     "training.train_loop": ("TrainLoop.__init__", "TrainLoop.run",
                             "TrainLoop.summary"),
-    "models.transformer": ("forward", "lm_loss", "loss_fn", "_remat"),
+    "models.transformer": ("forward", "lm_loss", "loss_fn", "_remat",
+                           "param_specs"),
     "launch.train": ("build_batches",),
+    "distributed.sharding": ("_param_spec", "param_pspecs", "batch_pspec",
+                             "cache_pspecs", "activation_rules",
+                             "_axis_size", "_dp", "_fits", "_maybe"),
+    "distributed.api": ("sharding_rules", "active_rules", "constrain",
+                        "process_topology"),
+    "distributed.compression": ("quantize", "dequantize", "compressed_psum",
+                                "make_compressed_dp_grad", "ef_init"),
+    "launch.mesh": ("make_production_mesh",),
+    "configs": ("input_specs", "cell_supported"),
 }
 TRAINING_DATACLASSES = [("training.optimizer", "AdamW"),
                         ("training.ft", "FailureInjector"),
@@ -281,6 +291,23 @@ def test_training_dataclass_fields_are_the_references(mod, cls):
                         for f in dataclasses.fields(c)]
     port, ref = _both(mod, cls)
     assert fields(port) == fields(ref)
+
+
+def test_host_mesh_takes_the_references_arguments_and_a_device():
+    """``make_host_mesh(data, model)`` as the reference's, and ``device``
+    (``None``: CUDA; ``"cpu"``: a gloo mesh)."""
+    from repro.launch import mesh as jmesh
+    from repro_torch.launch import mesh as tmesh
+    assert _params(tmesh.make_host_mesh) == _params(jmesh.make_host_mesh) + [
+        ("device", inspect.Parameter.POSITIONAL_OR_KEYWORD, None)]
+
+
+def test_distributed_package_exports_the_references_names():
+    import repro.distributed as jd
+    import repro_torch.distributed as td
+    names = {n for n in vars(jd) if not n.startswith("_")} - {
+        "api", "sharding"}
+    assert names <= set(vars(td))
 
 
 def test_training_package_exports_the_references_names():

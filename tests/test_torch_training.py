@@ -214,14 +214,18 @@ def test_donate(donate):
 
 
 def test_jit_steps_with_a_mesh_raise():
+    # (the name is kept from when every mesh raised): a mesh that is not
+    # a DeviceMesh with named dims raises TypeError; the sharded steps
+    # themselves are held to the unsharded ones in
+    # tests/test_torch_distributed.py
     cfg = tiny_lm()
-    mesh = object()
-    with pytest.raises(NotImplementedError, match="A7"):
-        jit_train_step(cfg, AdamW(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A7"):
-        jit_serve_step(cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A7"):
-        jit_prefill_step(cfg, mesh=mesh)
+    for mesh in (object(), (2, 2)):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            jit_train_step(cfg, AdamW(), mesh=mesh)
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            jit_serve_step(cfg, mesh=mesh)
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            jit_prefill_step(cfg, mesh=mesh)
 
 
 def test_serve_and_prefill_steps():
@@ -293,7 +297,13 @@ class TestCheckpoint:
             mgr.restore({"w": torch.zeros((8, 8))})
         with pytest.raises(KeyError):
             mgr.restore({"x": torch.zeros((4, 4))})
-        with pytest.raises(NotImplementedError, match="A7"):
+        # a shardings tree whose structure is not like's
+        with pytest.raises(ValueError, match="structure"):
+            mgr.restore({"w": torch.zeros((4, 4))}, shardings={"x": None})
+        with pytest.raises(ValueError, match="structure"):
+            mgr.restore({"w": torch.zeros((4, 4))},
+                        shardings={"w": [None, None]})
+        with pytest.raises(TypeError, match="NamedSharding"):
             mgr.restore({"w": torch.zeros((4, 4))}, shardings={"w": None})
 
     def test_bf16_roundtrip_is_bit_exact(self, tmp_path):
