@@ -205,8 +205,23 @@ Phases, each of which raises on failure (nothing catches it):
 19. print the ``b1_b2_edges``, ``report``, ``sweep``, ``chunked``,
    ``multiday``, ``serve``, ``serve_llama3``, ``taskbench``, ``api``,
    ``service``, ``multihost``, ``tuning``, ``train``, ``train_llama3``,
-   ``families``, ``distributed`` and ``kernels`` JSON lines and, last,
-   the ``{"ok": true, "device": ...}`` line.
+   ``families``, ``distributed``, ``dryrun`` and ``kernels`` JSON lines
+   (B8's entry noting its shape rule on fake inputs) and, last, the
+   ``{"ok": true, "device": ...}`` line;
+20. the dry-run, after phase 18 (its ``dryrun`` line printed in 19), in
+   processes of their own started together: ``python -m
+   repro_torch.launch.dryrun`` on fake CUDA tensors over fake worlds of
+   256 and 512 ranks for llama3-8b's ``train_4k`` and ``decode_32k`` on
+   both production meshes and llama4-scout's ``decode_32k`` on the single
+   one, every cell ``ok`` (trace seconds, FLOPs, GiB a device and the
+   dominant term printed); and ``chip_smoke.py --dryrun-coherence``:
+   phase 18's sharded decode step (llama3-8b, B 8, max_len 512) and
+   ``fsdp_tp`` train step (the consumer LM, 8 x 256) run on the card
+   under ``StepCost`` and traced by the dry-run on fake tensors over a
+   one-rank fake world: FLOPs, bytes and collectives equal, the traced
+   per-device bytes within 10 % of ``max_memory_allocated`` over the real
+   step (from a reset baseline), B8 launched 32 times by the real decode
+   step and never by a trace.
 
 Every phase sets each launch count to 0 just before it drives its path and
 reads the counts just after.
@@ -219,6 +234,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -4059,6 +4075,226 @@ def run_distribution_path(device: str, seed: int, workdir: Path,
     return launches, report
 
 
+# ------------------------------------------------ phase 20: the dry-run
+#: the dry-run's cells, each on fake CUDA tensors over a fake world of 256
+#: (single) or 512 (multi) ranks: llama3-8b's training and decode on both
+#: production meshes, llama4-scout's decode (the MoE, B8's shape rule)
+DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"),
+                ("llama3-8b", "train_4k", "multi"),
+                ("llama3-8b", "decode_32k", "single"),
+                ("llama3-8b", "decode_32k", "multi"),
+                ("llama4-scout-17b-a16e", "decode_32k", "single"))
+#: the dry-run's per-device bytes against ``max_memory_allocated`` over
+#: the same real step
+DRYRUN_MEM_RTOL = 0.10
+DRYRUN_TIMEOUT_S = 900.0
+
+
+def _coherence_cells(serve_cfg, train_cfg):
+    """Phase 18's sharded steps as dry-run cells: llama3-8b's decode step
+    (B 8, max_len 512) and the consumer LM's ``fsdp_tp`` train step
+    (8 x 256)."""
+    from repro_torch.configs import ShapeSpec
+    return {"decode": (serve_cfg, ShapeSpec(
+                "decode", SERVE_TASK["max_len"], SERVE_TASK["slots"],
+                "decode")),
+            "train": (train_cfg, ShapeSpec(
+                "train", DIST_TRAIN_SEQ, DIST_TRAIN_BATCH, "train"))}
+
+
+def _real_step_cost(device: str, seed: int, mesh, cfg, spec):
+    """The dry-run's step of ``spec`` on real tensors (seeded parameters,
+    a fresh cache or a synthetic batch), laid out as the dry-run lays out
+    its fake ones, run once to warm up and then once under ``StepCost``:
+    its cost, the memory the allocator saw (the step's growth over what
+    was allocated before it, plus its arguments) and B8's launches."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.distributed import layout
+    from repro_torch.distributed.sharding import named
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.models import transformer
+    from repro_torch.training.data import SyntheticBatcher
+    from repro_torch.training.optimizer import adamw_init
+
+    step, metas, specs = dryrun.build_step(cfg, spec, mesh)
+    params = transformer.init_params(cfg, seed, device=device)
+    b = spec.global_batch
+    if spec.kind == "train":
+        batch = next(iter(SyntheticBatcher(b, spec.seq_len, cfg.vocab_size,
+                                           seed=seed)))
+        args = (params, adamw_init(params),
+                {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in batch.items()})
+    else:
+        tokens = np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, b, dtype=np.int32)
+        args = (params, transformer.init_cache(cfg, b, spec.seq_len,
+                                               device=device),
+                torch.from_numpy(tokens).to(device))
+    have = [(tuple(t.shape), t.dtype) for t in tree.leaves(args)]
+    want = [(tuple(t.shape), t.dtype) for t in tree.leaves(metas)]
+    if have != want:
+        raise AssertionError(f"dry-run coherence: the real {spec.kind} "
+                             "inputs are not the dry-run's")
+    args = layout.place(args, named(mesh, specs))
+    del params
+    step(*args)             # workspaces, library handles, allocator pools
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = flash_decode.launches
+    cost, _ = analyze_step(step, *args)
+    torch.cuda.synchronize()
+    cost["b8_launches"] = flash_decode.launches - launches
+    cost["max_memory_allocated_bytes"] = (torch.cuda.max_memory_allocated()
+                                          - base
+                                          + cost["memory"]["argument_bytes"])
+    del args
+    return cost
+
+
+def dryrun_coherence(out: str, device: str, seed: int, serve_cfg=None,
+                     train_cfg=None) -> None:
+    """The dry-run held to the card (run as ``chip_smoke.py
+    --dryrun-coherence OUT DEVICE SEED``): phase 18's sharded decode and
+    ``fsdp_tp`` train steps on a one-rank NCCL mesh, on real tensors under
+    ``StepCost``, then traced by the dry-run on fake tensors over a fake
+    world of one rank: FLOPs, bytes and collectives equal, the dry-run's
+    per-device bytes within :data:`DRYRUN_MEM_RTOL` of the allocator's
+    peak over the real step, B8 launched once a layer by the real decode
+    step and never by the traces. Writes both sides to ``out``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_stream import consumer_lm
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cells = _coherence_cells(
+        get_config(SERVE_ARCH) if serve_cfg is None else serve_cfg,
+        consumer_lm() if train_cfg is None else train_cfg)
+    real, fake = {}, {}
+    mesh = _dist_group(device)
+    try:
+        for name, (cfg, spec) in cells.items():
+            real[name] = _real_step_cost(device, seed, mesh, cfg, spec)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh(1, 1, device=device)
+        for name, (cfg, spec) in cells.items():
+            launches = flash_decode.launches
+            fake[name], trace_s = dryrun.trace_step(cfg, spec, mesh)
+            fake[name].update(trace_s=trace_s, b8_launches=(
+                flash_decode.launches - launches), memory_record=(
+                dryrun.memory_record(fake[name]["memory"])))
+    report = {}
+    for name, (cfg, spec) in cells.items():
+        r, f = real[name], fake[name]
+        for key in ("flops", "bytes", "collectives"):
+            if r[key] != f[key]:
+                raise AssertionError(f"dry-run coherence ({name}): {key} "
+                                     f"{f[key]} traced, {r[key]} on the "
+                                     "card")
+        predicted = f["memory_record"]["per_device_bytes"]
+        seen = r["max_memory_allocated_bytes"]
+        if abs(predicted - seen) > DRYRUN_MEM_RTOL * seen:
+            raise AssertionError(
+                f"dry-run coherence ({name}): {predicted} bytes a device "
+                f"predicted, {seen} allocated on the card (real step "
+                f"memory {r['memory']}, traced {f['memory']})")
+        want_b8 = _b8_layers(cfg) if spec.kind == "decode" else 0
+        if r["b8_launches"] != want_b8 or f["b8_launches"] != 0:
+            raise AssertionError(f"dry-run coherence ({name}): B8 launched "
+                                 f"{r['b8_launches']} times by the real "
+                                 f"step (want {want_b8}), "
+                                 f"{f['b8_launches']} by the trace")
+        report[name] = {
+            "arch": cfg.name, "shape": [spec.global_batch, spec.seq_len],
+            "flops": r["flops"], "bytes": r["bytes"],
+            "collectives": r["collectives"],
+            "flop_counter_flops": f["flop_counter_flops"],
+            "per_device_bytes": predicted, "max_memory_allocated": seen,
+            "memory_ratio": predicted / seen,
+            "real_memory": r["memory"], "traced_memory": f["memory"],
+            "b8_launches": r["b8_launches"], "trace_s": f["trace_s"]}
+    Path(out).write_text(json.dumps(report))
+
+
+def run_dryrun_path(device: str, seed: int, workdir: Path):
+    """Phase 20: the dry-run CLI once per cell of :data:`DRYRUN_CELLS`
+    (``python -m repro_torch.launch.dryrun``, fake CUDA tensors by its
+    default) and :func:`dryrun_coherence`, all as processes of their own
+    started together (the fake group is process-global; tracing is work
+    on the host alone). Every cell must come back ``ok``."""
+    out_dir, coherence = workdir / "dryrun", workdir / "coherence.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    dev = [] if device == "cuda" else ["--device", device]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--out",
+                 str(out_dir), *dev], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--dryrun-coherence", str(coherence), device, str(seed)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=ROOT))
+        logs = [p.communicate(timeout=DRYRUN_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    phase_s = time.perf_counter() - t0
+    names = [" ".join(c) for c in DRYRUN_CELLS] + ["coherence"]
+    for name, p, log in zip(names, procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"dry-run {name} failed:\n{log[-4000:]}")
+    cells = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        r = json.loads((out_dir / f"baseline__{arch}__{shape}__{mesh}.json"
+                        ).read_text())
+        if not r["ok"]:
+            raise AssertionError(f"dry-run {arch} {shape} {mesh}: "
+                                 f"{r['error']}")
+        rl = r["roofline"]
+        print(f"dryrun: {arch} {shape} {mesh} ({r['n_devices']} fake "
+              f"ranks, {r['device']}): trace {r['trace_s']} s, "
+              f"{r['hlo_flops']:.4e} FLOPs, "
+              f"{r['memory']['per_device_bytes'] / 2**30:.2f} GiB a "
+              f"device, {rl['dominant']}")
+        cells.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "n_devices", "device", "trace_s",
+            "hlo_flops", "hlo_bytes", "flop_counter_flops",
+            "collective_bytes_per_device", "collectives", "memory",
+            "roofline")})
+    coh = json.loads(coherence.read_text())
+    for name, c in coh.items():
+        print(f"dryrun coherence: {name} ({c['arch']}): {c['flops']:.4e} "
+              f"FLOPs and {c['bytes']:.4e} bytes equal; per device "
+              f"{c['per_device_bytes'] / 1e9:.3f} GB traced, "
+              f"{c['max_memory_allocated'] / 1e9:.3f} GB on the card "
+              f"(ratio {c['memory_ratio']:.4f})")
+    return {"card": _card_line(), "cells": cells, "coherence": coh,
+            "phase_s": phase_s}
+
+
 def _host_ms(fn, reps: int) -> float:
     """Median wall time of ``fn()`` ending in a device synchronise, after
     one warm-up (a step or request time, not a kernel time)."""
@@ -4181,6 +4417,7 @@ def main() -> int:
         dist_launches, distributed = run_distribution_path(
             "cuda", MAIN_SEED, Path(tmp))
         print(json.dumps({"distributed": distributed}), flush=True)
+        dryrun = run_dryrun_path("cuda", MAIN_SEED, Path(tmp))
 
     by_path = {"run": run_launches, "run_many": sweep_launches,
                "run_many_chunked": chunked_launches, "multiday": md_launches,
@@ -4232,6 +4469,12 @@ def main() -> int:
             "shape": r["shape"], **{k: r[k] for k in extra if k in r}})
         if kernels[-1]["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
+    b8 = next(k for k in kernels if k["name"] == "flash_decode")
+    b8["fake_inputs"] = (
+        "shape rule: fake and meta inputs pass the kernel's shape and dtype "
+        "guards and get an empty (B, H, D) tensor of q's dtype; nothing "
+        "launched; FLOPs and bytes reported to the dry-run's StepCost")
+    print(json.dumps({"dryrun": dryrun}))
     print(f"card: {_card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4241,6 +4484,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-coherence"]:
+        out, dev, seed = sys.argv[2:5]
+        dryrun_coherence(out, dev, int(seed))
+        sys.exit(0)
     if sys.argv[1:2] == ["--service-worker"]:
         rank, port, store, out, dev, scale, seed = sys.argv[2:9]
         service_worker(int(rank), int(port), store, out, dev, float(scale),

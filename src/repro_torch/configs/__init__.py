@@ -73,13 +73,14 @@ def cell_supported(cfg: ModelConfig, shape: str) -> bool:
     return True
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, Any]:
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, Any]:
     """Meta-tensor stand-ins for the step inputs of one cell, in the
     reference's nesting; the decode cache from ``init_cache(...,
-    device="meta")``."""
+    device="meta")``. ``shape`` names one of :data:`SHAPES` or is a
+    :class:`ShapeSpec` of its own (the dry-run's coherence check)."""
     from repro_torch.models import transformer
 
-    spec = SHAPES[shape]
+    spec = SHAPES[shape] if isinstance(shape, str) else shape
     b, s = spec.global_batch, spec.seq_len
     meta = torch.device("meta")
     dt = getattr(torch, cfg.dtype)

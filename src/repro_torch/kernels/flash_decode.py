@@ -30,8 +30,10 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
+from repro_torch.launch import hlo_analysis
 
 #: head dimensions the CUDA kernel is built for, by dtype: every
 #: (dtype, head_dim) of a config in ``configs/`` (the smoke configs' 16,
@@ -126,24 +128,8 @@ def split_size(B: int, Kh: int, S: int, sm_count: int, tile: int,
         chunk = half
 
 
-#: one workspace per (device, CUDA stream)
-_workspaces = {}
-
-
-def flash_decode(q, k, v, lengths, *, block_s: int = 512,
-                 _chunk: int | None = None):
-    """B8 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (same contract as :func:`flash_decode_plain`).
-    ``block_s`` is the reference's block knob, kept for its signature: the
-    kernel's split follows from the shapes, the SM count and the
-    instance's occupancy (:func:`split_size`), and the result does not
-    depend on it. ``_chunk`` forces the positions per split (a multiple
-    of the tile), for timing the splits against each other. One launch
-    per call; each adds one to ``flash_decode.launches``."""
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
+def _check_shapes(q, k, v, lengths) -> None:
+    """The kernel's guards on shapes and dtypes (``ValueError``)."""
     if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape or \
             k.shape[0] != q.shape[0] or k.shape[3] != q.shape[2] or \
             tuple(lengths.shape) != (q.shape[0],):
@@ -167,6 +153,49 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512,
                          "group per KV head")
     if B > 65535 or S < 1:
         raise ValueError(f"B={B}, S={S} outside one launch")
+
+
+def _report_cost(q, k, v, lengths, out) -> None:
+    """B8's FLOPs (4 B H S D: the scores and the weighted sum) and bytes
+    (q, k, v, lengths and out) to the active step cost analysis, if any."""
+    cost = hlo_analysis.active()
+    if cost is not None:
+        B, H, D = q.shape
+        cost.kernel("flash_decode", 4.0 * B * H * k.shape[1] * D,
+                    sum(t.numel() * t.element_size()
+                        for t in (q, k, v, lengths, out)))
+
+
+#: one workspace per (device, CUDA stream)
+_workspaces = {}
+
+
+def flash_decode(q, k, v, lengths, *, block_s: int = 512,
+                 _chunk: int | None = None):
+    """B8 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (same contract as :func:`flash_decode_plain`).
+    Fake and meta tensors (the dry-run's, on any device) hold no data:
+    after the kernel's shape and dtype guards the wrapper returns an
+    empty (B, H, D) tensor of q's dtype and device and launches nothing.
+    On the kernel's path and that one alike it reports B8's FLOPs and
+    bytes to an active :class:`~repro_torch.launch.hlo_analysis.StepCost`,
+    so that a step's count does not depend on whether B8 ran.
+    ``block_s`` is the reference's block knob, kept for its signature: the
+    kernel's split follows from the shapes, the SM count and the
+    instance's occupancy (:func:`split_size`), and the result does not
+    depend on it. ``_chunk`` forces the positions per split (a multiple
+    of the tile), for timing the splits against each other. One launch
+    per call; each adds one to ``flash_decode.launches``."""
+    fake = is_fake(q) or q.device.type == "meta"
+    if q.device.type == "cpu" and not fake:
+        return flash_decode_plain(q, k, v, lengths)
+    if q.device.type != "cuda" and not fake:
+        raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
+    _check_shapes(q, k, v, lengths)
+    if fake:      # no data to compute on: B8's shape rule, nothing launched
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _report_cost(q, k, v, lengths, out)
+        return out
     tensors = (q, k, v, lengths)
     if any(t.device != q.device for t in tensors) or \
             not all(t.is_contiguous() for t in tensors):
@@ -174,6 +203,8 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512,
                          "one device")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries")
+    B, H, D = q.shape
+    S, Kh = k.shape[1], k.shape[2]
     dev = q.device
     dtype_code = 0 if q.dtype == torch.float32 else 1
     tile, max_group = _limits()
@@ -198,6 +229,7 @@ def flash_decode(q, k, v, lengths, *, block_s: int = 512,
                         p(out), stream)
     _build.check(code, "flash_decode")
     flash_decode.launches += 1
+    _report_cost(q, k, v, lengths, out)
     return out
 
 

@@ -20,6 +20,12 @@ PEAK_FLOPS_BF16 = 989e12      # per card
 HBM_BW = 3.35e12              # bytes/s per card
 NVLINK_BW = 450e9             # bytes/s per card, each way
 HBM_PER_CHIP = 80 * 10**9     # 80 GB
+#: cards joined by NVLink in one node (a DGX H100 / HGX H100 8-GPU board)
+CARDS_PER_NODE = 8
+#: bytes/s per card between nodes: one 400 Gb/s NDR InfiniBand port a GPU
+#: (the DGX H100 system's eight ConnectX-7 compute ports, NVIDIA's DGX H100
+#: data sheet); a collective whose group spans nodes moves at this rate
+IB_BW = 50e9
 
 #: world sizes of the production meshes: (16, 16) and (2, 16, 16)
 PRODUCTION_SHAPES = {256: ((16, 16), ("data", "model")),
@@ -44,17 +50,19 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's production mesh on CUDA: (16, 16) ``("data",
-    "model")``, or (2, 16, 16) ``("pod", "data", "model")`` with
-    ``multi_pod``, over a world of exactly 256 or 512 ranks."""
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The reference's production mesh: (16, 16) ``("data", "model")``, or
+    (2, 16, 16) ``("pod", "data", "model")`` with ``multi_pod``, over a
+    world of exactly 256 or 512 ranks (the dry-run's fake world, or a real
+    one). ``device=None`` means CUDA (which raises without it); tests pass
+    ``"cpu"``."""
     want = 512 if multi_pod else 256
     shape, axes = PRODUCTION_SHAPES[want]
     world = _world()
     if world != want:
         raise RuntimeError(f"the production mesh {shape} needs a world of "
                            f"{want} ranks, this one has {world}")
-    return DeviceMesh(_device_type(None),
+    return DeviceMesh(_device_type(device),
                       torch.arange(want).reshape(shape),
                       mesh_dim_names=axes)
 

@@ -135,11 +135,13 @@ def test_cpu_tensors_launch_nothing():
 
 
 def test_other_devices_raise():
-    q = torch.zeros((1, 4, 64), device="meta")
-    k = torch.zeros((1, 8, 2, 64), device="meta")
+    # meta tensors take the dry-run's shape rule (tests/test_torch_dryrun.py);
+    # a real tensor on a device with no path here raises (a stand-in: this
+    # CPU build of PyTorch makes no tensor on another device)
+    class Elsewhere:
+        device = torch.device("xpu")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_decode(q, k, k, torch.zeros(1, dtype=torch.int32,
-                                          device="meta"))
+        flash_decode(Elsewhere(), None, None, None)
 
 
 # ------------------------------------------- the kernel's algorithm, on the CPU

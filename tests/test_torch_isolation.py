@@ -19,7 +19,8 @@ PORT = REPO / "src" / "repro_torch"
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + sorted((REPO / "tools").glob(
-        "*.py")) + [REPO / "chip_smoke.py"]
+        "*.py")) + sorted((REPO / "examples").glob("torch_*.py")) + [
+        REPO / "chip_smoke.py"]
 
 
 def _imported_modules(path: Path):
@@ -75,7 +76,8 @@ def test_port_has_the_slice_modules():
                 "launch/train.py", "models/rglru.py", "models/rwkv6.py",
                 "models/moe.py", "distributed/sharding.py",
                 "distributed/compression.py", "distributed/layout.py",
-                "launch/mesh.py"):
+                "launch/mesh.py", "launch/dryrun.py",
+                "launch/hlo_analysis.py", "launch/report.py"):
         assert mod in names
     import importlib
     for mod, attr in (("kernels.metrics_fused", "stream_metrics_carry"),

@@ -276,13 +276,20 @@ def _both(mod, name):
     return get("repro_torch"), get("repro")
 
 
+#: parameters the port adds after the reference's: the device of the
+#: production mesh (``None``: CUDA; the dry-run's tests pass ``"cpu"``)
+TRAINING_EXTRA = {("launch.mesh", "make_production_mesh"): [
+    ("device", inspect.Parameter.KEYWORD_ONLY, None)]}
+
+
 @pytest.mark.parametrize("mod,name", [
     (mod, name) for mod, names in TRAINING_NAMES.items() for name in names],
     ids=lambda x: x)
 def test_training_signatures_are_the_references(mod, name):
-    """Names, order, kinds and defaults."""
+    """Names, order, kinds and defaults (plus :data:`TRAINING_EXTRA`)."""
     port, ref = _both(mod, name)
-    assert _params(port) == _params(ref)
+    assert _params(port) == _params(ref) + TRAINING_EXTRA.get((mod, name),
+                                                               [])
 
 
 @pytest.mark.parametrize("mod,cls", TRAINING_DATACLASSES, ids=lambda x: x)
