@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import tuning
 from repro_torch.kernels.compact import compact
 from repro_torch.kernels.flash_decode import flash_decode \
@@ -208,9 +209,11 @@ def stream_sample_batched(ts, max_range, multiples, *, device=None):
                             device=dev)
     g = max(1, min(int(cfg.grid_split), S))
     bounds = [round(i * S / g) for i in range(g + 1)]
-    parts = [_stream_sample_kernel(
-        *(torch.from_numpy(x[a:b]).to(dev) for x in inputs), config=cfg)
-        for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    with tracing.span("nsa.upload", bytes=sum(x.nbytes for x in inputs)):
+        args = [torch.from_numpy(x).to(dev) for x in inputs]
+    with tracing.span("nsa.kernels"):
+        parts = [_stream_sample_kernel(*(x[a:b] for x in args), config=cfg)
+                 for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
     if len(parts) == 1:
         ss, keep = parts[0]
     else:
@@ -223,33 +226,36 @@ def stream_sample_inputs(ts, max_range, multiples):
     """The host-side inputs of kernel B1 for :func:`stream_sample_batched`
     (same arguments): ``(t f32 (S, N), starts, counts, ktab int32 (S, W),
     scalars f32 (S, 3), lengths int32 (S,))`` as numpy arrays, each row
-    padded with its last timestamp to the ``TILE``-aligned width ``N``."""
-    ts = [np.asarray(t, np.float64) for t in ts]
-    S = len(ts)
-    if S == 0:
-        raise ValueError("need at least one stream")
-    lengths = np.array([len(t) for t in ts])
-    if np.any(lengths == 0):
-        raise ValueError("batched path requires non-empty streams")
-    ranges = np.broadcast_to(np.asarray(max_range, np.int64), (S,))
-    if np.any(ranges <= 0):
-        raise ValueError("max_range entries must be positive")
-    width = int(ranges.max())
-    mults = np.broadcast_to(np.asarray(multiples, np.float64), (S,))
-    N = int(-(-lengths.max() // TILE) * TILE)
-    t_b = np.empty((S, N), np.float32)
-    starts_b = np.empty((S, width), np.int32)
-    counts_b = np.empty((S, width), np.int32)
-    k_b = np.empty((S, width), np.int32)
-    scal_b = np.empty((S, 3), np.float32)
-    for s, t64 in enumerate(ts):
-        t32, starts, counts, ktab, scalars = _nsa_tables(
-            t64, int(ranges[s]), float(mults[s]), width)
-        t_b[s, :len(t32)] = t32
-        t_b[s, len(t32):] = t32[-1]          # pad into the last bucket
-        starts_b[s], counts_b[s], k_b[s] = starts, counts, ktab
-        scal_b[s] = scalars
-    return t_b, starts_b, counts_b, k_b, scal_b, lengths.astype(np.int32)
+    padded with its last timestamp to the ``TILE``-aligned width ``N``
+    (the span ``nsa.host_tables``, counting the rows and ``N``)."""
+    with tracing.span("nsa.host_tables") as sp:
+        ts = [np.asarray(t, np.float64) for t in ts]
+        S = len(ts)
+        if S == 0:
+            raise ValueError("need at least one stream")
+        lengths = np.array([len(t) for t in ts])
+        if np.any(lengths == 0):
+            raise ValueError("batched path requires non-empty streams")
+        ranges = np.broadcast_to(np.asarray(max_range, np.int64), (S,))
+        if np.any(ranges <= 0):
+            raise ValueError("max_range entries must be positive")
+        width = int(ranges.max())
+        mults = np.broadcast_to(np.asarray(multiples, np.float64), (S,))
+        N = int(-(-lengths.max() // TILE) * TILE)
+        sp.count(rows=S, width=N)
+        t_b = np.empty((S, N), np.float32)
+        starts_b = np.empty((S, width), np.int32)
+        counts_b = np.empty((S, width), np.int32)
+        k_b = np.empty((S, width), np.int32)
+        scal_b = np.empty((S, 3), np.float32)
+        for s, t64 in enumerate(ts):
+            t32, starts, counts, ktab, scalars = _nsa_tables(
+                t64, int(ranges[s]), float(mults[s]), width)
+            t_b[s, :len(t32)] = t32
+            t_b[s, len(t32):] = t32[-1]          # pad into the last bucket
+            starts_b[s], counts_b[s], k_b[s] = starts, counts, ktab
+            scal_b[s] = scalars
+        return t_b, starts_b, counts_b, k_b, scal_b, lengths.astype(np.int32)
 
 
 def _sample_one(t, max_range: int, multiple: float, device, plain: bool):

@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.distributed import process_topology
 from repro_torch.streamsim import engine
 from repro_torch.streamsim.datasets import make_stream
@@ -93,14 +94,15 @@ class Controller:
         ``duration_s > 0`` prepares the MULTI-DAY original instead
         (:meth:`_prepare_multiday`)."""
         originals, t_pre = {}, {}
-        for d in datasets:
-            t0 = time.perf_counter()
-            if duration_s > 0:
-                originals[d] = self._prepare_multiday(d, scale, seed,
-                                                      duration_s)
-            else:
-                originals[d] = self.prepare(d, scale=scale, seed=seed)
-            t_pre[d] = time.perf_counter() - t0
+        with tracing.span("prepare", datasets=len(datasets)):
+            for d in datasets:
+                t0 = time.perf_counter()
+                if duration_s > 0:
+                    originals[d] = self._prepare_multiday(d, scale, seed,
+                                                          duration_s)
+                else:
+                    originals[d] = self.prepare(d, scale=scale, seed=seed)
+                t_pre[d] = time.perf_counter() - t0
         return originals, t_pre
 
     def _prepare_multiday(self, dataset: str, scale: float, seed: int,
@@ -178,23 +180,25 @@ class Controller:
             If the producer reports a non-zero fault status, or the torch
             backend is asked for CUDA where CUDA is unavailable.
         """
-        originals, t_pre = self._prepare_all([dataset], scale, seed)
-        plan = plan_sweep(self.store, [dataset], [max_range],
-                          {dataset: len(originals[dataset])},
-                          scale=scale, seed=seed, n_hosts=1, host_index=0,
-                          n_devices=1)
-        result = engine.execute_sweep(plan, originals, self.store,
-                                      backend=backend, device=self.device,
-                                      autotune=autotune)
-        self.last_result = result
-        sim = result.materialize()[(dataset, max_range)]
-        consumer_metrics, t_prod = engine.replay_one(sim, consumer,
-                                                     queue_size)
-        report = engine.build_report(result, (dataset, max_range),
-                                     t_pre[dataset], t_prod,
-                                     consumer_metrics)
-        self.save_metrics(report)
-        return report
+        with tracing.call(entry="run", scenarios=1):
+            originals, t_pre = self._prepare_all([dataset], scale, seed)
+            plan = plan_sweep(self.store, [dataset], [max_range],
+                              {dataset: len(originals[dataset])},
+                              scale=scale, seed=seed, n_hosts=1,
+                              host_index=0, n_devices=1)
+            result = engine.execute_sweep(plan, originals, self.store,
+                                          backend=backend,
+                                          device=self.device,
+                                          autotune=autotune)
+            self.last_result = result
+            sim = result.materialize()[(dataset, max_range)]
+            consumer_metrics, t_prod = engine.replay_one(sim, consumer,
+                                                         queue_size)
+            report = engine.build_report(result, (dataset, max_range),
+                                         t_pre[dataset], t_prod,
+                                         consumer_metrics)
+            self.save_metrics(report)
+            return report
 
     def run_many(self, datasets: Sequence[str], max_ranges: Sequence[int],
                  consumer: Callable[[StreamQueue], Dict], *,
@@ -343,103 +347,107 @@ service_deadline_s :
                 "service mode is incompatible with chunk_s/checkpoint — "
                 "the service's durable work queue is its own checkpoint "
                 "and leases are scenario-granular")
-        originals, t_pre = self._prepare_all(datasets, scale, seed,
-                                             duration_s)
-        if _resolve_backend(backend) == "numpy":
-            # host mode ignores the partition: no device topology query
-            n_devices = 1 if n_devices is None else n_devices
-            host_index = 0 if host_index is None else host_index
-            n_hosts = 1 if n_hosts is None else n_hosts
-        row_counts = {d: len(originals[d]) for d in datasets}
-        if service:
-            return self._run_service(
-                datasets, max_ranges, originals, t_pre, consumer,
-                scale=scale, seed=seed, queue_size=queue_size,
-                backend=backend, fidelity_window_s=fidelity_window_s,
-                n_devices=n_devices, host_index=host_index,
-                n_hosts=n_hosts, fault_plan=fault_plan,
-                retry_policy=retry_policy,
-                breaker_threshold=breaker_threshold,
-                consumer_deadline_s=consumer_deadline_s,
-                on_failure=on_failure, max_bytes=max_bytes,
-                retention_policy=retention_policy,
-                lease_ttl_s=lease_ttl_s, service_poll_s=service_poll_s,
-                lease_batch=lease_batch, worker_id=worker_id,
-                service_deadline_s=service_deadline_s)
-        plan = plan_sweep(self.store, datasets, max_ranges, row_counts,
-                          scale=scale, seed=seed, n_devices=n_devices,
-                          host_index=host_index, n_hosts=n_hosts,
-                          chunk_s=chunk_s, duration_s=duration_s)
-        grid = [s.scenario for s in plan.scenarios]
-        if plan.n_hosts > 1:
-            # this host reports its own slice and the store's cache hits
-            local = {s.scenario for s in plan.local_missing} | \
-                {s.scenario for s in plan.cached}
-            grid = [sc for sc in grid if sc in local]
-        ckpt: Optional[SweepCheckpoint] = None
-        prior: Dict = {}
-        if checkpoint:
-            ckpt = SweepCheckpoint(self.store, plan.sweep_id)
-            done = set(ckpt.done_scenarios()) & set(grid)
-            if done:
-                # resume: completed scenarios' reports come straight from
-                # their markers; only the remainder is planned and run
-                prior = {sc: r for sc, r in ckpt.load_reports().items()
-                         if sc in done}
-                remaining = [sc for sc in grid if sc not in done]
-                plan = None if not remaining else plan_sweep(
-                    self.store, datasets, max_ranges, row_counts,
-                    scale=scale, seed=seed, pairs=remaining,
+        with tracing.call(entry="run_many",
+                          scenarios=len(datasets) * len(max_ranges)):
+            originals, t_pre = self._prepare_all(datasets, scale, seed,
+                                                 duration_s)
+            if _resolve_backend(backend) == "numpy":
+                # host mode ignores the partition: no device topology query
+                n_devices = 1 if n_devices is None else n_devices
+                host_index = 0 if host_index is None else host_index
+                n_hosts = 1 if n_hosts is None else n_hosts
+            row_counts = {d: len(originals[d]) for d in datasets}
+            if service:
+                return self._run_service(
+                    datasets, max_ranges, originals, t_pre, consumer,
+                    scale=scale, seed=seed, queue_size=queue_size,
+                    backend=backend, fidelity_window_s=fidelity_window_s,
                     n_devices=n_devices, host_index=host_index,
-                    n_hosts=n_hosts, chunk_s=chunk_s, duration_s=duration_s)
-        new_reports: List[SimulationReport] = []
-        if plan is not None:
-            if chunk_s:
-                runner = engine.ChunkedSweepRunner(
-                    plan, originals, self.store, backend=backend,
-                    device=self.device, checkpoint=ckpt, autotune=autotune)
-                new_reports, fidelity = engine.run_sweep_chunked(
-                    runner, consumer, queue_size=queue_size,
-                    fidelity_window_s=fidelity_window_s, t_pre=t_pre,
-                    fault_plan=fault_plan, on_failure=on_failure,
-                    max_bytes=max_bytes, retention_policy=retention_policy,
-                    checkpoint=ckpt)
-                # run_sweep_chunked leaves the composed result on the runner
-                self.last_result = runner.result
-            else:
-                result = engine.execute_sweep(plan, originals, self.store,
-                                              backend=backend,
-                                              device=self.device,
-                                              checkpoint=ckpt,
-                                              autotune=autotune)
-                self.last_result = result
-                new_reports, fidelity = engine.run_sweep(
-                    result, consumer, queue_size=queue_size,
-                    fidelity_window_s=fidelity_window_s, t_pre=t_pre,
-                    fault_plan=fault_plan, retry_policy=retry_policy,
+                    n_hosts=n_hosts, fault_plan=fault_plan,
+                    retry_policy=retry_policy,
                     breaker_threshold=breaker_threshold,
                     consumer_deadline_s=consumer_deadline_s,
                     on_failure=on_failure, max_bytes=max_bytes,
-                    retention_policy=retention_policy, checkpoint=ckpt)
-                if plan.n_hosts > 1:
-                    # publish this host's exact count rows and, once every
-                    # host's rows are in the store, replace the partial
-                    # per-host matrices with the merged full matrices
-                    merged = self._publish_and_merge_fidelity(
-                        result, plan, fidelity_window_s)
-                    if merged is not None:
-                        fidelity = merged
-            self.last_fidelity = fidelity
-            for fr in fidelity:
-                self.save_fidelity(fr)
-        by_sc = dict(prior)
-        by_sc.update({(r.dataset, r.max_range): r for r in new_reports})
-        reports = [by_sc[sc] for sc in grid]
-        for report in reports:
-            self.save_metrics(report)
-        if ckpt is not None:
-            ckpt.clear()     # sweep complete: the next run starts fresh
-        return reports
+                    retention_policy=retention_policy,
+                    lease_ttl_s=lease_ttl_s, service_poll_s=service_poll_s,
+                    lease_batch=lease_batch, worker_id=worker_id,
+                    service_deadline_s=service_deadline_s)
+            plan = plan_sweep(self.store, datasets, max_ranges, row_counts,
+                              scale=scale, seed=seed, n_devices=n_devices,
+                              host_index=host_index, n_hosts=n_hosts,
+                              chunk_s=chunk_s, duration_s=duration_s)
+            grid = [s.scenario for s in plan.scenarios]
+            if plan.n_hosts > 1:
+                # this host reports its own slice and the store's cache hits
+                local = {s.scenario for s in plan.local_missing} | \
+                    {s.scenario for s in plan.cached}
+                grid = [sc for sc in grid if sc in local]
+            ckpt: Optional[SweepCheckpoint] = None
+            prior: Dict = {}
+            if checkpoint:
+                ckpt = SweepCheckpoint(self.store, plan.sweep_id)
+                done = set(ckpt.done_scenarios()) & set(grid)
+                if done:
+                    # resume: completed scenarios' reports come straight from
+                    # their markers; only the remainder is planned and run
+                    prior = {sc: r for sc, r in ckpt.load_reports().items()
+                             if sc in done}
+                    remaining = [sc for sc in grid if sc not in done]
+                    plan = None if not remaining else plan_sweep(
+                        self.store, datasets, max_ranges, row_counts,
+                        scale=scale, seed=seed, pairs=remaining,
+                        n_devices=n_devices, host_index=host_index,
+                        n_hosts=n_hosts, chunk_s=chunk_s,
+                        duration_s=duration_s)
+            new_reports: List[SimulationReport] = []
+            if plan is not None:
+                if chunk_s:
+                    runner = engine.ChunkedSweepRunner(
+                        plan, originals, self.store, backend=backend,
+                        device=self.device, checkpoint=ckpt, autotune=autotune)
+                    new_reports, fidelity = engine.run_sweep_chunked(
+                        runner, consumer, queue_size=queue_size,
+                        fidelity_window_s=fidelity_window_s, t_pre=t_pre,
+                        fault_plan=fault_plan, on_failure=on_failure,
+                        max_bytes=max_bytes, retention_policy=retention_policy,
+                        checkpoint=ckpt)
+                    # run_sweep_chunked leaves the composed result on the
+                    # runner
+                    self.last_result = runner.result
+                else:
+                    result = engine.execute_sweep(plan, originals, self.store,
+                                                  backend=backend,
+                                                  device=self.device,
+                                                  checkpoint=ckpt,
+                                                  autotune=autotune)
+                    self.last_result = result
+                    new_reports, fidelity = engine.run_sweep(
+                        result, consumer, queue_size=queue_size,
+                        fidelity_window_s=fidelity_window_s, t_pre=t_pre,
+                        fault_plan=fault_plan, retry_policy=retry_policy,
+                        breaker_threshold=breaker_threshold,
+                        consumer_deadline_s=consumer_deadline_s,
+                        on_failure=on_failure, max_bytes=max_bytes,
+                        retention_policy=retention_policy, checkpoint=ckpt)
+                    if plan.n_hosts > 1:
+                        # publish this host's exact count rows and, once every
+                        # host's rows are in the store, replace the partial
+                        # per-host matrices with the merged full matrices
+                        merged = self._publish_and_merge_fidelity(
+                            result, plan, fidelity_window_s)
+                        if merged is not None:
+                            fidelity = merged
+                self.last_fidelity = fidelity
+                for fr in fidelity:
+                    self.save_fidelity(fr)
+            by_sc = dict(prior)
+            by_sc.update({(r.dataset, r.max_range): r for r in new_reports})
+            reports = [by_sc[sc] for sc in grid]
+            for report in reports:
+                self.save_metrics(report)
+            if ckpt is not None:
+                ckpt.clear()     # sweep complete: the next run starts fresh
+            return reports
 
     def _run_service(self, datasets, max_ranges, originals, t_pre,
                      consumer, *, scale, seed, queue_size, backend,

@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.streamsim.faults import FaultPlan
 from repro_torch.streamsim.metrics import (StreamMetrics, Volatility,
                                            _volatility_from_moments,
@@ -241,7 +242,8 @@ class DeviceSweepResult:
         self._host_group_done = True
         datasets = list(self.plan.datasets)
         cached = [s.scenario for s in self.plan.cached]
-        with self._tuned():
+        with tracing.span("report.stats", rows=len(datasets) + len(cached)), \
+                self._tuned():
             ms = metrics_batched(
                 [self.originals[d] for d in datasets] +
                 [self.host_sims[sc] for sc in cached],
@@ -279,8 +281,12 @@ class DeviceSweepResult:
         per-pair trend correlations come from one plain-PyTorch chain over
         the device-resident count rows. Host mode: the f64 host statistics.
         """
-        if self._stats is not None:
-            return self._stats
+        if self._stats is None:
+            with tracing.span("report.stats", rows=len(self.scenarios)):
+                self._stats = self._compute_stats()
+        return self._stats
+
+    def _compute_stats(self) -> Dict:
         stats: Dict[Tuple[str, int], Dict] = {}
         if self.mode == "host":
             for sc in self.scenarios:
@@ -290,14 +296,12 @@ class DeviceSweepResult:
                         self.om[sc[0]].counts, self.sm[sc].counts,
                         REPORT_TREND_WINDOW_S),
                 }
-            self._stats = stats
             return stats
 
         self._ensure_host_group()
         src = self._scenario_sources()
         scenarios = list(self.scenarios)
         if not scenarios:
-            self._stats = stats
             return stats
         for sc in scenarios:
             kind, sr, r = src[sc]
@@ -312,7 +316,6 @@ class DeviceSweepResult:
         corrs = self._pairwise_trend_corrs(scenarios, src)
         for sc, r in zip(scenarios, corrs):
             stats[sc]["trend_corr"] = float(r)
-        self._stats = stats
         return stats
 
     def _sim_count_rows(self, scenarios, src, width: int):
@@ -442,6 +445,12 @@ class DeviceSweepResult:
         :func:`~repro_torch.streamsim.metrics.trend_correlation_matrix` on
         the host counts with the sweep's backend.
         """
+        with tracing.span("fidelity") as sp:
+            out = self._fidelity_matrices(window_s)
+            sp.count(matrices=len(out))
+        return out
+
+    def _fidelity_matrices(self, window_s: int) -> List[FidelityReport]:
         import torch
 
         from repro_torch.kernels import ops
@@ -503,34 +512,41 @@ class DeviceSweepResult:
         The gather is idempotent; persistence happens once, and then marks
         the scenarios materialized on the checkpoint, if there is one."""
         store = self.store if store is None else store
-        if self._sims is None:
-            sims: Dict[Tuple[str, int], Stream] = dict(self.host_sims)
-            for sr in self.shard_results:
-                if sr.ss_kept is None:
-                    # chunked run: the handles were consumed chunk by chunk
-                    # and the streams are already durable — reassemble them
-                    # from the store's chunk files (everything lands on the
-                    # host; bounded-memory callers read ``sim_row_counts``)
-                    for sc in sr.pairs:
-                        sims[sc] = self.store.get(self._store_keys[sc])
-                else:
-                    sims.update(materialize_sweep(
-                        self.originals, list(sr.pairs), sr.ss_kept, sr.idx,
-                        sr.totals))
-            self._sims = {sc: sims[sc] for sc in self.scenarios}
-        if store and not self._persisted:
-            shard_scs = [sc for sr in self.shard_results
-                         for sc in sr.pairs]
-            store.put_many(
-                {f"{d}__sim{mr}": self._sims[(d, mr)]
-                 for d, mr in shard_scs if (d, mr) in self._sims},
-                {f"{d}__sim{mr}": {"max_range": mr}
-                 for d, mr in shard_scs})
-            self._persisted = True
-            if self.checkpoint is not None:
-                # resume marker: these scenarios' streams are now durable
-                self.checkpoint.mark_materialized(
-                    [s.scenario for s in self.plan.local_missing])
+        if self._sims is not None and (self._persisted or not store):
+            return self._sims
+        with tracing.span("materialize") as sp:
+            if self._sims is None:
+                sims: Dict[Tuple[str, int], Stream] = dict(self.host_sims)
+                for sr in self.shard_results:
+                    if sr.ss_kept is None:
+                        # chunked run: the handles were consumed chunk by
+                        # chunk and the streams are already durable —
+                        # reassemble them from the store's chunk files
+                        # (everything lands on the host; bounded-memory
+                        # callers read ``sim_row_counts``)
+                        for sc in sr.pairs:
+                            sims[sc] = self.store.get(self._store_keys[sc])
+                    else:
+                        sims.update(materialize_sweep(
+                            self.originals, list(sr.pairs), sr.ss_kept,
+                            sr.idx, sr.totals))
+                self._sims = {sc: sims[sc] for sc in self.scenarios}
+                sp.count(records=sum(int(np.sum(sr.totals))
+                                     for sr in self.shard_results))
+            if store and not self._persisted:
+                shard_scs = [sc for sr in self.shard_results
+                             for sc in sr.pairs]
+                store.put_many(
+                    {f"{d}__sim{mr}": self._sims[(d, mr)]
+                     for d, mr in shard_scs if (d, mr) in self._sims},
+                    {f"{d}__sim{mr}": {"max_range": mr}
+                     for d, mr in shard_scs})
+                self._persisted = True
+                if self.checkpoint is not None:
+                    # resume marker: these scenarios' streams are now
+                    # durable
+                    self.checkpoint.mark_materialized(
+                        [s.scenario for s in self.plan.local_missing])
         return self._sims
 
 
@@ -611,12 +627,17 @@ def _execute_device(plan, originals, store, backend, multiple_mode,
                 pairs = tuple(s.scenario for s in shard.specs)
                 dev = devices[shard.device_index % len(devices)]
                 t0 = time.perf_counter()
-                ss_kept, idx, totals, _ = nsa_sweep_device(
-                    originals, pairs, multiple_mode=multiple_mode,
-                    device=dev)
-                hist, mom = ops.stream_metrics_batched_device(
-                    ss_kept, totals, shard.max_range)
-                mom_host = mom.cpu().numpy().astype(np.float64)  # O(rows)
+                with tracing.span("nsa", records_in=sum(
+                        len(originals[d]) for d, _ in pairs)) as sp:
+                    ss_kept, idx, totals, _ = nsa_sweep_device(
+                        originals, pairs, multiple_mode=multiple_mode,
+                        device=dev)
+                    with tracing.span("nsa.kernels"):
+                        hist, mom = ops.stream_metrics_batched_device(
+                            ss_kept, totals, shard.max_range)
+                        mom_host = mom.cpu().numpy().astype(
+                            np.float64)  # O(rows)
+                    sp.count(kept=int(np.sum(totals)))
                 dt = time.perf_counter() - t0
                 total_nsa += dt
                 result.shard_results.append(ShardResult(
@@ -686,13 +707,19 @@ def replay_one(sim: Stream, consumer, queue_size: int, faults=None):
     t0 = time.perf_counter()
     status = [None]
 
-    def _produce():
-        status[0] = producer.run()
+    with tracing.span("replay") as sp:
+        within = sp.context()
 
-    th = threading.Thread(target=_produce, daemon=True)
-    th.start()
-    consumer_metrics = consumer(queue)
-    th.join()
+        def _produce():
+            with tracing.span("replay.produce", within=within) as ps:
+                status[0] = producer.run()
+                ps.count(buckets=producer.emitted_buckets)
+
+        th = threading.Thread(target=_produce, daemon=True)
+        th.start()
+        consumer_metrics = consumer(queue)
+        th.join()
+        sp.count(buckets=queue.buckets_in, records=queue.records_in)
     t_prod = time.perf_counter() - t0
     if status[0] != 0:
         raise RuntimeError("producer reported fault status")
@@ -732,17 +759,20 @@ def _replay_solo(key, sim: Stream, consumer, queue_size: int,
     producer = Producer(sim, queue, clock=VirtualClock(), faults=faults)
     status = [None]
     box: Dict = {}
+    within = tracing.context()
 
     def _produce():
-        status[0] = producer.run()
+        with tracing.span("replay.produce", within=within):
+            status[0] = producer.run()
 
     def _consume():
-        try:
-            box["result"] = consumer(queue)
-        except Exception as exc:   # keep the producer drainable
-            box["error"] = exc
-            for _ in queue:
-                pass
+        with tracing.span("replay.consume", within=within):
+            try:
+                box["result"] = consumer(queue)
+            except Exception as exc:   # keep the producer drainable
+                box["error"] = exc
+                for _ in queue:
+                    pass
 
     tp = threading.Thread(target=_produce, daemon=True)
     tc = threading.Thread(target=_consume, daemon=True)
@@ -829,51 +859,59 @@ def replay_many(sims: Dict, consumer, queue_size: int, *,
     results: Dict = {}
     errors: Dict[object, BaseException] = {}
 
-    def _produce():
-        status[0] = producer.run()
-
-    def _consume(key):
-        try:
-            results[key] = wrapped[key](group[key])
-        except Exception as exc:  # keep the producer loop drainable
-            errors[key] = exc
-            for _ in group[key]:
-                pass
-
     t0 = time.perf_counter()
-    prod_th = threading.Thread(target=_produce, daemon=True)
-    cons = {key: threading.Thread(target=_consume, args=(key,),
-                                  daemon=True) for key in sims}
-    prod_th.start()
-    for th in cons.values():
-        th.start()
-    deadline = Deadline(consumer_deadline_s)
-    for th in cons.values():
-        th.join(deadline.remaining())    # None remaining == join forever
-    for key, th in cons.items():
-        if not th.is_alive():
-            continue
-        q = group[key]
-        if q.qsize() > 0 or q.closed:
-            # wedged: buckets available (or stream over) yet not
-            # finishing — shed it so the walk and its siblings complete
-            errors[key] = _deadline_error(consumer_deadline_s, key,
-                                          wrapped[key])
-            q.close()
-    prod_th.join()
-    # post-shed grace: starved consumers (empty queue behind the wedged
-    # sibling's backpressure) finish quickly once the producer resumed;
-    # already-errored (wedged) threads are abandoned, not re-joined
-    grace = Deadline(5.0 if consumer_deadline_s is not None else None)
-    for key, th in cons.items():
-        if key in errors:
-            continue
-        if th.is_alive():
-            th.join(grace.remaining())
-        if th.is_alive():
-            errors[key] = _deadline_error(consumer_deadline_s, key,
-                                          wrapped[key])
-            group[key].close()
+    with tracing.span("replay", scenarios=len(sims)) as sp:
+        within = sp.context()
+
+        def _produce():
+            with tracing.span("replay.produce", within=within) as ps:
+                status[0] = producer.run()
+                ps.count(buckets=sum(producer.emitted_buckets.values()))
+
+        def _consume(key):
+            with tracing.span("replay.consume", within=within):
+                try:
+                    results[key] = wrapped[key](group[key])
+                except Exception as exc:  # keep the producer loop drainable
+                    errors[key] = exc
+                    for _ in group[key]:
+                        pass
+
+        prod_th = threading.Thread(target=_produce, daemon=True)
+        cons = {key: threading.Thread(target=_consume, args=(key,),
+                                      daemon=True) for key in sims}
+        prod_th.start()
+        for th in cons.values():
+            th.start()
+        deadline = Deadline(consumer_deadline_s)
+        for th in cons.values():
+            th.join(deadline.remaining())    # None remaining == join forever
+        for key, th in cons.items():
+            if not th.is_alive():
+                continue
+            q = group[key]
+            if q.qsize() > 0 or q.closed:
+                # wedged: buckets available (or stream over) yet not
+                # finishing — shed it so the walk and its siblings complete
+                errors[key] = _deadline_error(consumer_deadline_s, key,
+                                              wrapped[key])
+                q.close()
+        prod_th.join()
+        # post-shed grace: starved consumers (empty queue behind the wedged
+        # sibling's backpressure) finish quickly once the producer resumed;
+        # already-errored (wedged) threads are abandoned, not re-joined
+        grace = Deadline(5.0 if consumer_deadline_s is not None else None)
+        for key, th in cons.items():
+            if key in errors:
+                continue
+            if th.is_alive():
+                th.join(grace.remaining())
+            if th.is_alive():
+                errors[key] = _deadline_error(consumer_deadline_s, key,
+                                              wrapped[key])
+                group[key].close()
+        sp.count(buckets=sum(q.buckets_in for q in group.queues.values()),
+                 records=sum(q.records_in for q in group.queues.values()))
     t_prod = time.perf_counter() - t0
 
     # ---- phase 2: solo retries with backoff, behind the breaker
@@ -961,6 +999,14 @@ def build_report(result: DeviceSweepResult, scenario: Tuple[str, int],
     """Assemble one scenario's :class:`SimulationReport` from the executed
     sweep's statistics. Degraded replay metrics yield a
     ``status="partial"`` report carrying the terminal failure."""
+    with tracing.span("report.build"):
+        return _build_report(result, scenario, t_pre, t_prod,
+                             consumer_metrics)
+
+
+def _build_report(result: DeviceSweepResult, scenario: Tuple[str, int],
+                  t_pre: float, t_prod: float,
+                  consumer_metrics: Dict) -> SimulationReport:
     d, mr = scenario
     stats = result._ensure_stats()[scenario]
     original = result.originals[d]
@@ -1256,7 +1302,8 @@ class ChunkedSweepRunner:
         event only), gather the payload, append the chunk files, feed the
         replay; then chunk ``k`` of the cache hits."""
         for st, h in handles:
-            self._waited_s += h.wait()
+            with tracing.span("chunk.event_wait", chunk=k):
+                self._waited_s += h.wait()
             totals = h.totals.numpy().astype(np.int64)
             if not np.array_equal(totals, h.kept):
                 raise RuntimeError(
@@ -1298,10 +1345,14 @@ class ChunkedSweepRunner:
         prev: Optional[Tuple[List, int]] = None
         for k in range(plan.n_chunks + 1):
             t1 = time.perf_counter()
-            cur = self._dispatch_chunk(k) if k < plan.n_chunks else []
+            cur = []
+            if k < plan.n_chunks:
+                with tracing.span("chunk.dispatch", chunk=k):
+                    cur = self._dispatch_chunk(k)
             t2 = time.perf_counter()
             if prev is not None:
-                self._host_leg(result, feeds, cached, *prev)
+                with tracing.span("chunk.host_leg", chunk=prev[1]):
+                    self._host_leg(result, feeds, cached, *prev)
             dispatch_s += t2 - t1
             host_s += time.perf_counter() - t2
             prev = (cur, k)
@@ -1435,28 +1486,36 @@ def run_sweep_chunked(runner: ChunkedSweepRunner, consumer, *,
     results: Dict = {}
     errors: Dict[object, BaseException] = {}
 
-    def _produce():
-        status[0] = producer.run()
-
-    def _consume(sc):
-        try:
-            results[sc] = wrapped[sc](group[sc])
-        except Exception as exc:    # keep the producer walk drainable
-            errors[sc] = exc
-            for _ in group[sc]:
-                pass
-
     t0 = time.perf_counter()
-    prod_th = threading.Thread(target=_produce, daemon=True)
-    cons = {sc: threading.Thread(target=_consume, args=(sc,), daemon=True)
-            for sc in scenarios}
-    prod_th.start()
-    for th in cons.values():
-        th.start()
-    result = runner.run(feeds)       # the chunk pipeline, on THIS thread
-    prod_th.join()
-    for th in cons.values():
-        th.join()
+    with tracing.span("replay", scenarios=len(scenarios)) as sp:
+        within = sp.context()
+
+        def _produce():
+            with tracing.span("replay.produce", within=within) as ps:
+                status[0] = producer.run()
+                ps.count(buckets=sum(producer.emitted_buckets.values()))
+
+        def _consume(sc):
+            with tracing.span("replay.consume", within=within):
+                try:
+                    results[sc] = wrapped[sc](group[sc])
+                except Exception as exc:    # keep the producer walk drainable
+                    errors[sc] = exc
+                    for _ in group[sc]:
+                        pass
+
+        prod_th = threading.Thread(target=_produce, daemon=True)
+        cons = {sc: threading.Thread(target=_consume, args=(sc,),
+                                     daemon=True) for sc in scenarios}
+        prod_th.start()
+        for th in cons.values():
+            th.start()
+        result = runner.run(feeds)       # the chunk pipeline, on THIS thread
+        prod_th.join()
+        for th in cons.values():
+            th.join()
+        sp.count(buckets=sum(q.buckets_in for q in group.queues.values()),
+                 records=sum(q.records_in for q in group.queues.values()))
     t_prod = time.perf_counter() - t0
     if errors and on_failure == "raise":
         ordered = [(sc, errors[sc]) for sc in scenarios if sc in errors]

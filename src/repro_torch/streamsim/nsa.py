@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.streamsim.preprocess import Stream
 
 BACKENDS = ("auto", "numpy", "torch")
@@ -299,12 +300,14 @@ def nsa_sweep_device(streams: Dict[str, Stream],
     with tuning.tuner_context(autotune, device=device):
         ss_b, keep_b, lengths = ops.stream_sample_batched(
             ts, [mr for _, mr in pairs], mults, device=device)
-        idx_b, totals = ops.compact_mask_batched(keep_b)
-    N = idx_b.shape[1]
-    width = min(max(int(-(-int(totals.max(initial=1)) // ops.TILE)
-                        * ops.TILE), ops.TILE), N)
-    ss_kept = torch.gather(
-        ss_b, 1, torch.clamp(idx_b[:, :width], 0, max(N - 1, 0)).long())
+        with tracing.span("nsa.kernels"):
+            idx_b, totals = ops.compact_mask_batched(keep_b)
+            N = idx_b.shape[1]
+            width = min(max(int(-(-int(totals.max(initial=1)) // ops.TILE)
+                                * ops.TILE), ops.TILE), N)
+            ss_kept = torch.gather(
+                ss_b, 1,
+                torch.clamp(idx_b[:, :width], 0, max(N - 1, 0)).long())
     return ss_kept, idx_b, totals, lengths
 
 
@@ -318,20 +321,22 @@ def materialize_sweep(streams: Dict[str, Stream],
     of each row) to the host ONCE and fancy-indexes each scenario's
     timestamp and payload columns (which may be float64 or strings).
     """
-    w = int(np.max(totals, initial=0))
-    ss_host = ss_kept[:, :w].cpu().numpy().astype(np.int64)
-    idx_host = idx_b[:, :w].cpu().numpy()
-    out = {}
-    for r, (name, mr) in enumerate(pairs):
-        src, total = streams[name], int(totals[r])
-        idx = idx_host[r, :total]
-        out[(name, mr)] = Stream(
-            name=src.name,
-            t=src.t[idx],
-            payload={k: v[idx] for k, v in src.payload.items()},
-            scale_stamp=ss_host[r, :total],
-        )
-    return out
+    with tracing.span("materialize.gather",
+                      records=int(np.sum(totals))):
+        w = int(np.max(totals, initial=0))
+        ss_host = ss_kept[:, :w].cpu().numpy().astype(np.int64)
+        idx_host = idx_b[:, :w].cpu().numpy()
+        out = {}
+        for r, (name, mr) in enumerate(pairs):
+            src, total = streams[name], int(totals[r])
+            idx = idx_host[r, :total]
+            out[(name, mr)] = Stream(
+                name=src.name,
+                t=src.t[idx],
+                payload={k: v[idx] for k, v in src.payload.items()},
+                scale_stamp=ss_host[r, :total],
+            )
+        return out
 
 
 @dataclasses.dataclass
@@ -465,9 +470,11 @@ class ChunkedNSA:
         self._kept_cum = np.concatenate(
             [np.zeros((len(self.pairs), 1), np.int64),
              np.cumsum(kept, axis=1)], axis=1)
-        self._t, self._starts, self._counts, self._ktab, self._scal = (
-            torch.from_numpy(x).to(self.device)
-            for x in (t_b, starts_b, counts_b, k_b, scal_b))
+        tables = (t_b, starts_b, counts_b, k_b, scal_b)
+        with tracing.span("nsa.upload",
+                          bytes=sum(x.nbytes for x in tables)):
+            self._t, self._starts, self._counts, self._ktab, self._scal = (
+                torch.from_numpy(x).to(self.device) for x in tables)
 
     def n_chunks(self, chunk_s: int) -> int:
         return -(-self.width // int(chunk_s))

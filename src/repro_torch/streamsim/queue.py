@@ -40,6 +40,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
@@ -47,6 +48,16 @@ import numpy as np
 _EOS = object()
 
 RETENTION_POLICIES = ("block", "drop_oldest")
+
+#: the fields of :meth:`StreamQueue.stats` that are seconds waited, not
+#: counts: they differ from run to run
+WAIT_FIELDS = ("put_wait_s", "get_wait_s")
+
+
+def counts_only(stats: Dict[str, Any]) -> Dict[str, Any]:
+    """``stats`` (a queue's, or a report's ``consumer_metrics``) without
+    the seconds waited: what every replay of one sim gives alike."""
+    return {k: v for k, v in stats.items() if k not in WAIT_FIELDS}
 
 
 @dataclasses.dataclass
@@ -116,14 +127,19 @@ class ByteBudget:
                         continue           # raced with a concurrent get
                     self.used -= freed
                     self.dropped_retention += 1
-            else:
+            elif self.used > 0 and self.used + n > self.max_bytes:
                 # admit alone when empty: a bucket bigger than the whole
                 # budget would otherwise block forever
-                while self.used > 0 and self.used + n > self.max_bytes:
-                    if queue._closed:
-                        raise RuntimeError("queue closed")
-                    # short waits double as a missed-wakeup safety net
-                    self._cond.wait(0.05)
+                t0 = time.perf_counter()
+                try:
+                    while self.used > 0 and self.used + n > self.max_bytes:
+                        if queue._closed:
+                            raise RuntimeError("queue closed")
+                        # short waits double as a missed-wakeup safety net
+                        self._cond.wait(0.05)
+                finally:
+                    with queue._lock:      # lock order budget → queue
+                        queue.put_wait_s += time.perf_counter() - t0
             if queue._closed:
                 raise RuntimeError("queue closed")
             self.used += n
@@ -180,6 +196,11 @@ class StreamQueue:
         #: buckets evicted by the group byte budget (never seen by the
         #: consumer; at-least-once stops at broker retention, like Kafka)
         self.dropped_retention = 0
+        #: seconds ``put`` waited for room (a full queue or the group's
+        #: byte budget) and ``get`` waited for a bucket: which side of the
+        #: queue sets the replay's pace; the clock is read only on a wait
+        self.put_wait_s = 0.0
+        self.get_wait_s = 0.0
 
     def put(self, bucket: Bucket, timeout: Optional[float] = None) -> None:
         if self._budget is None:
@@ -199,9 +220,16 @@ class StreamQueue:
     def _put_admitted(self, bucket: Bucket, seq: Optional[int],
                       timeout: Optional[float]) -> None:
         with self._not_full:
-            while len(self._dq) >= self._maxsize and not self._closed:
-                if not self._not_full.wait(timeout):
-                    raise TimeoutError("queue full (backpressure timeout)")
+            if len(self._dq) >= self._maxsize and not self._closed:
+                t0 = time.perf_counter()
+                try:
+                    while len(self._dq) >= self._maxsize and \
+                            not self._closed:
+                        if not self._not_full.wait(timeout):
+                            raise TimeoutError(
+                                "queue full (backpressure timeout)")
+                finally:
+                    self.put_wait_s += time.perf_counter() - t0
             if self._closed:
                 raise RuntimeError("queue closed")
             self._dq.append(bucket)
@@ -215,9 +243,15 @@ class StreamQueue:
     def get(self, timeout: Optional[float] = None) -> Optional[Bucket]:
         """Pop the next bucket; None signals end-of-stream."""
         with self._not_empty:
-            while not self._dq and not self._closed:
-                if not self._not_empty.wait(timeout):
-                    raise TimeoutError("queue empty (consumer timeout)")
+            if not self._dq and not self._closed:
+                t0 = time.perf_counter()
+                try:
+                    while not self._dq and not self._closed:
+                        if not self._not_empty.wait(timeout):
+                            raise TimeoutError(
+                                "queue empty (consumer timeout)")
+                finally:
+                    self.get_wait_s += time.perf_counter() - t0
             if not self._dq:
                 return None  # closed and drained
             item = self._dq.popleft()
@@ -281,6 +315,8 @@ class StreamQueue:
             "buckets_in": self.buckets_in,
             "records_in": self.records_in,
             "dropped_retention": self.dropped_retention,
+            "put_wait_s": self.put_wait_s,
+            "get_wait_s": self.get_wait_s,
         }
 
 

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.streamsim.preprocess import Stream
 
 _MANIFEST = "manifest.json"
@@ -62,20 +63,7 @@ class StreamStore:
             extra_meta: Optional[Dict] = None) -> None:
         d = self._dir(key)
         d.mkdir(parents=True, exist_ok=True)
-        arrays: Dict[str, np.ndarray] = {"__t__": stream.t}
-        if stream.scale_stamp is not None:
-            arrays["__scale_stamp__"] = stream.scale_stamp
-        for k, v in stream.payload.items():
-            arrays[f"c:{k}"] = v
-        # atomic write: tmp file in the same dir, then rename
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                np.savez(f, **arrays)
-            os.replace(tmp, d / _COLUMNS)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        self._write_columns(d, d / _COLUMNS, stream)
         manifest = {
             "name": stream.name,
             "rows": len(stream),
@@ -93,6 +81,27 @@ class StreamStore:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+
+    @staticmethod
+    def _write_columns(d: Path, target: Path, stream: Stream) -> None:
+        """``stream``'s columns as one npz at ``target``: written to a temp
+        file in ``d``, then renamed into place, so a crash mid-write never
+        leaves half a file. The span ``store.write`` counts the bytes."""
+        arrays: Dict[str, np.ndarray] = {"__t__": stream.t}
+        if stream.scale_stamp is not None:
+            arrays["__scale_stamp__"] = stream.scale_stamp
+        for k, v in stream.payload.items():
+            arrays[f"c:{k}"] = v
+        with tracing.span("store.write") as sp:
+            fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    np.savez(f, **arrays)
+                    sp.count(bytes=f.tell())
+                os.replace(tmp, target)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
 
     def put_many(self, items: Dict[str, Stream],
                  extra_meta: Optional[Dict[str, Dict]] = None) -> None:
@@ -135,19 +144,7 @@ class StreamStore:
         if target.exists() and not overwrite:
             return False
         d.mkdir(parents=True, exist_ok=True)
-        arrays: Dict[str, np.ndarray] = {"__t__": stream.t}
-        if stream.scale_stamp is not None:
-            arrays["__scale_stamp__"] = stream.scale_stamp
-        for k, v in stream.payload.items():
-            arrays[f"c:{k}"] = v
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                np.savez(f, **arrays)
-            os.replace(tmp, target)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        self._write_columns(d, target, stream)
         return True
 
     def has_chunk(self, key: str, chunk_idx: int) -> bool:
@@ -230,28 +227,35 @@ class StreamStore:
         d = self._dir(key)
         man = self.manifest(key)
         n_chunks = int(man.get("chunks", 0))
-        if n_chunks:
+        files = ([self._chunk_file(d, i) for i in range(n_chunks)]
+                 or [d / _COLUMNS])
+        with tracing.span("store.read") as sp:
+            if sp:
+                sp.count(bytes=sum(os.path.getsize(p) for p in files))
+            return self._load(man["name"], files, chunked=n_chunks > 0)
+
+    @staticmethod
+    def _load(name: str, files: List[Path], chunked: bool) -> Stream:
+        if chunked:
             ts, sss, payloads = [], [], []
-            for i in range(n_chunks):
-                with np.load(self._chunk_file(d, i),
-                             allow_pickle=False) as z:
+            for p in files:
+                with np.load(p, allow_pickle=False) as z:
                     ts.append(z["__t__"])
                     if "__scale_stamp__" in z.files:
                         sss.append(z["__scale_stamp__"])
                     payloads.append({k[2:]: z[k] for k in z.files
                                      if k.startswith("c:")})
             t = np.concatenate(ts) if ts else np.empty(0)
-            ss = np.concatenate(sss) if len(sss) == n_chunks else None
+            ss = np.concatenate(sss) if len(sss) == len(files) else None
             cols = payloads[0].keys() if payloads else ()
             payload = {c: np.concatenate([p[c] for p in payloads])
                        for c in cols}
-            return Stream(name=man["name"], t=t, payload=payload,
-                          scale_stamp=ss)
-        with np.load(d / _COLUMNS, allow_pickle=False) as z:
+            return Stream(name=name, t=t, payload=payload, scale_stamp=ss)
+        with np.load(files[0], allow_pickle=False) as z:
             t = z["__t__"]
             ss = z["__scale_stamp__"] if "__scale_stamp__" in z.files else None
             payload = {k[2:]: z[k] for k in z.files if k.startswith("c:")}
-        return Stream(name=man["name"], t=t, payload=payload, scale_stamp=ss)
+        return Stream(name=name, t=t, payload=payload, scale_stamp=ss)
 
     def manifest(self, key: str) -> Dict:
         with open(self._dir(key) / _MANIFEST) as f:

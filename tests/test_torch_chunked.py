@@ -37,6 +37,7 @@ from repro_torch.kernels.trend_scan import (trend_scan_carry,
 from repro_torch.streamsim import engine as tengine
 from repro_torch.streamsim.nsa import nsa_sweep_device
 from repro_torch.streamsim.plan import DAY_S
+from repro_torch.streamsim.queue import counts_only
 
 CPU = "cpu"
 DATASETS, RANGES = ["sogouq", "traffic"], [20, 45]   # 45 % 7: ragged chunk
@@ -565,7 +566,7 @@ def _reports_equal(got, exp, vol_rtol, corr_atol):
         assert (a.original_rows, a.simulated_rows, a.compression) == \
             (b.original_rows, b.simulated_rows, b.compression)
         # the feed's high-watermark depends on thread timing: bounded only
-        ma, mb = dict(a.consumer_metrics), dict(b.consumer_metrics)
+        ma, mb = counts_only(a.consumer_metrics), dict(b.consumer_metrics)
         assert ma.pop("feed_hwm_chunks") <= 2 and mb.pop("feed_hwm_chunks") <= 2
         assert ma == mb
         assert abs(a.trend_corr - b.trend_corr) <= corr_atol
@@ -815,10 +816,12 @@ class TestPipeline:
 # ------------------------------------------------------------ checkpoint
 def _key_fields(r):
     """A report without its wall times and without the feed's
-    high-watermark, which depends on thread timing (it is bounded)."""
+    high-watermark and the queues' waits, which depend on thread timing
+    (the high-watermark is bounded)."""
     d = dataclasses.asdict(r)
     for f in ("preprocess_s", "nsa_s", "produce_s"):
         d.pop(f)
+    d["consumer_metrics"] = counts_only(d["consumer_metrics"])
     assert d["consumer_metrics"].pop("feed_hwm_chunks", 0) <= 2
     return d
 

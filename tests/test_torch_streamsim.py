@@ -22,6 +22,7 @@ import repro.streamsim as J
 import repro_torch.streamsim as T
 from repro.streamsim import engine as jengine
 from repro_torch.streamsim import engine as tengine
+from repro_torch.streamsim.queue import counts_only
 
 CPU = "cpu"
 SMALL = [("sogouq", 0.002, 3), ("traffic", 0.004, 5),
@@ -254,7 +255,7 @@ def test_replay_one_matches_reference(originals, max_range, queue_size):
     tm, t_prod = tengine.replay_one(T.nsa(torig, max_range),
                                     _recording_consumer(tlog), queue_size)
     assert tlog == jlog and len(tlog) > 0
-    assert tm == jm
+    assert counts_only(tm) == jm
     assert t_prod >= 0.0
 
 
@@ -266,7 +267,7 @@ def test_producer_status_and_clock(originals):
     jq, jclock = J.StreamQueue(maxsize=10_000), J.VirtualClock()
     assert JP(J.nsa(originals["traffic"][0], 40), jq, clock=jclock).run() \
         == 0
-    assert clock.now == jclock.now and q.stats() == jq.stats()
+    assert clock.now == jclock.now and counts_only(q.stats()) == jq.stats()
 
 
 def test_fault_schedules_identical():

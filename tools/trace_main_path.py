@@ -18,28 +18,30 @@ positions, 16-token prompts, 16 new tokens, 4 requests per bucket) —
 multi-day original is prepared once and copied into each store, so its
 runs leave POSD out), in three modes:
 
-- ``plain``: no instrumentation — the end-to-end wall time;
-- ``spans``: the layer boundaries of the run (controller, plan, engine,
-  NSA, each kernel wrapper, host table build, store writes, fidelity and
-  its trend ops, replay, report statistics) are wrapped in spans that
-  synchronise the device at both ends, so each span's time includes its
-  device work; self time is a span's time minus its child spans'. The
-  chunked runs add spans that do NOT synchronise, so the double buffering
-  stays as it is: ``chunk.dispatch`` (queueing one chunk's launches),
-  ``chunk.host_leg`` (the host side of one chunk), ``chunk.event_wait``
-  (of which: waiting for the chunk's copy event), ``chunk.materialize``,
-  ``store.append_chunk`` and ``replay.chunked`` (the producer walk, on its
-  own thread); their kernels are left to the profile;
+- ``plain``: the program's tracer off — the end-to-end wall time;
+- ``spans``: the program's tracer on (``repro_torch.tracing.enable()``):
+  for every span the stream path records (``call``, ``prepare``,
+  ``store.read``, ``nsa``, ``nsa.host_tables``, ``nsa.upload``,
+  ``nsa.kernels``, ``fidelity``, ``materialize``, ``materialize.gather``,
+  ``store.write``, ``replay``, ``replay.produce``, ``replay.consume``,
+  ``report.stats``, ``report.build``, and the chunked pipeline's
+  ``chunk.dispatch``, ``chunk.host_leg``, ``chunk.event_wait``) its calls,
+  its seconds, its self seconds (less its children's on its own thread)
+  and its counts summed, medians over the reps. The spans never
+  synchronise the device: a span holds device work only where the program
+  waits for it, so the double buffering runs as it does untraced. With
+  ``--serve`` the spans also wrap ``transformer.prefill``,
+  ``transformer.decode_step``, the logits head ``transformer.unembed`` and
+  kernel B8 (``ops.flash_decode``), synchronising the device at both ends
+  (``serve_spans``);
 - ``profile``: one run under ``torch.profiler`` for the device's busy time
-  (the union of kernel and copy intervals) and so its idle share. With
+  (the union of kernel and copy intervals), its idle share, and the idle
+  device seconds by the innermost program span open at the time
+  (``stream_bench.trace.DeviceTrace``; ``untraced`` where none is). With
   ``--serve`` the profile covers one prefill of 8 prompts and ``--steps``
   decode steps at 8 busy slots instead of the whole run (thousands of
   launches per step would swamp the profiler), with the host's enqueue
   time per step beside the device's busy time.
-
-With ``--serve`` the spans also wrap ``transformer.prefill``,
-``transformer.decode_step``, the logits head ``transformer.unembed`` and
-kernel B8 (``ops.flash_decode``).
 
 Prints one JSON object. Needs a CUDA device; fails without one.
 """
@@ -60,6 +62,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 DEVICE = "cuda"
+WINDOW = "trace_main_path.window"
 SWEEP_DATASETS = ("sogouq", "traffic", "userbehavior")
 SWEEP_RANGES = (600, 1200, 1800, 2400, 3000, 3600)
 CHUNK_S = 600
@@ -70,9 +73,9 @@ SERVE_TASK = dict(slots=8, max_len=512, prompt_len=16, max_new_tokens=16,
 
 
 class Spans:
-    """Nested wall-clock spans, nested per thread; a span with ``sync``
-    synchronises the device at its edges, so its time includes its device
-    work."""
+    """Nested wall-clock spans, nested per thread, for the serving engine's
+    calls; each synchronises the device at its edges, so its time includes
+    its device work."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -85,19 +88,17 @@ class Spans:
             child = self._local.child = [0.0]
         return child
 
-    def wrap(self, name, fn, sync=True):
+    def wrap(self, name, fn):
         @functools.wraps(fn)
         def traced(*args, **kwargs):
-            if sync:
-                self.torch.cuda.synchronize()
+            self.torch.cuda.synchronize()
             child = self._children()
             child.append(0.0)
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
-                if sync:
-                    self.torch.cuda.synchronize()
+                self.torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
                 inner = child.pop()
                 child[-1] += dt
@@ -105,72 +106,72 @@ class Spans:
         return traced
 
 
-def _instrument(spans: Spans, chunked: bool, serve: bool = False):
-    """Wrap the run's layer boundaries where it looks them up; returns an
-    undo list. ``chunked`` leaves the kernels inside the pipeline unwrapped
-    and wraps the pipeline's steps without synchronising; ``serve`` adds
-    the serving engine's model calls and kernel B8."""
+def _instrument_serve(spans: Spans):
+    """Wrap the serving engine's model calls and kernel B8 where the run
+    looks them up; returns an undo list."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    from repro_torch.streamsim import controller, engine, producer, store
-    from repro_torch.streamsim.nsa import ChunkHandles
 
-    targets = [
-        (controller.Controller, "prepare", "posd.prepare"),
-        (controller.Controller, "save_metrics", "controller.save_metrics"),
-        (controller, "plan_sweep", "plan.plan_sweep"),
-        (engine, "execute_sweep", "engine.execute_sweep"),
-        (engine, "nsa_sweep_device", "nsa.nsa_sweep_device"),
-        (ops, "stream_sample_inputs", "ops.nsa_tables_host"),
-        (ops, "_stream_sample_kernel", "kernel.stream_sample"),
-        (ops, "compact", "kernel.compact"),
-        (ops, "_stream_metrics_kernel", "kernel.metrics_fused"),
-        (ops, "stream_metrics_inputs", "ops.metrics_inputs_host"),
-        (engine.DeviceSweepResult, "materialize", "engine.materialize"),
-        (store.StreamStore, "put", "store.put"),
-        (engine, "replay_one", "replay.replay_one"),
-        (engine, "replay_many", "replay.replay_many"),
-        (engine, "build_report", "report.build_report"),
-        (engine, "metrics_batched", "report.metrics_batched"),
-        (ops, "trend_corr_pairwise", "report.trend_corr_pairwise"),
-        (engine.DeviceSweepResult, "fidelity", "engine.fidelity"),
-        (ops, "trend_scan_batched_device", "ops.trend_scan_batched_device"),
-        (ops, "trend_pair_stats", "ops.trend_pair_stats"),
-        (ops, "_trend_scan_kernel", "kernel.trend_scan"),
-        (ops, "_pair_stats_kernel", "kernel.pair_stats"),
-        (controller.Controller, "save_fidelity",
-         "controller.save_fidelity"),
-    ]
-    if serve:
-        targets += [
+    undo = []
+    for owner, attr, name in (
             (transformer, "prefill", "serve.prefill"),
             (transformer, "decode_step", "serve.decode_step"),
             (transformer, "unembed", "serve.unembed"),
-            (ops, "flash_decode", "kernel.flash_decode"),
-        ]
-    unsynced = []
-    if chunked:
-        targets = [t for t in targets if not t[2].startswith("kernel.")] + [
-            (controller.Controller, "_prepare_multiday",
-             "posd.prepare_multiday")]
-        unsynced = [
-            (engine, "run_sweep_chunked", "engine.run_sweep_chunked"),
-            (engine.ChunkedSweepRunner, "_prep_device", "chunk.prep_device"),
-            (engine.ChunkedSweepRunner, "_dispatch_chunk", "chunk.dispatch"),
-            (engine.ChunkedSweepRunner, "_host_leg", "chunk.host_leg"),
-            (ChunkHandles, "wait", "chunk.event_wait"),
-            (engine, "materialize_sweep_chunk", "chunk.materialize"),
-            (store.StreamStore, "append_chunk", "store.append_chunk"),
-            (store.StreamStore, "finalize_chunks", "store.finalize_chunks"),
-            (producer.MultiQueueProducer, "_run_chunked", "replay.chunked"),
-        ]
-    undo = []
-    for group, sync in ((targets, True), (unsynced, False)):
-        for owner, attr, name in group:
-            orig = getattr(owner, attr)
-            undo.append((owner, attr, orig))
-            setattr(owner, attr, spans.wrap(name, orig, sync=sync))
+            (ops, "flash_decode", "kernel.flash_decode")):
+        orig = getattr(owner, attr)
+        undo.append((owner, attr, orig))
+        setattr(owner, attr, spans.wrap(name, orig))
     return undo
+
+
+#: counts that are a position or a width, not an amount: the largest is kept
+_LARGEST = ("chunk", "width")
+
+
+def _span_table(records) -> dict:
+    """Per span name: calls, seconds, self seconds (less its children's on
+    its own thread) and the numeric counts summed (those of
+    :data:`_LARGEST`: their largest)."""
+    child = {}
+    for r in records:
+        child.setdefault((r.parent, r.thread), 0)
+        child[(r.parent, r.thread)] += r.end_ns - r.start_ns
+    table = {}
+    for r in records:
+        t = table.setdefault(r.name, {"calls": 0, "s": 0.0, "self_s": 0.0,
+                                      "counts": {}})
+        t["calls"] += 1
+        t["s"] += r.seconds
+        t["self_s"] += (r.end_ns - r.start_ns -
+                        child.get((r.id, r.thread), 0)) * 1e-9
+        for k, v in r.counts.items():
+            if isinstance(v, (int, float)):
+                had = t["counts"].get(k, 0)
+                t["counts"][k] = max(had, v) if k in _LARGEST else had + v
+    return table
+
+
+def _idle_by_span(prof, t0_ns: int, t1_ns: int, names) -> dict:
+    """The device's busy seconds and idle share in ``[t0_ns, t1_ns]``, and
+    its idle seconds by the innermost range of ``names`` open at the
+    time."""
+    from stream_bench.trace import DeviceTrace
+
+    events = [(WINDOW, "CPU", t0_ns * 1e-3, t1_ns * 1e-3)]
+    for e in prof.profiler.kineto_results.events():
+        kind = getattr(e.device_type(), "name", "")
+        if kind in ("CUDA", "CPU"):
+            start = e.start_ns() * 1e-3
+            events.append((e.name(), kind, start,
+                           start + e.duration_ns() * 1e-3))
+    tr = DeviceTrace(events, set(names) | {WINDOW}, WINDOW)
+    busy = tr.busy_s() if tr.ops else None
+    return {"window_s": tr.window_s, "device_ops": len(tr.ops),
+            "device_busy_s": busy,
+            "device_idle_share": None if busy is None
+            else 1 - busy / tr.window_s,
+            "idle_by_span": tr.idle_by_host(n=24),
+            "top_device_ops": tr.top_ops(12)}
 
 
 def _consumer(queue):
@@ -276,32 +277,18 @@ def _serve_profile(args):
     window()                                      # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         enqueue = window()
-        wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
+        t1 = time.time_ns()
+    t0p = time.perf_counter()
     plain_enqueue = window()
-    plain_wall = time.perf_counter() - t0
-    return wall, prof, {"steps": args.steps,
+    plain_wall = time.perf_counter() - t0p
+    return (t0, t1), prof, {"steps": args.steps,
                         "plain_window_s": plain_wall,
                         "plain_enqueue_per_step_s": float(
                             np.median(plain_enqueue)),
                         "profiled_enqueue_per_step_s": float(
                             np.median(enqueue))}
-
-
-def _busy_seconds(events) -> float:
-    """Union of the device intervals of kernels and copies (µs -> s)."""
-    iv = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, -np.inf
-    for a, b in iv:
-        if a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    return busy * 1e-6
 
 
 def main() -> int:
@@ -332,7 +319,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("trace_main_path: needs a CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from repro_torch import tracing
     from repro_torch.kernels import _build
     _build.build_all()
 
@@ -358,56 +346,55 @@ def main() -> int:
         if chunked:
             out["plain_pipeline_s"] = [r.pipeline_s for _, _, r in plain]
 
-        per_rep = []
+        per_rep, serve_recs = [], []
         for i in range(args.reps):
             spans = Spans(torch)
-            undo = _instrument(spans, chunked, args.serve)
+            undo = _instrument_serve(spans) if args.serve else []
+            tracing.enable()
             try:
                 wall, rep, _ = _run(args, tmp / f"spans{i}")
             finally:
+                tracing.enable(False)
                 for owner, attr, orig in undo:
                     setattr(owner, attr, orig)
-            per_rep.append((wall, spans.records, rep))
+            per_rep.append((wall, _span_table(tracing.drain()), rep))
+            serve_recs.append(spans.records)
         out["spans_run_s"] = [w for w, _, _ in per_rep]
-        names = sorted({r[0] for _, recs, _ in per_rep for r in recs})
         table = {}
-        for n in names:
-            tot = [sum(r[2] for r in recs if r[0] == n)
-                   for _, recs, _ in per_rep]
-            self_t = [sum(r[3] for r in recs if r[0] == n)
-                      for _, recs, _ in per_rep]
-            calls = [sum(1 for r in recs if r[0] == n)
-                     for _, recs, _ in per_rep]
-            table[n] = {"calls": calls[0],
-                        "median_s": float(np.median(tot)),
-                        "median_self_s": float(np.median(self_t))}
+        for n in sorted({n for _, t, _ in per_rep for n in t}):
+            got = [t.get(n) for _, t, _ in per_rep if n in t]
+            table[n] = {
+                "calls": got[0]["calls"],
+                "median_s": float(np.median([g["s"] for g in got])),
+                "median_self_s": float(np.median([g["self_s"]
+                                                  for g in got])),
+                "counts": got[0]["counts"]}
         out["spans"] = table
+        if args.serve:
+            out["serve_spans"] = {n: {
+                "calls": sum(1 for r in serve_recs[0] if r[0] == n),
+                "median_s": float(np.median([sum(r[2] for r in recs
+                                                 if r[0] == n)
+                                             for recs in serve_recs])),
+                "median_self_s": float(np.median([sum(r[3] for r in recs
+                                                      if r[0] == n)
+                                                  for recs in serve_recs]))}
+                for n in sorted({r[0] for recs in serve_recs
+                                 for r in recs})}
         out["report"] = _summary(per_rep[-1][2])
 
         from torch.profiler import ProfilerActivity, profile
         if args.serve:
-            wall, prof, window = _serve_profile(args)
+            (t0, t1), prof, window = _serve_profile(args)
             out["serve_window"] = window
         else:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall, _, _ = _run(args, tmp / "profiled")
-        dev = [e for e in prof.events()
-               if getattr(e, "device_type", None) is not None and
-               e.device_type.name == "CUDA"]
-        busy = _busy_seconds(dev) if dev else None
-        kernels = {}
-        for e in dev:
-            k = kernels.setdefault(e.name, [0, 0.0])
-            k[0] += 1
-            k[1] += (e.time_range.end - e.time_range.start) * 1e-6
-        out["profile"] = {
-            "run_s": wall, "device_events": len(dev),
-            "device_busy_s": busy,
-            "device_idle_share": None if busy is None else 1 - busy / wall,
-            "top_device_events": sorted(
-                ([n, c, s] for n, (c, s) in kernels.items()),
-                key=lambda x: -x[2])[:12]}
+                t0 = time.time_ns()
+                _run(args, tmp / "profiled")
+                t1 = time.time_ns()
+        out["profile"] = _idle_by_span(prof, t0, t1,
+                                       {r.name for r in tracing.drain()})
     print(json.dumps(out))
     return 0
 
