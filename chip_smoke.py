@@ -501,7 +501,8 @@ def check_kernels(device: str, scale: float, seed: int,
     timed = {}
     for case, (ts, ranges) in cases.items():
         mults = [mult(t, mr) for t, mr in zip(ts, ranges)]
-        b1_in = up(ops.stream_sample_inputs(ts, ranges, mults))
+        b1_in = ops.stream_sample_args(
+            ops.stream_sample_inputs(ts, ranges, mults), device)
         ss, keep = stream_sample(*b1_in)
         ss_p, keep_p = stream_sample_plain(*b1_in)
         _exact(f"stream_sample/{case}/ss", ss, ss_p)
@@ -521,7 +522,7 @@ def check_kernels(device: str, scale: float, seed: int,
             main_b1, main_keep = b1_in, keep
             main_b3 = (kept, tot, buckets)
         if keep_cases is not None and case in ("main", "ragged", "sweep"):
-            keep_cases[case] = dict(ss=ss, lengths=b1_in[-1], kept=kept,
+            keep_cases[case] = dict(ss=ss, lengths=b1_in.lengths, kept=kept,
                                     totals=tot, b1_in=b1_in, keep=keep)
 
     # B3's second main-path launch: the ORIGINAL stream at 86 400 buckets
@@ -635,16 +636,25 @@ def _check_unsorted_b3(device: str, seed: int, original, width: int,
 
 
 def _b1_bound(b1_in, ss):
-    """B1's bound: per record a 4-byte read of t, a 4-byte stamp and a
-    keep byte written, ~30 operations; per row the scalars and length,
-    and of its three 4-byte tables only the buckets its records read,
-    from one below its least stamp to one above its greatest (the f32
-    guess lands within one bucket of the stamp), at most the table's
-    width: a nine-day chunk spans ~600 of its 32,400 buckets."""
-    S, N = b1_in[0].shape
+    """B1's bound: each 8-byte timestamp the rows read, read once however
+    many rows share it (the union of the rows' record ranges in ``t``);
+    per lane a 4-byte stamp and a keep byte written, ~30 operations; per
+    row its first record, t_min, scalars and length, and of its three
+    4-byte tables only the buckets its records read, from one below its
+    least stamp to one above its greatest (the f32 guess lands within one
+    bucket of the stamp), at most the table's width: a nine-day chunk
+    spans ~600 of its 32,400 buckets."""
+    S, N = ss.shape
+    base = b1_in.base.cpu().numpy()
+    ends = base + np.maximum(b1_in.lengths.cpu().numpy(), 1)
+    records, reach = 0, 0
+    for a, b in sorted(zip(base.tolist(), ends.tolist())):
+        records += max(b - max(a, reach), 0)
+        reach = max(reach, b)
     span = (ss.amax(dim=1) - ss.amin(dim=1)).long() + 3
-    tables = int(3 * 4 * span.clamp(max=b1_in[1].shape[1]).sum())
-    return _bound_ms(S * N * (4 + 4 + 1) + tables + S * 16, S * N * 30)
+    tables = int(3 * 4 * span.clamp(max=b1_in.starts.shape[1]).sum())
+    return _bound_ms(records * 8 + S * N * (4 + 1) + tables + S * 32,
+                     S * N * 30)
 
 
 def _b2_bound(keep):
@@ -664,8 +674,8 @@ def _b12_timings(b1_in, ss, keep, tot, timing_reps: int, plain_reps: int):
     from repro_torch.kernels.compact import compact, compact_plain
     from repro_torch.kernels.stream_sample import (stream_sample,
                                                    stream_sample_plain)
-    S, N = b1_in[0].shape
-    W = b1_in[1].shape[1]
+    S, N = ss.shape
+    W = b1_in.starts.shape[1]
     out = {"stream_sample": dict(
         ms=_time_ms(lambda: stream_sample(*b1_in), timing_reps),
         plain_ms=_time_ms(lambda: stream_sample_plain(*b1_in), plain_reps),
@@ -719,7 +729,8 @@ def check_sample_compact_edges(device: str, scale: float, seed: int,
                                b1_config=None, b2_config=None):
     """Phase 3 for B1's and B2's edges, each bit-equal to its plain
     version: rows whose length is not a multiple of the vector width,
-    views that start off a 16-byte boundary, all-zero and all-ones masks,
+    views that start off a 16-byte boundary, rows of one shared source
+    that start on odd records, all-zero and all-ones masks,
     rows under one tile, random masks at 1 %, 50 % and 99 % over 18 rows of
     many tiles, a mask of more tiles than the card holds blocks at once (a
     deadlock would hang here), two calls in a row bit-identical and a
@@ -742,7 +753,8 @@ def check_sample_compact_edges(device: str, scale: float, seed: int,
     def b1_inputs(ts, ranges):
         mults = [_multiple(len(t), float(t[-1] - t[0]), mr, "time")
                  for t, mr in zip(ts, ranges)]
-        return [up(x) for x in ops.stream_sample_inputs(ts, ranges, mults)]
+        return ops.stream_sample_args(
+            ops.stream_sample_inputs(ts, ranges, mults), device)
 
     def off_boundary(x, shift):
         """``x`` copied into a buffer ``shift`` elements in: the same
@@ -771,14 +783,18 @@ def check_sample_compact_edges(device: str, scale: float, seed: int,
         _same_twice(f"compact/{case}",
                     lambda: compact(mask, config=b2_config))
 
-    # B1: three real streams cut to 1003 records (N not a multiple of 8),
-    # and the run-shape inputs with t off a 16-byte boundary
+    # B1: three real streams cut to 1003 records (n not a multiple of 8),
+    # the run-shape inputs with t off a 16-byte boundary, and rows that
+    # start on odd records of one shared source
     ts = [streams[d].t[:1003] for d in SWEEP_DATASETS]
-    short = b1_inputs(ts, [600, 1800, 3600])
-    short[0] = short[0][:, :1003].contiguous()
-    same_b1("n1003", short)
+    same_b1("n1003", b1_inputs(ts, [600, 1800, 3600])._replace(n=1003))
     main = b1_inputs([streams[MAIN_DATASET].t], [MAIN_RANGE])
-    same_b1("t_off_boundary", [off_boundary(main[0], 3), *main[1:]])
+    same_b1("t_off_boundary", main._replace(t=off_boundary(main.t, 3)))
+    ub = streams[MAIN_DATASET].t
+    shared = b1_inputs([ub] * 4, [60, 600, 1800, 3600])
+    shift = torch.tensor([0, 1, 3, 8], dtype=torch.int64, device=device)
+    same_b1("shared_odd_base", shared._replace(
+        base=shared.base + shift, lengths=shared.lengths - shift.int()))
     same_b1("main_after_n1003", main)
 
     # B2
@@ -812,7 +828,8 @@ def check_sample_compact_edges(device: str, scale: float, seed: int,
         same_b2(case, mask)
     # a smaller call after the largest reuses its workspace
     same_b2("under_tile_after_multi_wave", masks["under_tile"])
-    return {"stream_sample": ["n1003", "t_off_boundary", "main_after_n1003"],
+    return {"stream_sample": ["n1003", "t_off_boundary", "shared_odd_base",
+                              "main_after_n1003"],
             "compact": [*masks, "under_tile_after_multi_wave"],
             "compact_resident_blocks": resident,
             "compact_multi_wave_tiles": wave[0] * -(-wave[1] // tile)}
@@ -2055,6 +2072,7 @@ def run_chunked_path(device: str, scale: float, seed: int, workdir: Path,
     import torch
 
     from repro_torch.streamsim import Controller, StreamStore
+    from repro_torch.streamsim.queue import counts_only
 
     mono_reps, mono_fid = mono[:2]
     ctl = Controller(str(workdir / "chunked_torch"), device=device)
@@ -2086,7 +2104,8 @@ def run_chunked_path(device: str, scale: float, seed: int, workdir: Path,
         if rep.simulated_rows != ref.simulated_rows or \
                 rep.consumer_metrics["records_seen"] != rep.simulated_rows:
             raise AssertionError(f"{name}: rows differ")
-        for k, v in ref.consumer_metrics.items():
+        # the seconds the queue waited differ run to run: counts only
+        for k, v in counts_only(ref.consumer_metrics).items():
             if rep.consumer_metrics[k] != v:
                 raise AssertionError(f"{name}: consumer stat {k} differs")
         for f in ("average", "variance", "std_variance"):

@@ -1,9 +1,10 @@
-// Fused, batched NSA inner loop for Hopper: normalize -> scale stamp ->
-// systematic keep bit, eight records per thread.
+// Fused, batched NSA inner loop for Hopper: rebase -> normalize -> scale
+// stamp -> systematic keep bit, eight records per thread.
 //
 // Replaces the TPU kernel repro/kernels/stream_sample.py::_kernel
 // (stream_sample_pallas). Same contract, record for record:
-//   g    = floor((t - t_min) * inv_span * n_buckets)   f32, rounded per op
+//   t32  = f32(t - t_min)              f64 subtraction, rounded to f32
+//   g    = floor(t32 * inv_span * n_buckets)   f32, rounded per op
 //   g    = clip(g, 0, n_buckets - 1)
 //   g   += (i >= starts[g] + counts[g]) - (i < starts[g])   (+-1 snap to the
 //          exact f64 host tables, so stamps are bit-identical to numpy NSA)
@@ -12,18 +13,30 @@
 // and keep = 0 for i >= lengths[s] (padded lanes; the TPU path masked them
 // after the kernel). ss is written for every lane.
 //
-// What bounds it: bytes. Per record it reads one f32 timestamp and writes
-// one int32 stamp and one byte of keep bit, 9 B; the three per-row tables
+// Inputs: the rows' float64 sources lie end to end in one buffer t; row s
+// reads its records from t + base[s] and rebases them by its own t_min.
+// Rows of one stream share one copy (a sweep's rows of one dataset), and a
+// chunk of a stream is a record offset into it. Lanes at or past a row's
+// length read the row's last record, as the reference's rows padded with
+// their last timestamp do, so ss on those lanes is the reference's too.
+// f32(t - t_min) in float64 then rounded to nearest is numpy's
+// (t64 - t_min).astype(np.float32), which the host did before.
+//
+// What bounds it: bytes. Per record it reads one 8-byte timestamp and
+// writes one int32 stamp and one byte of keep bit; the three per-row tables
 // (3 x max_range x 4 B, 43 KB at max_range 3600) stay in L1 and L2 and are
 // read through the read-only cache (__ldg). To run at the card's 3.35 TB/s
 // with ~0.7 us of memory latency, Little's law wants ~2.3 MB in flight,
-// ~18 KB per SM. One record per thread, as the first port had it, gives
-// at most 2048 threads x 4 B = 8 KB per SM, which capped it near 42 % of
-// the bound. The design:
+// ~18 KB per SM. The design:
 //   - each thread takes 8 consecutive records (consecutive threads take
 //     consecutive groups, so a warp's accesses stay contiguous) and issues
-//     both 16-byte loads of t before the first table lookup: 32 B in
-//     flight per thread, 64 KB per SM;
+//     its four 16-byte loads of t (a group that starts on an odd record:
+//     one 8-byte load, three 16-byte loads, one 8-byte load) before the
+//     first table lookup: 64 B in flight per thread;
+//   - the grid is one dimension, the rows of one record tile back to back
+//     (block b takes row b % rows of tile b / rows): the rows that share a
+//     source read their tile while it is in L2, so a sweep of 18 rows over
+//     3 streams reads each stream's records from DRAM about once;
 //   - the stamps leave as two 16-byte stores, the keep bits as one 8-byte
 //     word;
 //   - sorted t puts neighbouring records in the same bucket almost always,
@@ -33,10 +46,10 @@
 // What is left between it and the bound: the two dependent table lookups
 // after each group's loads, which miss a cold L2, and at a one-wave shape
 // (a ~2 M-record chunk) the launch itself.
-// A row whose length is not a multiple of 8, or a t, ss or keep pointer
-// not aligned for those widths (a view with a storage offset), takes the
-// kernel's scalar path instead, chosen at launch: the same arithmetic,
-// one 4-byte load and store per record.
+// An output width that is not a multiple of 8 takes the kernel's scalar
+// store path instead, chosen at launch: the same arithmetic, one 4-byte
+// store and one byte a record. A row's last group, cut by its length,
+// loads record by record.
 //
 // Exactness: the float ops use the _rn intrinsics so the compiler cannot
 // contract them into an FMA (the reference rounds after every op), the
@@ -59,15 +72,38 @@ namespace {
 constexpr int kItems = 8;                    // records per thread
 constexpr int kTile = REPRO_RECORD_TILE;     // records per block
 constexpr int kThreads = kTile / kItems;
-static_assert(kItems == 8, "two 16-byte loads of t, one 8-byte keep word");
+static_assert(kItems == 8, "four 16-byte loads of t, one 8-byte keep word");
 static_assert(kTile % (32 * kItems) == 0 && kThreads <= 1024,
               "whole warps, at most 1024 threads a block");
 
-// kVec: n % kItems == 0 and the pointers aligned, so every thread's group
-// is whole and loads and stores as vectors.
+// The group's 8 timestamps from p (inside the row): 16-byte loads, the
+// first and last record alone where p is off a 16-byte boundary (t is
+// 8-byte aligned, so it is off by 8 bytes or not at all).
+__device__ __forceinline__ void load_group(const double* __restrict__ p,
+                                           double (&tv)[kItems]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const double2* q = reinterpret_cast<const double2*>(p);
+    const double2 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2),
+                  d = __ldg(q + 3);
+    tv[0] = a.x; tv[1] = a.y; tv[2] = b.x; tv[3] = b.y;
+    tv[4] = c.x; tv[5] = c.y; tv[6] = d.x; tv[7] = d.y;
+  } else {
+    const double2* q = reinterpret_cast<const double2*>(p + 1);
+    const double first = __ldg(p);
+    const double2 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+    const double last = __ldg(p + 7);
+    tv[0] = first; tv[1] = a.x; tv[2] = a.y; tv[3] = b.x;
+    tv[4] = b.y; tv[5] = c.x; tv[6] = c.y; tv[7] = last;
+  }
+}
+
+// kVec: n % kItems == 0, so every thread's group of lanes is whole and
+// stores as vectors.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-stream_sample_kernel(const float* __restrict__ t,
+stream_sample_kernel(const double* __restrict__ t,
+                     const long long* __restrict__ base,
+                     const double* __restrict__ t_min,
                      const int* __restrict__ starts,
                      const int* __restrict__ counts,
                      const int* __restrict__ ktab,
@@ -75,33 +111,33 @@ stream_sample_kernel(const float* __restrict__ t,
                      const int* __restrict__ lengths,
                      int* __restrict__ ss_out,
                      unsigned char* __restrict__ keep_out,
-                     int n, int width) {
-  const int s = blockIdx.y;
-  const long long i0 =
-      static_cast<long long>(blockIdx.x * kThreads + threadIdx.x) * kItems;
+                     int rows, int n, int width) {
+  const int s = static_cast<int>(blockIdx.x % rows);
+  const long long tile = blockIdx.x / rows;
+  const long long i0 = (tile * kThreads + threadIdx.x) * kItems;
   if (i0 >= n) return;
   const size_t off = static_cast<size_t>(s) * n + i0;
 
-  float tv[kItems];
-  if (kVec) {
-    const float4 a = *reinterpret_cast<const float4*>(t + off);
-    const float4 b = *reinterpret_cast<const float4*>(t + off + 4);
-    tv[0] = a.x; tv[1] = a.y; tv[2] = a.z; tv[3] = a.w;
-    tv[4] = b.x; tv[5] = b.y; tv[6] = b.z; tv[7] = b.w;
+  const int len = __ldg(lengths + s);
+  const double* row = t + __ldg(base + s);
+  double tv[kItems];
+  if (i0 + kItems <= len) {
+    load_group(row + i0, tv);
   } else {
+    // the row's last group, or lanes past its length: the last record
+    const long long last = len > 0 ? len - 1 : 0;
 #pragma unroll
     for (int j = 0; j < kItems; ++j)
-      tv[j] = (i0 + j < n) ? t[off + j] : 0.0f;
+      tv[j] = __ldg(row + min(i0 + j, last));
   }
 
   const int* st = starts + static_cast<size_t>(s) * width;
   const int* ct = counts + static_cast<size_t>(s) * width;
   const int* kt = ktab + static_cast<size_t>(s) * width;
-  const float t_min = __ldg(scalars + 3 * s);
-  const float inv_span = __ldg(scalars + 3 * s + 1);
-  const float nb_f = __ldg(scalars + 3 * s + 2);
+  const double t0 = __ldg(t_min + s);
+  const float inv_span = __ldg(scalars + 2 * s);
+  const float nb_f = __ldg(scalars + 2 * s + 1);
   const int nb = static_cast<int>(nb_f);  // exact: n_buckets < 2^24
-  const int len = __ldg(lengths + s);
 
   int ss[kItems];
   unsigned char keep[kItems];
@@ -110,8 +146,9 @@ stream_sample_kernel(const float* __restrict__ t,
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int i = static_cast<int>(i0 + j);   // < n on every stored lane
-    // paper formula (1), floored to the simulated second
-    float x = __fmul_rn(__fmul_rn(__fsub_rn(tv[j], t_min), inv_span), nb_f);
+    // the rebase, then paper formula (1), floored to the simulated second
+    const float t32 = __double2float_rn(__dsub_rn(tv[j], t0));
+    float x = __fmul_rn(__fmul_rn(t32, inv_span), nb_f);
     x = fminf(fmaxf(floorf(x), 0.0f), static_cast<float>(nb - 1));
     const int g = static_cast<int>(x);
 
@@ -165,25 +202,29 @@ stream_sample_kernel(const float* __restrict__ t,
 // Records a block takes in this library (its REPRO_RECORD_TILE).
 extern "C" int stream_sample_record_tile() { return kTile; }
 
-extern "C" int stream_sample_launch(const void* t, const void* starts,
+extern "C" int stream_sample_launch(const void* t, const void* base,
+                                    const void* t_min, const void* starts,
                                     const void* counts, const void* ktab,
                                     const void* scalars, const void* lengths,
                                     void* ss_out, void* keep_out, int rows,
                                     int n, int width, void* stream) {
   if (rows == 0 || n == 0) return 0;
+  // ss and keep come from torch.empty (aligned); a row starts on a 16-byte
+  // boundary of both when n is a multiple of 8
   const bool vec_ok = (n % kItems == 0) &&
-                      (reinterpret_cast<uintptr_t>(t) % 16 == 0) &&
                       (reinterpret_cast<uintptr_t>(ss_out) % 16 == 0) &&
                       (reinterpret_cast<uintptr_t>(keep_out) % 8 == 0);
-  const dim3 grid((n + kTile - 1) / kTile, rows);
+  const long long tiles = (n + kTile - 1) / kTile;
+  const dim3 grid(static_cast<unsigned>(tiles * rows));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto kernel = vec_ok ? stream_sample_kernel<true>
                        : stream_sample_kernel<false>;
   kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(t), static_cast<const int*>(starts),
+      static_cast<const double*>(t), static_cast<const long long*>(base),
+      static_cast<const double*>(t_min), static_cast<const int*>(starts),
       static_cast<const int*>(counts), static_cast<const int*>(ktab),
       static_cast<const float*>(scalars), static_cast<const int*>(lengths),
-      static_cast<int*>(ss_out), static_cast<unsigned char*>(keep_out), n,
-      width);
+      static_cast<int*>(ss_out), static_cast<unsigned char*>(keep_out), rows,
+      n, width);
   return static_cast<int>(cudaGetLastError());
 }

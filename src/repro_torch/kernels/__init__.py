@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, one per TPU kernel on the path.
 
 - :mod:`repro_torch.kernels.stream_sample` — B1, the fused NSA inner
-  loop: normalize -> scale stamp -> systematic keep bit.
+  loop: rebase -> normalize -> scale stamp -> systematic keep bit.
 - :mod:`repro_torch.kernels.compact`       — B2, keep mask -> kept-record
   indices (three-phase scan with the scatter fused in).
 - :mod:`repro_torch.kernels.metrics_fused` — B3, per-row int32 histogram of

@@ -42,7 +42,7 @@ from repro_torch.kernels.metrics_fused import BUCKET_BLOCK, stream_metrics \
     as _stream_metrics_kernel
 from repro_torch.kernels.metrics_fused import stream_metrics_carry \
     as _stream_metrics_carry_kernel
-from repro_torch.kernels.stream_sample import MAX_RANGE_LIMIT
+from repro_torch.kernels.stream_sample import MAX_RANGE_LIMIT, SampleArgs
 from repro_torch.kernels.stream_sample import stream_sample \
     as _stream_sample_kernel
 from repro_torch.kernels.stream_sample import stream_sample_plain
@@ -137,17 +137,54 @@ class KeepRuleOverflow(PallasDomainError):
 
 
 # --------------------------------------------------------------------- NSA
+def _bucket_starts(t64: np.ndarray, t_min: float, span: float,
+                   max_range: int) -> np.ndarray:
+    """``starts[b]``, the first record ``i`` with ``(t64[i] - t_min) / span
+    * max_range >= b``, for every bucket ``b < max_range``: bit-equal to
+    ``np.searchsorted((t64 - t_min) / span * max_range, arange(max_range))``
+    without that pass over the records.
+
+    The formula is monotone in ``t`` under rounding, so the answer is the
+    first record of some distinct timestamp. A binary search on ``t64``
+    guesses it for every bucket at once; each guess then steps to the run
+    of equal timestamps below it while the formula at that run is still
+    ``>= b``, and past the run at it while the formula there is ``< b``,
+    evaluating the formula in the reference's operation order."""
+    n = len(t64)
+    b = np.arange(max_range)
+
+    def v(i):
+        return (t64[i] - t_min) / span * max_range
+
+    i = np.searchsorted(t64, t_min + span * (b / max_range))
+    while True:                 # the run below still reaches bucket b
+        down = np.flatnonzero(i > 0)
+        down = down[v(i[down] - 1) >= b[down]]
+        if not len(down):
+            break
+        i[down] = np.searchsorted(t64, t64[i[down] - 1], "left")
+    while True:                 # the run at i falls short of bucket b
+        up = np.flatnonzero(i < n)
+        up = up[v(i[up]) < b[up]]
+        if not len(up):
+            break
+        i[up] = np.searchsorted(t64, t64[i[up]], "right")
+    return i
+
+
 def _nsa_tables(t64: np.ndarray, max_range: int, multiple: float,
                 width: Optional[int] = None):
-    """Exact per-bucket tables + kernel inputs for one sorted stream.
+    """Exact per-bucket tables + kernel scalars for one sorted stream.
 
-    Returns (rebased f32 timestamps, starts, counts, ktab,
-    (t_min, 1/span, n_buckets)). The tables come from the float64 host
-    formula ``(t - t_min) / span * max_range`` that
-    :func:`repro_torch.streamsim.nsa.scale_stamps` floors, so the kernel's
-    +-1-snapped stamps are bit-identical to the numpy path. ``width``
-    (default ``max_range``) pads the table axis for range-padded sweeps:
-    tail buckets get ``starts = n``, ``counts = 0`` and a zero keep budget.
+    Returns (starts, counts, ktab, (t_min, 1/span, n_buckets)), ``t_min``
+    the float64 origin B1 rebases the stream's timestamps by. The tables
+    come from the float64 host formula ``(t - t_min) / span * max_range``
+    that :func:`repro_torch.streamsim.nsa.scale_stamps` floors, so the
+    kernel's +-1-snapped stamps are bit-identical to the numpy path; they
+    take ``max_range`` binary searches (:func:`_bucket_starts`), no pass
+    over the records. ``width`` (default ``max_range``) pads the table axis
+    for range-padded sweeps: tail buckets get ``starts = n``, ``counts = 0``
+    and a zero keep budget.
     """
     if max_range > MAX_RANGE_LIMIT:
         raise PallasDomainError(
@@ -160,15 +197,13 @@ def _nsa_tables(t64: np.ndarray, max_range: int, multiple: float,
     n = len(t64)
     t_min, t_max = float(t64[0]), float(t64[-1])
     span = t_max - t_min
+    starts = np.full(width, n, np.int32)
     if span <= 0.0:
         # degenerate stream (all timestamps equal): everything is bucket 0
-        starts = np.full(width, n, np.int32)
         starts[0] = 0
         inv_span = 0.0
     else:
-        v = (t64 - t_min) / span * max_range
-        starts = np.full(width, n, np.int32)
-        starts[:max_range] = np.searchsorted(v, np.arange(max_range))
+        starts[:max_range] = _bucket_starts(t64, t_min, span, max_range)
         inv_span = 1.0 / span
     counts = np.zeros(width, np.int32)
     counts[:max_range] = np.diff(np.append(starts[:max_range], n))
@@ -181,15 +216,15 @@ def _nsa_tables(t64: np.ndarray, max_range: int, multiple: float,
             f"bucket with count={counts[prod.argmax()]} and "
             f"k={ktab[prod.argmax()]} overflows the int32 keep rule; "
             "use the numpy NSA path for this stream")
-    t32 = (t64 - t_min).astype(np.float32)
-    return t32, starts, counts, ktab, (0.0, inv_span, float(max_range))
+    return starts, counts, ktab, (t_min, inv_span, float(max_range))
 
 
 def stream_sample_batched(ts, max_range, multiples, *, device=None):
     """Batched fused NSA inner loop: S streams, one kernel launch.
 
     ts        : sequence of S sorted 1-D float64 timestamp arrays (ragged
-                lengths allowed).
+                lengths allowed; rows given the same array share its copy
+                on the device).
     max_range : int, or a length-S sequence of per-row time ranges (the
                 range-padded sweep form: tables pad to the maximum).
     multiples : per-stream multiple (a scalar broadcasts).
@@ -203,16 +238,15 @@ def stream_sample_batched(ts, max_range, multiples, *, device=None):
     """
     dev = resolve_device(device)
     inputs = stream_sample_inputs(ts, max_range, multiples)
-    S = inputs[0].shape[0]
+    S = len(inputs[1])
     cfg = tuning.config_for("stream_sample", s=S,
-                            n=int(inputs[-1].max()), r=inputs[1].shape[1],
+                            n=int(inputs[-1].max()), r=inputs[3].shape[1],
                             device=dev)
     g = max(1, min(int(cfg.grid_split), S))
     bounds = [round(i * S / g) for i in range(g + 1)]
-    with tracing.span("nsa.upload", bytes=sum(x.nbytes for x in inputs)):
-        args = [torch.from_numpy(x).to(dev) for x in inputs]
+    args = stream_sample_args(inputs, dev)
     with tracing.span("nsa.kernels"):
-        parts = [_stream_sample_kernel(*(x[a:b] for x in args), config=cfg)
+        parts = [_stream_sample_kernel(*args.rows(a, b), config=cfg)
                  for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
     if len(parts) == 1:
         ss, keep = parts[0]
@@ -224,16 +258,24 @@ def stream_sample_batched(ts, max_range, multiples, *, device=None):
 
 def stream_sample_inputs(ts, max_range, multiples):
     """The host-side inputs of kernel B1 for :func:`stream_sample_batched`
-    (same arguments): ``(t f32 (S, N), starts, counts, ktab int32 (S, W),
-    scalars f32 (S, 3), lengths int32 (S,))`` as numpy arrays, each row
-    padded with its last timestamp to the ``TILE``-aligned width ``N``
-    (the span ``nsa.host_tables``, counting the rows and ``N``)."""
+    (same arguments): ``(sources, src int32 (S,), t_min float64 (S,),
+    starts, counts, ktab int32 (S, W), scalars f32 (S, 2), lengths int32
+    (S,))``. ``sources`` are the distinct float64 timestamp arrays, one per
+    array object in ``ts`` (rows given the same array share it), and
+    ``src`` each row's source. The span ``nsa.host_tables`` counts the
+    rows, the sources and the launch's ``TILE``-aligned width."""
     with tracing.span("nsa.host_tables") as sp:
-        ts = [np.asarray(t, np.float64) for t in ts]
         S = len(ts)
         if S == 0:
             raise ValueError("need at least one stream")
-        lengths = np.array([len(t) for t in ts])
+        slot, sources = {}, []
+        src = np.empty(S, np.int32)
+        for s, t in enumerate(ts):
+            if id(t) not in slot:
+                slot[id(t)] = len(sources)
+                sources.append(np.ascontiguousarray(t, np.float64))
+            src[s] = slot[id(t)]
+        lengths = np.array([len(sources[k]) for k in src], np.int32)
         if np.any(lengths == 0):
             raise ValueError("batched path requires non-empty streams")
         ranges = np.broadcast_to(np.asarray(max_range, np.int64), (S,))
@@ -241,21 +283,50 @@ def stream_sample_inputs(ts, max_range, multiples):
             raise ValueError("max_range entries must be positive")
         width = int(ranges.max())
         mults = np.broadcast_to(np.asarray(multiples, np.float64), (S,))
-        N = int(-(-lengths.max() // TILE) * TILE)
-        sp.count(rows=S, width=N)
-        t_b = np.empty((S, N), np.float32)
+        sp.count(rows=S, sources=len(sources),
+                 width=_tiles(lengths.max(), TILE))
+        t_min = np.empty(S, np.float64)
         starts_b = np.empty((S, width), np.int32)
         counts_b = np.empty((S, width), np.int32)
         k_b = np.empty((S, width), np.int32)
-        scal_b = np.empty((S, 3), np.float32)
-        for s, t64 in enumerate(ts):
-            t32, starts, counts, ktab, scalars = _nsa_tables(
-                t64, int(ranges[s]), float(mults[s]), width)
-            t_b[s, :len(t32)] = t32
-            t_b[s, len(t32):] = t32[-1]          # pad into the last bucket
+        scal_b = np.empty((S, 2), np.float32)
+        for s in range(S):
+            starts, counts, ktab, (t0, inv_span, nb) = _nsa_tables(
+                sources[src[s]], int(ranges[s]), float(mults[s]), width)
             starts_b[s], counts_b[s], k_b[s] = starts, counts, ktab
-            scal_b[s] = scalars
-        return t_b, starts_b, counts_b, k_b, scal_b, lengths.astype(np.int32)
+            t_min[s], scal_b[s] = t0, (inv_span, nb)
+        return sources, src, t_min, starts_b, counts_b, k_b, scal_b, lengths
+
+
+def _tiles(x, tile: int) -> int:
+    """``x`` rounded up to whole tiles, at least one."""
+    return max(int(-(-int(x) // tile) * tile), tile)
+
+
+#: each source starts a multiple of this many records into B1's buffer
+#: (256 bytes), so a row's 16-byte loads start aligned
+_SOURCE_ALIGN = 32
+
+
+def stream_sample_args(inputs, device) -> SampleArgs:
+    """B1's arguments on ``device`` from :func:`stream_sample_inputs`'
+    host arrays: each source copied once into one float64 buffer, each row
+    reading from its source's first record, the launch as wide as the
+    longest row in ``TILE``s (the span ``nsa.upload``, counting the bytes
+    copied)."""
+    sources, src, t_min, starts, counts, ktab, scalars, lengths = inputs
+    dev = resolve_device(device)
+    offs = np.zeros(len(sources) + 1, np.int64)
+    offs[1:] = np.cumsum([-(-len(x) // _SOURCE_ALIGN) * _SOURCE_ALIGN
+                          for x in sources])
+    rows = (offs[:-1][src], t_min, starts, counts, ktab, scalars, lengths)
+    with tracing.span("nsa.upload", bytes=sum(
+            x.nbytes for x in (*sources, *rows))):
+        t = torch.empty(int(offs[-1]), dtype=torch.float64, device=dev)
+        for x, o in zip(sources, offs.tolist()):
+            t[o:o + len(x)].copy_(torch.from_numpy(x))
+        return SampleArgs(t, *(torch.from_numpy(x).to(dev) for x in rows),
+                          _tiles(lengths.max(), TILE))
 
 
 def _sample_one(t, max_range: int, multiple: float, device, plain: bool):
@@ -267,8 +338,8 @@ def _sample_one(t, max_range: int, multiple: float, device, plain: bool):
     if n == 0:
         return (torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.bool, device=dev))
-    args = [torch.from_numpy(x).to(dev)
-            for x in stream_sample_inputs([t64], max_range, multiple)]
+    args = stream_sample_args(
+        stream_sample_inputs([t64], max_range, multiple), dev)
     if plain:
         ss, keep = stream_sample_plain(*args)
     else:

@@ -1,5 +1,5 @@
-"""Kernel B1: the fused, batched NSA inner loop (normalize -> scale stamp
--> systematic keep bit) over ``(S, N)`` stacked streams.
+"""Kernel B1: the fused, batched NSA inner loop (rebase -> normalize ->
+scale stamp -> systematic keep bit) over ``S`` rows of ``n`` records.
 
 Counterpart of ``repro/kernels/stream_sample.py::stream_sample_pallas``.
 :func:`stream_sample` launches ``csrc/stream_sample.cu`` for CUDA tensors
@@ -7,6 +7,11 @@ and runs :func:`stream_sample_plain`, the same arithmetic in plain PyTorch,
 for CPU tensors. Both are bit-identical to the numpy NSA path: the f32
 bucket guess is snapped by +-1 to the exact f64 host tables
 (:func:`repro_torch.kernels.ops._nsa_tables`).
+
+The rows read their records from float64 sources laid end to end in one
+buffer, each row from its own first record (:class:`SampleArgs`): rows of
+one stream share its copy, and a chunk of a stream is a record offset into
+it. The float64 -> f32 rebase happens inside the kernel.
 
 A tile config (:class:`repro_torch.kernels.tuning.TileConfig`) chooses the
 kernel's instance: ``record_tile`` records a block, one of
@@ -17,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,23 +47,55 @@ def defines(config) -> tuple:
     return () if rt == DEFAULT_RECORD_TILE else (("REPRO_RECORD_TILE", rt),)
 
 
-def stream_sample_plain(t, starts, counts, ktab, scalars, lengths):
-    """Plain PyTorch version of the kernel (any device).
+class SampleArgs(NamedTuple):
+    """B1's arguments, in the order :func:`stream_sample` takes them.
 
-    t       : (S, N) float32 rebased timestamps, sorted per row.
-    starts, counts, ktab : (S, W) int32 exact per-bucket tables.
-    scalars : (S, 3) float32 rows of (t_min, 1/span, n_buckets).
-    lengths : (S,) int32 true row lengths; keep is False past them.
-
-    Returns ``(ss int32 (S, N), keep bool (S, N))``.
+    t       : (T,) float64, the sources' sorted timestamps end to end.
+    base    : (S,) int64, each row's first record in ``t``; row ``s``
+              reads records ``base[s]`` to ``base[s] + max(lengths[s], 1)
+              - 1``.
+    t_min   : (S,) float64, each row's rebase origin: the kernel takes
+              ``f32(t - t_min)``, numpy's ``(t64 - t_min).astype(float32)``.
+    starts, counts, ktab : (S, W) int32 exact per-bucket tables, ``starts``
+              counted from the row's first record.
+    scalars : (S, 2) float32 rows of (1/span, n_buckets).
+    lengths : (S,) int32 row lengths; keep is False past them, and lanes
+              past them read the row's last record, as the reference's
+              rows padded with their last timestamp do.
+    n       : int, the output's width (lanes a row).
     """
-    S, n = t.shape
-    t_min, inv_span, nb_f = scalars[:, 0:1], scalars[:, 1:2], scalars[:, 2:3]
+    t: torch.Tensor
+    base: torch.Tensor
+    t_min: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+    ktab: torch.Tensor
+    scalars: torch.Tensor
+    lengths: torch.Tensor
+    n: int
+
+    def rows(self, a: int, b: int) -> "SampleArgs":
+        """The arguments of rows ``[a, b)``, over the same sources."""
+        return SampleArgs(self.t, *(x[a:b] for x in self[1:8]), self.n)
+
+
+def stream_sample_plain(t, base, t_min, starts, counts, ktab, scalars,
+                        lengths, n):
+    """Plain PyTorch version of the kernel (any device), on
+    :class:`SampleArgs`. Returns ``(ss int32 (S, n), keep bool (S, n))``.
+    """
+    S = starts.shape[0]
+    dev = starts.device
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    last = (lengths.to(torch.int64) - 1).clamp(min=0)
+    rec = base[:, None] + torch.minimum(lane[None, :], last[:, None])
+    t32 = (t[rec] - t_min[:, None]).to(torch.float32)
+    inv_span, nb_f = scalars[:, 0:1], scalars[:, 1:2]
     nb = nb_f.to(torch.int32)
-    zero = torch.zeros((), dtype=torch.int32, device=t.device)
-    g = torch.floor((t - t_min) * inv_span * nb_f).to(torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    g = torch.floor(t32 * inv_span * nb_f).to(torch.int32)
     g = torch.minimum(torch.maximum(g, zero), nb - 1)
-    gidx = torch.arange(n, dtype=torch.int32, device=t.device).expand(S, n)
+    gidx = lane.to(torch.int32).expand(S, n)
     s_g = torch.gather(starts, 1, g.long())
     c_g = torch.gather(counts, 1, g.long())
     g = g + (gidx >= s_g + c_g).to(torch.int32) \
@@ -76,17 +114,21 @@ def stream_sample_plain(t, starts, counts, ktab, scalars, lengths):
 def _entry(defs):
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("stream_sample", "stream_sample_launch",
-                       [p, p, p, p, p, p, p, p, i, i, i, p], defs)
+                       [p] * 10 + [i, i, i, p], defs)
 
 
-def _check_inputs(t, starts, counts, ktab, scalars, lengths) -> None:
-    S, n = t.shape
-    W = starts.shape[1]
-    want = {"t": (t, torch.float32, (S, n)),
+def _check_inputs(t, base, t_min, starts, counts, ktab, scalars, lengths,
+                  n) -> None:
+    if starts.ndim != 2:
+        raise ValueError(f"starts: want (S, W), got {tuple(starts.shape)}")
+    S, W = starts.shape
+    want = {"t": (t, torch.float64, (t.numel(),)),
+            "base": (base, torch.int64, (S,)),
+            "t_min": (t_min, torch.float64, (S,)),
             "starts": (starts, torch.int32, (S, W)),
             "counts": (counts, torch.int32, (S, W)),
             "ktab": (ktab, torch.int32, (S, W)),
-            "scalars": (scalars, torch.float32, (S, 3)),
+            "scalars": (scalars, torch.float32, (S, 2)),
             "lengths": (lengths, torch.int32, (S,))}
     for name, (x, dtype, shape) in want.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
@@ -98,33 +140,35 @@ def _check_inputs(t, starts, counts, ktab, scalars, lengths) -> None:
             raise ValueError(f"{name} must be contiguous")
     if W > MAX_RANGE_LIMIT:
         raise ValueError(f"table width {W} exceeds {MAX_RANGE_LIMIT}")
-    if S > 65535 or S * n >= 2 ** 31:
+    # one block a (row, record tile): the grid's one dimension
+    if n < 0 or S * n >= 2 ** 31 or S * -(-n // min(RECORD_TILES)) >= 2 ** 31:
         raise ValueError(f"batch {S} x {n} too large for one launch")
 
 
-def stream_sample(t, starts, counts, ktab, scalars, lengths, *,
-                  config=None):
+def stream_sample(t, base, t_min, starts, counts, ktab, scalars, lengths,
+                  n, *, config=None):
     """B1 on the tensors' device: the CUDA kernel for CUDA tensors (the
     instance ``config`` names, ``None`` the default), the plain version for
-    CPU tensors (same arguments and results as
+    CPU tensors (same arguments, :class:`SampleArgs`, and results as
     :func:`stream_sample_plain`). Each kernel launch adds one to
     ``stream_sample.launches``."""
+    args = (t, base, t_min, starts, counts, ktab, scalars, lengths, int(n))
     if t.device.type == "cpu":
-        return stream_sample_plain(t, starts, counts, ktab, scalars,
-                                   lengths)
+        return stream_sample_plain(*args)
     if t.device.type != "cuda":
         raise ValueError(f"stream_sample runs on cuda or cpu, not "
                          f"{t.device}")
     defs = defines(config)
-    _check_inputs(t, starts, counts, ktab, scalars, lengths)
-    S, n = t.shape
+    _check_inputs(*args)
+    S, n = starts.shape[0], args[-1]
     ss = torch.empty((S, n), dtype=torch.int32, device=t.device)
     keep = torch.empty((S, n), dtype=torch.bool, device=t.device)
     p = _build.ptr
     with torch.cuda.device(t.device):
-        code = _entry(defs)(p(t), p(starts), p(counts), p(ktab), p(scalars),
-                        p(lengths), p(ss), p(keep), S, n, starts.shape[1],
-                        _build.stream_handle(t.device))
+        code = _entry(defs)(p(t), p(base), p(t_min), p(starts), p(counts),
+                            p(ktab), p(scalars), p(lengths), p(ss), p(keep),
+                            S, n, starts.shape[1],
+                            _build.stream_handle(t.device))
     _build.check(code, "stream_sample")
     stream_sample.launches += 1
     return ss, keep

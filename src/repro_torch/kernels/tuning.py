@@ -364,8 +364,8 @@ def _spec_stream_sample(key: TuneKey, cfg: TileConfig, dev):
     r = max(r, 2)
     rng = _spec_rng(key)
     rows = [np.sort(rng.uniform(0.0, 3600.0, n)) for _ in range(s)]
-    args = [torch.from_numpy(x).to(dev)
-            for x in ops.stream_sample_inputs(rows, r, 3.0)]
+    args = ops.stream_sample_args(ops.stream_sample_inputs(rows, r, 3.0),
+                                  dev)
 
     def run():
         return _sample.stream_sample(*args, config=cfg)

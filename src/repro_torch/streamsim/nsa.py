@@ -394,18 +394,20 @@ class ChunkHandles:
 class ChunkedNSA:
     """Per-chunk device NSA over a scenario grid — the unbounded-stream form.
 
-    Uploads each row's full-width bucket tables and rebased f32 timestamps
-    to the device ONCE, then serves the timeline chunk by chunk:
-    ``chunk(lo, hi)`` runs kernel B1 on just the record slice whose scale
-    stamps land in ``[lo, hi)`` and compacts its keep mask with B2, with no
-    host synchronisation (every size comes from the host tables).
+    Uploads each stream's float64 timestamps (once, however many rows read
+    it) and each row's full-width bucket tables to the device ONCE, then
+    serves the timeline chunk by chunk: ``chunk(lo, hi)`` runs kernel B1 on
+    just the record slice whose scale stamps land in ``[lo, hi)`` and
+    compacts its keep mask with B2, with no host synchronisation (every
+    size comes from the host tables).
 
     Bit-exactness with the monolithic sweep: a chunk's records are a
     CONTIGUOUS slice ``[starts[lo], starts[hi])`` of the sorted stream
-    (records never split a bucket), and B1 is launched with the full-width
-    tables rebased by the slice offset, so each record sees the same f32
-    timestamp, the same snapped bucket and the same in-bucket rank as in
-    the monolithic launch. Concatenating the chunks reproduces
+    (records never split a bucket), and B1 reads the slice at its record
+    offset in the uploaded stream, rebased by the stream's ``t_min``, with
+    the full-width tables rebased by the offset, so each record sees the
+    same f32 timestamp, the same snapped bucket and the same in-bucket rank
+    as in the monolithic launch. Concatenating the chunks reproduces
     :func:`nsa_sweep_device` exactly.
 
     Parameters
@@ -436,8 +438,6 @@ class ChunkedNSA:
                  pairs: Sequence[Tuple[str, int]], *,
                  multiple_mode: str = "time", device=None,
                  autotune: Optional[str] = None):
-        import torch
-
         from repro_torch.kernels import ops
 
         self.autotune = autotune
@@ -446,20 +446,21 @@ class ChunkedNSA:
             raise ValueError("need at least one scenario row")
         if any(rng <= 0 for _, rng in self.pairs):
             raise ValueError("ranges must be positive")
-        ts = [np.asarray(streams[name].t, np.float64)
-              for name, _ in self.pairs]
+        ts = [streams[name].t for name, _ in self.pairs]
         if any(len(t) == 0 for t in ts):
             raise ValueError("chunked path requires non-empty streams")
         self.device = ops.resolve_device(device)
         mults = [_multiple(len(streams[name]), streams[name].time_range,
                            rng, multiple_mode)
                  for name, rng in self.pairs]
-        t_b, starts_b, counts_b, k_b, scal_b, lengths = \
-            ops.stream_sample_inputs(ts, [rng for _, rng in self.pairs],
-                                     mults)
+        inputs = ops.stream_sample_inputs(
+            ts, [rng for _, rng in self.pairs], mults)
+        _, _, _, starts_b, counts_b, k_b, _, lengths = inputs
         self.lengths = lengths.astype(np.int64)
         self.width = starts_b.shape[1]
-        self.N = t_b.shape[1]
+        #: B1's arguments over whole rows: the chunks read their slices
+        self._args = ops.stream_sample_args(inputs, self.device)
+        self.N = self._args.n
         ops._check_metrics_domain(self.N)  # any chunk's kept width <= N
         # host copies for slicing: column lo gives the first record of
         # bucket lo (tail buckets carry starts = n, so rows whose range ends
@@ -470,11 +471,6 @@ class ChunkedNSA:
         self._kept_cum = np.concatenate(
             [np.zeros((len(self.pairs), 1), np.int64),
              np.cumsum(kept, axis=1)], axis=1)
-        tables = (t_b, starts_b, counts_b, k_b, scal_b)
-        with tracing.span("nsa.upload",
-                          bytes=sum(x.nbytes for x in tables)):
-            self._t, self._starts, self._counts, self._ktab, self._scal = (
-                torch.from_numpy(x).to(self.device) for x in tables)
 
     def n_chunks(self, chunk_s: int) -> int:
         return -(-self.width // int(chunk_s))
@@ -488,13 +484,13 @@ class ChunkedNSA:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def sample_inputs(self, lo: int, hi: int):
-        """B1's six arguments for absolute buckets ``[lo, hi)``: the
-        record slice ``[starts[lo], starts[hi])`` of each row, padded to
-        whole tiles with the row's last timestamp, the full-width tables
-        rebased by the slice offset, and the slice lengths; plus the
-        offsets (host int64, one per row). Queues copies, no sync."""
-        import torch
-
+        """B1's arguments (:class:`~repro_torch.kernels.stream_sample.
+        SampleArgs`) for absolute buckets ``[lo, hi)``: each row reads its
+        record slice ``[starts[lo], starts[hi])`` at that offset in the
+        uploaded stream (an empty slice reads the stream's last record),
+        with the full-width tables rebased by the offset, the slice
+        lengths, and a width of whole tiles; plus the offsets (host int64,
+        one per row). Queues copies, no sync."""
         from repro_torch.kernels import ops
 
         lo, hi = int(lo), int(hi)
@@ -504,19 +500,14 @@ class ChunkedNSA:
         a = self._starts_np[:, lo]
         b = self.lengths if hi >= self.width else self._starts_np[:, hi]
         m = b - a
-        Nc = _tiles(m.max(), ops.TILE)
-        t_slice = torch.empty((len(self.pairs), Nc), dtype=torch.float32,
-                              device=self.device)
-        for r, off in enumerate(a.tolist()):
-            take = min(Nc, self.N - off)
-            t_slice[r, :take] = self._t[r, off:off + take]
-            if take < Nc:                   # pad with the last timestamp
-                t_slice[r, take:] = self._t[r, self.N - 1:]
+        whole = self._args
         # rebase the bucket tables by the slice offset: local rank equals
         # global rank, so the keep bits match the monolithic launch
-        starts_reb = self._starts - self._upload(a.astype(np.int32))[:, None]
-        return (t_slice, starts_reb, self._counts, self._ktab, self._scal,
-                self._upload(m.astype(np.int32))), a
+        return whole._replace(
+            base=whole.base + self._upload(np.minimum(a, self.lengths - 1)),
+            starts=whole.starts - self._upload(a.astype(np.int32))[:, None],
+            lengths=self._upload(m.astype(np.int32)),
+            n=ops._tiles(m.max(), ops.TILE)), a
 
     def chunk(self, lo: int, hi: int) -> ChunkHandles:
         """Launch B1 and B2 for absolute buckets ``[lo, hi)``; returns the
@@ -528,9 +519,9 @@ class ChunkedNSA:
 
         b1_in, a = self.sample_inputs(lo, hi)
         lo, hi = int(lo), int(hi)
-        Nc = b1_in[0].shape[1]
+        Nc = b1_in.n
         kept = self._kept_cum[:, hi] - self._kept_cum[:, lo]
-        K = min(_tiles(kept.max(), ops.TILE), Nc)
+        K = min(ops._tiles(kept.max(), ops.TILE), Nc)
         end = self.lengths if hi >= self.width else self._starts_np[:, hi]
         with tuning.tuner_context(self.autotune, device=self.device):
             cfg = tuning.config_for(
@@ -543,11 +534,6 @@ class ChunkedNSA:
         ss_kept = torch.gather(ss, 1, torch.clamp(idx, max=Nc - 1).long())
         return ChunkHandles(ss_kept=ss_kept, idx=idx, totals=totals,
                             rec_off=a, kept=kept, lo=lo, hi=hi)
-
-
-def _tiles(x, tile: int) -> int:
-    """``x`` rounded up to whole tiles, at least one."""
-    return max(int(-(-int(x) // tile) * tile), tile)
 
 
 def materialize_sweep_chunk(streams: Dict[str, Stream],

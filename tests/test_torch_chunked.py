@@ -374,16 +374,14 @@ class TestChunkedNSA:
         streams = {d: _mini(d) for d in DATASETS}
         pairs = [(d, r) for d in DATASETS for r in RANGES]
         cn = T.ChunkedNSA(streams, pairs, device=CPU)
-        ss_w, keep_w = stream_sample_plain(
-            cn._t, cn._starts, cn._counts, cn._ktab, cn._scal,
-            torch.from_numpy(cn.lengths.astype(np.int32)))
+        ss_w, keep_w = stream_sample_plain(*cn._args)
         for lo in range(0, cn.width, cs):
             hi = min(lo + cs, cn.width)
             b1_in, a = cn.sample_inputs(lo, hi)
             assert np.array_equal(a, cn._starts_np[:, lo])
-            assert b1_in[0].shape[1] % tops.TILE == 0
+            assert b1_in.n % tops.TILE == 0
             ss, keep = stream_sample_plain(*b1_in)
-            for r, (off, m) in enumerate(zip(a, b1_in[-1].tolist())):
+            for r, (off, m) in enumerate(zip(a, b1_in.lengths.tolist())):
                 assert np.array_equal(ss[r, :m], ss_w[r, off:off + m])
                 assert np.array_equal(keep[r, :m], keep_w[r, off:off + m])
                 assert not keep[r, m:].any()

@@ -81,19 +81,23 @@ class TestStreamSample:
         assert np.array_equal(keep_t.numpy(), np.asarray(keep_j))
 
     def test_tables_match_reference(self):
+        # the reference's tables bit for bit; its rebased f32 timestamps
+        # are what B1 makes of the stream and the port's float64 t_min
         rng = np.random.default_rng(3)
         t = _stream(rng, 4000, integer=True)
         for width in (None, 5000):
             a = jops._nsa_tables(t, 3600, 24.0, width)
             b = tops._nsa_tables(t, 3600, 24.0, width)
-            for x, y in zip(a[:4], b[:4]):
+            for x, y in zip(a[1:4], b[:3]):
                 assert x.dtype == y.dtype and np.array_equal(x, y)
-            assert a[4] == b[4]
+            t_min, inv_span, nb = b[3]
+            assert a[4] == (0.0, inv_span, nb) and t_min == t[0]
+            assert np.array_equal(a[0], (t - t_min).astype(np.float32))
 
     def test_plain_version_is_the_cpu_dispatch(self):
         ts = _ragged_batch(5)
-        inputs = [torch.from_numpy(x) for x in
-                  tops.stream_sample_inputs(ts, RANGES, _mults(ts, RANGES))]
+        inputs = tops.stream_sample_args(
+            tops.stream_sample_inputs(ts, RANGES, _mults(ts, RANGES)), CPU)
         before = stream_sample.launches
         a = stream_sample(*inputs)
         b = stream_sample_plain(*inputs)
@@ -259,21 +263,24 @@ def test_compact_lookback_model_matches_plain_and_pallas(R, n, tile, grid,
 _B1_ITEMS = 8
 
 
-def _stream_sample_model(t, starts, counts, ktab, scalars, lengths):
-    S, n = t.shape
+def _stream_sample_model(t, base, t_min, starts, counts, ktab, scalars,
+                         lengths, n):
+    S = len(base)
     ss = np.zeros((S, n), np.int32)
     keep = np.zeros((S, n), bool)
     reads = 0
     for s in range(S):
-        t_min, inv_span, nb_f = (np.float32(x) for x in scalars[s])
+        inv_span, nb_f = (np.float32(x) for x in scalars[s])
         nb = int(nb_f)
         st, ct, kt = starts[s], counts[s], ktab[s]
+        last = max(int(lengths[s]) - 1, 0)
         for i0 in range(0, n, _B1_ITEMS):
             cb = -1
             c_start = c_count = c_k = 0
             for i in range(i0, min(i0 + _B1_ITEMS, n)):
-                x = np.float32(np.float32(np.float32(t[s, i] - t_min)
-                                          * inv_span) * nb_f)
+                # the rebase: f32 of the float64 difference
+                t32 = np.float32(t[base[s] + min(i, last)] - t_min[s])
+                x = np.float32(np.float32(t32 * inv_span) * nb_f)
                 g = int(min(max(np.floor(x), np.float32(0)),
                             np.float32(nb - 1)))
                 s_g, c_g = c_start, c_count
@@ -297,12 +304,22 @@ def _stream_sample_model(t, starts, counts, ktab, scalars, lengths):
     return ss, keep, reads
 
 
+def _b1_args(ts, ranges):
+    """B1's arguments on the CPU for rows ``ts`` at ``ranges``."""
+    return tops.stream_sample_args(
+        tops.stream_sample_inputs(ts, ranges, _mults(ts, ranges)), CPU)
+
+
+def _model(args):
+    return _stream_sample_model(*(x.numpy() if isinstance(x, torch.Tensor)
+                                  else x for x in args))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_stream_sample_group_model_matches_plain(seed):
-    ts = _ragged_batch(seed)
-    ins = tops.stream_sample_inputs(ts, RANGES, _mults(ts, RANGES))
-    ss, keep, reads = _stream_sample_model(*ins)
-    ss_p, keep_p = stream_sample_plain(*(torch.from_numpy(x) for x in ins))
+    args = _b1_args(_ragged_batch(seed), RANGES)
+    ss, keep, reads = _model(args)
+    ss_p, keep_p = stream_sample_plain(*args)
     np.testing.assert_array_equal(ss, ss_p.numpy())
     np.testing.assert_array_equal(keep, keep_p.numpy())
     assert reads < 5 * ss.size / 2
@@ -312,12 +329,10 @@ def test_stream_sample_group_model_short_rows():
     """Rows of 1003 records, not a multiple of 8 (the kernel's scalar
     path, the last group cut short): the model equals the plain version."""
     ts = [t[:1003] for t in _ragged_batch(4)[:2]]
-    ins = list(tops.stream_sample_inputs(ts, [600, 3600],
-                                         _mults(ts, [600, 3600])))
-    ins[0] = np.ascontiguousarray(ins[0][:, :1003])
-    assert ins[0].shape[1] % _B1_ITEMS and (ins[-1] == 1003).all()
-    ss, keep, _ = _stream_sample_model(*ins)
-    ss_p, keep_p = stream_sample_plain(*(torch.from_numpy(x) for x in ins))
+    args = _b1_args(ts, [600, 3600])._replace(n=1003)
+    assert args.n % _B1_ITEMS and (args.lengths == 1003).all()
+    ss, keep, _ = _model(args)
+    ss_p, keep_p = stream_sample_plain(*args)
     np.testing.assert_array_equal(ss, ss_p.numpy())
     np.testing.assert_array_equal(keep, keep_p.numpy())
 
@@ -743,11 +758,12 @@ class TestDomainGuards:
 # ------------------------------------------------- devices and options
 class TestDeviceRules:
     def test_meta_tensors_are_refused(self):
-        t = torch.empty((1, 8), device="meta")
+        t = torch.empty(8, dtype=torch.float64, device="meta")
         i = torch.empty((1, 4), dtype=torch.int32, device="meta")
         with pytest.raises(ValueError):
-            stream_sample(t, i, i, i, torch.empty((1, 3), device="meta"),
-                          torch.empty(1, dtype=torch.int32, device="meta"))
+            stream_sample(t, torch.zeros(1, dtype=torch.int64, device="meta"),
+                          t[:1], i, i, i, torch.empty((1, 2), device="meta"),
+                          torch.empty(1, dtype=torch.int32, device="meta"), 8)
         with pytest.raises(ValueError):
             compact(torch.empty((1, 8), dtype=torch.bool, device="meta"))
 

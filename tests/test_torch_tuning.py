@@ -149,7 +149,7 @@ def test_grid_split_matches_single_launch():
     real = tsample.stream_sample
 
     def spy(*a, **kw):
-        calls.append(a[0].shape[0])
+        calls.append(a[1].shape[0])      # the rows' first records
         return real(*a, **kw)
 
     ss0, keep0, len0 = ops.stream_sample_batched(streams, ranges, 1.0,

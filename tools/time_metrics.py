@@ -62,19 +62,18 @@ def _b12_outputs(ts, ranges):
     """B1's and B2's outputs at one case, through their plain versions on
     the card: ``ss``, ``lengths``, ``kept`` and ``totals``, as
     ``chip_smoke.check_kernels`` keeps them."""
-    import torch
-
     from repro_torch.kernels import ops
     from repro_torch.kernels.compact import compact_plain
     from repro_torch.kernels.stream_sample import stream_sample_plain
     from repro_torch.streamsim.nsa import _multiple
     mults = [_multiple(len(t), float(t[-1] - t[0]), mr, "time")
              for t, mr in zip(ts, ranges)]
-    b1_in = [torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)
-             for x in ops.stream_sample_inputs(ts, ranges, mults)]
+    b1_in = ops.stream_sample_args(
+        ops.stream_sample_inputs(ts, ranges, mults), DEVICE)
     ss, keep = stream_sample_plain(*b1_in)
     idx, tot = compact_plain(keep)
-    return dict(ss=ss, lengths=b1_in[-1], kept=cs._kept_stamps(ss, idx, tot),
+    return dict(ss=ss, lengths=b1_in.lengths,
+                kept=cs._kept_stamps(ss, idx, tot),
                 totals=tot)
 
 

@@ -7,15 +7,15 @@ card.
         [--scale 1.0] [--seed 0] [--out FILE]
 
 ``DIR`` holds another checkout (an earlier commit unpacked with ``git
-archive``). This checkout builds the inputs once: B1's inputs at the
-``run`` shape (the userbehavior day at max_range 3600), at the
-``run_many`` shard (the paper's 3 x 6 grid, 18 rows) and at one nine-day
-chunk (buckets [1800, 2400) of nine userbehavior days at 3600 s a day, as
-``ChunkedNSA.sample_inputs`` gives them). Then four processes, in the
-order other, this, this, other, each import one checkout's
-``repro_torch``, build its two kernels from its ``csrc/`` and, at each
-shape, hold B1's ``ss`` and ``keep`` and B2's ``idx`` and ``totals`` to
-the plain versions bit for bit and time:
+archive``). Four processes, in the order other, this, this, other, each
+import one checkout's ``repro_torch``, build its two kernels from its
+``csrc/`` and B1's inputs with its own ``ops`` from the same streams: the
+``run`` shape (the userbehavior day at max_range 3600), the ``run_many``
+shard (the paper's 3 x 6 grid, 18 rows) and one nine-day chunk (buckets
+[1800, 2400) of nine userbehavior days at 3600 s a day, as
+``ChunkedNSA.sample_inputs`` gives them). At each shape each process holds
+B1's ``ss`` and ``keep`` and B2's ``idx`` and ``totals`` to the plain
+versions bit for bit and times:
 
 - ``ms``: ``chip_smoke._time_ms``, the device time between CUDA events
   after a 256 MiB read that leaves L2 cold and hides the wrapper's host
@@ -28,13 +28,16 @@ the plain versions bit for bit and time:
 B2 runs on the keep mask of the plain version of B1. Prints one JSON
 object (each process's rows, and per checkout the median of its two
 processes) and writes it to ``--out`` when given. The bounds are
-``chip_smoke.py``'s. Needs a CUDA device; fails without one.
+``chip_smoke.py``'s, for a checkout whose B1 takes
+``stream_sample.SampleArgs`` (null for one whose B1 takes other
+arguments). Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -51,11 +54,10 @@ SHAPES = ("run", "sweep", "chunk")
 
 
 def build_inputs(scale: float, seed: int, workdir: Path) -> dict:
-    """B1's six arguments at each shape, as CPU tensors, from this
-    checkout's ``repro_torch``."""
+    """B1's arguments at each shape on the card, from the ``repro_torch``
+    this process imported (an older checkout's B1 took six tensors)."""
     import torch
 
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import ops
     from repro_torch.streamsim import ChunkedNSA, Controller
     from repro_torch.streamsim.nsa import _multiple
@@ -65,8 +67,10 @@ def build_inputs(scale: float, seed: int, workdir: Path) -> dict:
     def b1_in(ts, ranges):
         mults = [_multiple(len(t), float(t[-1] - t[0]), mr, "time")
                  for t, mr in zip(ts, ranges)]
-        return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in
-                     ops.stream_sample_inputs(ts, ranges, mults))
+        inputs = ops.stream_sample_inputs(ts, ranges, mults)
+        if hasattr(ops, "stream_sample_args"):
+            return ops.stream_sample_args(inputs, "cuda")
+        return tuple(torch.from_numpy(x).cuda() for x in inputs)
 
     out = {
         "run": b1_in([streams[cs.MAIN_DATASET].t], [cs.MAIN_RANGE]),
@@ -79,13 +83,13 @@ def build_inputs(scale: float, seed: int, workdir: Path) -> dict:
     original = Controller(str(workdir / "store"), device="cpu") \
         ._prepare_multiday(cs.MAIN_DATASET, scale, seed, cs.MULTIDAY_S)
     cn = ChunkedNSA({cs.MAIN_DATASET: original},
-                    [(cs.MAIN_DATASET, cs.MAIN_RANGE * days)], device="cpu")
+                    [(cs.MAIN_DATASET, cs.MAIN_RANGE * days)], device="cuda")
     lo = cs.MULTIDAY_TIMED_CHUNK * cs.CHUNK_S
     out["chunk"], _ = cn.sample_inputs(lo, lo + cs.CHUNK_S)
     return out
 
 
-def time_tree(tree: Path, inputs_file: Path, reps: int) -> dict:
+def time_tree(tree: Path, scale: float, seed: int, reps: int) -> dict:
     """One process's rows: ``tree``'s kernels at every shape."""
     import torch
 
@@ -98,10 +102,11 @@ def time_tree(tree: Path, inputs_file: Path, reps: int) -> dict:
     if Path(repro_torch.__file__).resolve().parents[2] != tree.resolve():
         raise AssertionError(f"imported {repro_torch.__file__}, not {tree}")
     _build.build_all(["stream_sample", "compact"])
-    inputs = torch.load(inputs_file)
     rows = {}
+    with tempfile.TemporaryDirectory(prefix="b1b2_") as tmp:
+        inputs = build_inputs(scale, seed, Path(tmp))
     for shape in SHAPES:
-        b1_in = tuple(x.cuda() for x in inputs[shape])
+        b1_in = inputs.pop(shape)
         ss_p, keep = stream_sample_plain(*b1_in)
         ss, keep_k = stream_sample(*b1_in)
         cs._exact(f"stream_sample/{shape}/ss", ss, ss_p)
@@ -110,9 +115,11 @@ def time_tree(tree: Path, inputs_file: Path, reps: int) -> dict:
         idx_p, tot_p = compact_plain(keep)
         cs._exact(f"compact/{shape}/idx", idx, idx_p)
         cs._exact(f"compact/{shape}/totals", tot, tot_p)
-        S, N = b1_in[0].shape
-        W = b1_in[1].shape[1]
-        b1 = dict(bound_ms=cs._b1_bound(b1_in, ss_p)[0])
+        S, N = ss.shape
+        new_form = hasattr(b1_in, "base")
+        W = (b1_in.starts if new_form else b1_in[1]).shape[1]
+        b1 = dict(bound_ms=cs._b1_bound(b1_in, ss_p)[0] if new_form
+                  else None)
         b2 = dict(bound_ms=cs._b2_bound(keep)[0])
         for row, fn in ((b1, lambda: stream_sample(*b1_in)),
                         (b2, lambda: compact(keep))):
@@ -182,18 +189,18 @@ def main() -> int:
         print("time_sample_compact: needs a CUDA device", file=sys.stderr)
         return 1
     if args.worker is not None:
-        print(json.dumps(time_tree(args.worker, args.inputs, args.reps)))
+        print(json.dumps(time_tree(args.worker, args.scale, args.seed,
+                                   args.reps)))
         return 0
     if args.other is None or not (
             args.other / "src/repro_torch/csrc/compact.cu").is_file():
         ap.error("--other must name a checkout holding src/repro_torch")
     trees = {"other": args.other.resolve(), "this": ROOT}
-    with tempfile.TemporaryDirectory(prefix="b1b2_") as tmp:
-        inputs_file = Path(tmp) / "inputs.pt"
-        torch.save(build_inputs(args.scale, args.seed, Path(tmp)),
-                   inputs_file)
-        runs = run_workers(Path(__file__).resolve(), trees, inputs_file,
-                           args.reps)
+    # each process builds its inputs: no file passes between them
+    runs = run_workers(Path(__file__).resolve(), trees, Path(os.devnull),
+                       args.reps, extra=lambda which, i: (
+                           "--scale", str(args.scale),
+                           "--seed", str(args.seed)))
     write_result({"card": cs._card_line(), "other": str(args.other),
                   "reps": args.reps, "runs": runs,
                   "median": {k: medians(v) for k, v in runs.items()}},
