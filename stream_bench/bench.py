@@ -14,18 +14,22 @@ One run:
 
 1. Set-up: import the program, make the raw streams from the seed with the
    frozen generators, hand them to the program's ``preprocess`` and
-   ``StreamStore.put`` under the keys ``Controller.prepare`` reads, into a
-   template store under ``TMPDIR``, and run one untimed job (it builds or
-   loads the kernels and warms every shape).
+   ``StreamStore.put`` under the keys ``Controller.prepare`` reads (where
+   the configuration's datasets run ``days`` N > 1, the key
+   ``Controller._prepare_multiday`` reads, and the entry gets
+   ``duration_s`` N days), into a template store under ``TMPDIR``, and run
+   one untimed job (it builds or loads the kernels and warms every shape).
 2. The window: jobs back to back until the seconds have passed; the job in
    flight is finished and counted. A job gets a fresh store whose
    originals are hard links into the template (no original byte is
    written again), calls the configuration's entry with its knobs, drains
    the replay into the benchmark's consumer, and deletes its store. Of
    what it produced it keeps its reports and matrices, each bucket's
-   stamp and count, a digest of the records of a sample of buckets drawn
-   from the seed and one of the sims stored; the window's first job keeps
-   its records and sims whole.
+   stamp and count, its feed's high-water mark where it replayed chunk by
+   chunk, a digest of the records of a sample of buckets drawn from the
+   seed and one of each stored sim's files (its ``columns.npz``, or its
+   chunk files in order); the window's first job keeps its records and
+   sims whole.
 3. The check: the plain reference works out the job's outputs from the
    same raw streams, and every job is compared with it
    (:mod:`stream_bench.judge`): the first job record for record, the
@@ -181,8 +185,9 @@ class Job:
     slots: List[Delivered]   # what the consumer got, one a queue
     #: scenario -> the stored sim's digest, None where none was stored
     stored_digest: Dict[Tuple[str, int], Optional[tuple]]
-    #: scenario -> the stored sim kept whole, in the job checked in full
-    stored: Optional[Dict[Tuple[str, int], Path]] = None
+    #: scenario -> the stored sim's files kept whole (None where none was
+    #: stored), in the job checked in full
+    stored: Optional[Dict[Tuple[str, int], Optional[List[Path]]]] = None
     error: Optional[str] = None
 
     @property
@@ -204,7 +209,8 @@ class Job:
                 "simulated_rows": r.simulated_rows,
                 "original_volatility": _vol(r.original_volatility),
                 "simulated_volatility": _vol(r.simulated_volatility),
-                "trend_corr": r.trend_corr, "status": r.status}
+                "trend_corr": r.trend_corr, "status": r.status,
+                "feed_hwm": r.consumer_metrics.get("feed_hwm_chunks")}
             slot = r.consumer_metrics.get("bench_slot")
             if slot is not None:
                 got = self.slots[slot]
@@ -215,8 +221,8 @@ class Job:
         fid = {int(f.max_range): (list(f.labels), np.asarray(
             f.trend_corr, np.float64)) for f in self.fidelity}
         stored = None if self.stored is None else {
-            sc: judge.load_stored(p) if p.exists() else None
-            for sc, p in self.stored.items()}
+            sc: None if files is None else judge.load_stored(files)
+            for sc, files in self.stored.items()}
         return judge.JobOutput(reports, fid, replay, self.stored_digest,
                                stored, failed=self.error is not None)
 
@@ -241,6 +247,16 @@ class Cell:
         self.datasets = list(self.config["datasets"])
         self.ranges = [int(mr) for mr in self.traffic["max_ranges"]]
         self.knobs = dict(self.config["knobs"])
+        days = {int(s["days"]) for s in self.config["datasets"].values()}
+        if len(days) != 1:
+            raise ValueError(f"{entry['config']}: datasets of different days")
+        n_days = days.pop()
+        #: a multi-day source's seconds (0: the native day), and the suffix
+        #: of the store keys the program's multi-day sweep reads and writes
+        self.duration_s = n_days * generators.DAY if n_days > 1 else 0
+        self.key_suffix = f"__d{self.duration_s}" if self.duration_s else ""
+        if self.duration_s:
+            self.knobs["duration_s"] = self.duration_s
         self.tracer = tracer or trace.NullTracer()
         self.workdir = Path(tempfile.mkdtemp(prefix="stream_bench-"))
         self.template = self.workdir / "template"
@@ -272,7 +288,7 @@ class Cell:
         for d in self.datasets:
             stream = preprocess(RawStream(name=d, columns=dict(self.raw[d])))
             self.records[d] = len(stream)
-            store.put(f"{d}__orig", stream,
+            store.put(f"{d}__orig{self.key_suffix}", stream,
                       {"scale": self.scale, "seed": self.seed})
 
     def run_job(self, index: int, full: bool = False) -> Job:
@@ -284,7 +300,8 @@ class Cell:
         jdir = self.workdir / f"job{index + 1:05d}"
         with tr.span("bench.job_setup"):
             for d in self.datasets:
-                src, dst = self.template / f"{d}__orig", jdir / f"{d}__orig"
+                key = f"{d}__orig{self.key_suffix}"
+                src, dst = self.template / key, jdir / key
                 dst.mkdir(parents=True)
                 for f in ("columns.npz", "manifest.json"):
                     os.link(src / f, dst / f)
@@ -318,13 +335,18 @@ class Cell:
                 self.checked.mkdir(exist_ok=True)
             for d in self.datasets:
                 for mr in self.ranges:
-                    src = jdir / f"{d}__sim{mr}" / "columns.npz"
-                    digests[(d, mr)] = judge.npz_digest(src) \
-                        if src.exists() else None
+                    key = f"{d}__sim{mr}{self.key_suffix}"
+                    files = judge.stored_files(jdir / key)
+                    digests[(d, mr)] = None if files is None else tuple(
+                        judge.npz_digest(p) for p in files)
                     if full:
-                        stored[(d, mr)] = self.checked / f"{d}__sim{mr}.npz"
-                        if src.exists():
-                            os.link(src, stored[(d, mr)])
+                        stored[(d, mr)] = None
+                        if files is not None:
+                            (self.checked / key).mkdir()
+                            stored[(d, mr)] = [self.checked / key / p.name
+                                               for p in files]
+                            for p, kept in zip(files, stored[(d, mr)]):
+                                os.link(p, kept)
         with tr.span("bench.job_delete"):
             shutil.rmtree(jdir)
         return Job(index, t_call, consumer.first, time.perf_counter(),
@@ -366,6 +388,8 @@ class Run:
     spans: List[Tuple[str, int, float, float]]
     device_trace: Optional[trace.DeviceTrace]
     launches: List[roofline.Launch]
+    #: the card's allocated-memory peak over the run, 0 without a card
+    memory_peak_bytes: int = 0
 
     def span_seconds(self, name: str) -> Optional[List[float]]:
         """Seconds a job spent in spans ``name``, a value a job; None when
@@ -406,7 +430,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
             jobs, window_s = cell.window(seconds)
         finally:
             dtrace = trace.stop_profiler(
-                prof, set(trace.LAYER_SPANS) | set(BENCH_SPANS)) \
+                prof, set(trace.LAYER_SPANS) | set(BENCH_SPANS) |
+                set(trace.PROGRAM_SPANS)) \
                 if prof is not None else None
             trace.uninstall(undo)
         on_gpu = device != "cpu" and torch.cuda.is_available()
@@ -429,7 +454,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
 
         run = Run(cell, setup_s, window_s, jobs,
                   cell.tracer.records if traced else [], dtrace,
-                  cell.launches(exp))
+                  cell.launches(exp), peak)
         metrics = {}
         for m in metrics_of(spec, name, traced):
             value = load_reader(m["name"], root / BENCH.name)(run)

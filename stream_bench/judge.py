@@ -1,12 +1,14 @@
 """The comparison that decides ``correct``.
 
 Each job's outputs are set beside the plain reference's
-(:func:`stream_bench.reference.simulate.expected`), and six numbers come
-out, each held to the limit the configuration gives it:
+(:func:`stream_bench.reference.simulate.expected`), and the numbers
+below come out, each held to the limit the configuration gives it:
 
 - ``sims_bad``: simulated records read back from the job's store (kept
   stamps, scale stamps, every payload column, with their types) that are
   not the reference's, record for record; a missing or extra record counts.
+  A stored stream is the files its manifest names, in order: its chunk
+  files where it was stored chunk by chunk, else its ``columns.npz``.
 - ``replay_bad``: buckets the consumer got whose stamp or record count is
   not the reference's, plus delivered records that are not the
   reference's, in order.
@@ -17,6 +19,10 @@ out, each held to the limit the configuration gives it:
   a report from the reference's float64 value.
 - ``trend_gap``: the largest gap of a report's trend correlation.
 - ``fidelity_gap``: the largest gap of an entry of a fidelity matrix.
+- ``feed_hwm``, where the configuration's limits name it (a chunked
+  deployment): the most chunks of a scenario the replay's feed held on
+  the host at once, the largest over every report of every job; a report
+  without the program's ``feed_hwm_chunks`` reads as over any limit.
 
 A job that kept its records and stored sims whole is compared record for
 record. A later job that kept only digests (of its stored sims whole, of
@@ -29,8 +35,10 @@ matrices are compared for every job.
 from __future__ import annotations
 
 import dataclasses
+import json
 import zipfile
-from typing import Dict, Iterable, List, Optional, Tuple
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -44,7 +52,8 @@ _STORE_KEYS = {"t": "__t__", "scale_stamp": "__scale_stamp__"}
 class JobOutput:
     """What one job produced, in the reference's terms."""
 
-    #: scenario -> the report's fields, as in ``Expected.reports``
+    #: scenario -> the report's fields, as in ``Expected.reports``, and its
+    #: feed's ``feed_hwm`` (None where the report has none)
     reports: Dict[Scenario, Dict]
     #: max_range -> (labels, matrix)
     fidelity: Dict[int, Tuple[List[str], np.ndarray]]
@@ -52,8 +61,8 @@ class JobOutput:
     #: buckets, the "digest" of a sample of their records and, where the
     #: job is checked whole, the records' "columns" (else None)
     replay: Dict[Scenario, Dict]
-    #: scenario -> the stored simulated stream's :func:`npz_digest`, or
-    #: None where nothing was stored
+    #: scenario -> the :func:`npz_digest` of each of the stored simulated
+    #: stream's files, in order, or None where nothing was stored
     stored_digest: Dict[Scenario, Optional[tuple]]
     #: scenario -> the stored simulated stream's columns (None where
     #: nothing was stored), where the job is checked whole
@@ -61,10 +70,13 @@ class JobOutput:
     failed: bool = False
 
 
-def output_of(exp) -> JobOutput:
+def output_of(exp, feed_hwm: Optional[int] = None) -> JobOutput:
     """The outputs of a job that produced exactly ``exp`` (an
-    ``Expected``), whole: what the control hands the comparison."""
-    reports = {sc: dict(r, status="ok") for sc, r in exp.reports.items()}
+    ``Expected``), whole: what the control hands the comparison. The
+    reference holds no chunks on a feed: its reports carry ``feed_hwm``
+    only where it is given."""
+    reports = {sc: dict(r, status="ok", feed_hwm=feed_hwm)
+               for sc, r in exp.reports.items()}
     replay = {}
     for sc, sim in exp.sims.items():
         stamps, counts = np.unique(sim["scale_stamp"], return_counts=True)
@@ -73,6 +85,21 @@ def output_of(exp) -> JobOutput:
                                   if k != "scale_stamp"}}
     return JobOutput(reports, dict(exp.fidelity), replay,
                      {sc: None for sc in exp.sims}, dict(exp.sims))
+
+
+def stored_files(stream_dir: Path) -> Optional[List[Path]]:
+    """The files of a stored stream, in order, as its ``manifest.json``
+    names them: ``columns.00000.npz`` ... where it has ``"chunks"``, else
+    ``columns.npz``. None where there is no manifest or a file it names is
+    missing: the store cannot read the stream back."""
+    try:
+        with open(stream_dir / "manifest.json") as f:
+            chunks = int(json.load(f).get("chunks", 0))
+    except FileNotFoundError:
+        return None
+    files = [stream_dir / f"columns.{i:05d}.npz" for i in range(chunks)] \
+        or [stream_dir / "columns.npz"]
+    return files if all(p.exists() for p in files) else None
 
 
 def npz_digest(path) -> tuple:
@@ -84,24 +111,30 @@ def npz_digest(path) -> tuple:
                             for i in z.infolist()))
 
 
-def load_stored(path) -> Dict[str, np.ndarray]:
-    """A simulated stream as the store wrote it (``columns.npz``)."""
+def load_stored(files: Sequence) -> Dict[str, np.ndarray]:
+    """A simulated stream as the store wrote it: the columns of its files
+    (:func:`stored_files`), concatenated in order."""
     inv = {v: k for k, v in _STORE_KEYS.items()}
-    with np.load(path, allow_pickle=False) as z:
-        return {inv.get(k, k[2:] if k.startswith("c:") else k): z[k]
-                for k in z.files}
+    parts = []
+    for path in files:
+        with np.load(path, allow_pickle=False) as z:
+            parts.append({inv.get(k, k[2:] if k.startswith("c:") else k):
+                          z[k] for k in z.files})
+    return {k: np.concatenate([p[k] for p in parts if k in p])
+            for k in set().union(*parts)}
 
 
 def records_bad(got: Optional[Dict[str, np.ndarray]],
                 want: Dict[str, np.ndarray]) -> int:
     """Records of ``got`` that differ from ``want`` in any column (a column
-    missing, extra or of another type spoils every record)."""
+    missing, extra, of another type or of another length spoils every
+    record)."""
     n_want = len(want["t"])
     if got is None:
         return n_want
     n_got = len(got["t"]) if "t" in got else 0
-    if set(got) != set(want) or any(got[k].dtype != want[k].dtype
-                                    for k in want):
+    if set(got) != set(want) or any(got[k].dtype != want[k].dtype or
+                                    len(got[k]) != n_got for k in want):
         return max(n_got, n_want)
     n = min(n_got, n_want)
     bad = np.zeros(n, bool)
@@ -123,15 +156,17 @@ def _rel(got: float, want: float) -> float:
     return g / abs(want) if want else g
 
 
-def numbers(expected, outputs: Iterable[JobOutput]) -> Tuple[
-        Dict[str, float], int, int]:
-    """The six numbers over every job of the window, the jobs, and of them
-    the failed ones. ``outputs`` may be a generator: one job's outputs at a
-    time are held."""
+def numbers(expected, outputs: Iterable[JobOutput], feed: bool = False
+            ) -> Tuple[Dict[str, float], int, int]:
+    """The numbers over every job of the window (``feed_hwm`` with
+    ``feed``), the jobs, and of them the failed ones. ``outputs`` may be a
+    generator: one job's outputs at a time are held."""
     n = {"sims_bad": 0, "replay_bad": 0, "rows_bad": 0, "vol_rel": 0.0,
          "trend_gap": 0.0}
     if expected.fidelity:
         n["fidelity_gap"] = 0.0
+    if feed:
+        n["feed_hwm"] = 0
     #: (kind, scenario) -> (digest, records bad) of the last whole job
     whole: Dict[Tuple[str, Scenario], Tuple[object, int]] = {}
     jobs = failed = 0
@@ -147,6 +182,10 @@ def numbers(expected, outputs: Iterable[JobOutput]) -> Tuple[
             n["replay_bad"] += _replay_bad(whole, sc, out.replay.get(sc),
                                            want_sim)
             rep, want = out.reports.get(sc), expected.reports[sc]
+            if feed and rep is not None:
+                hwm = rep.get("feed_hwm")
+                n["feed_hwm"] = max(n["feed_hwm"], float("inf")
+                                    if hwm is None else hwm)
             if rep is None or rep.get("status", "ok") != "ok":
                 n["rows_bad"] += 1
                 continue
@@ -208,7 +247,7 @@ def judge(expected, outputs: Iterable[JobOutput],
           limits: Dict[str, float]) -> Tuple[bool, Dict[str, Dict]]:
     """``(correct, {number: {"value", "limit"}})``: correct when there were
     jobs, none failed, and every number is within its limit."""
-    got, jobs, failed = numbers(expected, outputs)
+    got, jobs, failed = numbers(expected, outputs, "feed_hwm" in limits)
     checks = {k: {"value": v, "limit": limits[k]} for k, v in got.items()}
     ok = jobs > 0 and not failed and all(
         c["value"] <= c["limit"] for c in checks.values())

@@ -8,6 +8,12 @@ Std (formulas (2)-(4)), the 60-second trend correlation of each simulated
 stream with its original, and the Fig.-6 S×S trend-correlation matrix per
 range. Every count is an exact integer and every statistic float64.
 
+A source of N > 1 days (the configuration's datasets' ``days``) is
+compressed into ``max_range`` seconds a day, ``max_range · N`` buckets, as
+the program's multi-day sweep (``ScenarioSpec.span_s``) does: the sim, its
+per-second counts and its statistics run over that span, and the report
+and matrix keep the scenario's ``max_range`` as its name.
+
 ``low=True`` gives the control: the same steps one precision lower than the
 configuration states, as a later change might be tempted to compute them:
 the normalization in float32 (stated: float64) and every statistic in
@@ -243,9 +249,10 @@ def expected(raw: Dict[str, Dict[str, np.ndarray]], config: Dict,
     """Work out a job's outputs from the raw columns of every dataset.
 
     ``config`` is the configuration's JSON (``datasets`` with each one's
-    ``time_column`` and ``tz_offset_s``, ``knobs.fidelity_window_s``,
-    ``report_window_s``, ``entry``)."""
+    ``time_column``, ``tz_offset_s`` and ``days``, ``knobs.
+    fidelity_window_s``, ``report_window_s``, ``entry``)."""
     datasets = list(config["datasets"])
+    n_days = max(int(s.get("days", 1)) for s in config["datasets"].values())
     win = int(config["report_window_s"])
     fid_win = int(config["knobs"].get("fidelity_window_s", win))
     scenarios = [(d, int(mr)) for d in datasets for mr in max_ranges]
@@ -258,14 +265,15 @@ def expected(raw: Dict[str, Dict[str, np.ndarray]], config: Dict,
         orig[d] = (t, payload, q, volatility(q, len(q), low))
     for d, mr in scenarios:
         t, payload, q, vol = orig[d]
-        sim = nsa(t, payload, mr, low)
-        qs = np.bincount(sim["scale_stamp"], minlength=mr)
+        span = mr * n_days
+        sim = nsa(t, payload, span, low)
+        qs = np.bincount(sim["scale_stamp"], minlength=span)
         sims[(d, mr)], sim_counts[(d, mr)] = sim, qs
         reports[(d, mr)] = {
             "original_rows": len(t),
             "simulated_rows": len(sim["t"]),
             "original_volatility": vol + (len(q),),
-            "simulated_volatility": volatility(qs, mr, low) + (mr,),
+            "simulated_volatility": volatility(qs, span, low) + (span,),
             "trend_corr": trend_corr(q, qs, win, low),
         }
     fidelity = {}

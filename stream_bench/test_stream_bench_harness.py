@@ -6,6 +6,9 @@ harness's look for a card is skipped (``run_cell(device="cpu")``)."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -14,6 +17,13 @@ from stream_bench import bench
 
 SCALE = 0.005
 SEED = 2**31 + 5
+CHUNKED = "paper-grid-chunked.c600"
+_ONE_DAY = ["sims_bad", "replay_bad", "rows_bad", "vol_rel", "trend_gap"]
+#: the numbers each cell's checks print, in order: the monolithic cells'
+#: as before the chunked cell came
+CHECK_KEYS = {"ub-day.r3600": _ONE_DAY, "ub-day.r600": _ONE_DAY,
+              "paper-grid.sweep": _ONE_DAY + ["fidelity_gap"],
+              CHUNKED: _ONE_DAY + ["fidelity_gap", "feed_hwm"]}
 
 
 def _run(cell, traced=False, seconds=0.2):
@@ -29,20 +39,56 @@ def test_cell_runs_correct_on_cpu(cell):
     assert out["attempted"] >= 1 and out["failed"] == 0
     want = {m["name"] for m in bench.metrics_of(bench.load_spec(), cell,
                                                 False)}
-    assert set(out["metrics"]) == want
+    # the card's memory peak finds nothing to read without a card
+    assert set(out["metrics"]) == want - {"device_peak_bytes"}
     assert list(out)[-1] == "checks"
+    assert list(out["checks"]) == CHECK_KEYS[cell]
     assert all(m["value"] > 0 for m in out["metrics"].values())
 
 
 def test_traced_run_reads_the_span_metrics_on_cpu():
     out = _run("paper-grid.sweep", traced=True)
     assert out["correct"]
-    spans = {"original_load_s", "nsa_s", "fidelity_s", "materialize_s",
-             "produce_s"}
+    spans = {"sweep_original_load_s", "sweep_nsa_s", "fidelity_s",
+             "sweep_materialize_s", "sweep_produce_s", "sweep_job_s",
+             "sweep_first_bucket_s"}
     assert spans <= set(out["metrics"])
     # no device operation ran: the device's metrics find nothing to read
-    assert "device_idle" not in out["metrics"]
-    assert "kernel_roofline" not in out["metrics"]
+    assert "sweep_device_idle" not in out["metrics"]
+    assert "sweep_kernel_roofline" not in out["metrics"]
+
+
+def test_every_per_layer_metric_moves_a_metric_its_cells_report():
+    spec = bench.load_spec()
+    for w in spec["workloads"]:
+        e2e = {m["name"] for m in bench.metrics_of(spec, w["name"], False)}
+        assert "setup_s" in e2e and len(e2e) >= 2
+        layer = bench.metrics_of(spec, w["name"], True)
+        assert layer
+        assert all(m["moves"] in e2e for m in layer), w["name"]
+
+
+def _sweep_twins():
+    return [m["name"] for m in bench.load_spec()["per_layer"]
+            if m["name"].startswith("sweep_")]
+
+
+@pytest.mark.parametrize("twin", _sweep_twins())
+def test_sweep_metric_reads_what_its_cells_metric_reads(twin):
+    """A sweep cell's per-layer metric is its ub-day twin's reader."""
+    base = twin[len("sweep_"):]
+    assert bench.load_reader(twin).__code__.co_filename == \
+        bench.load_reader(base).__code__.co_filename
+    run = bench.Run(None, 1.0, 2.0, [], [], None, [])
+    assert bench.load_reader(twin)(run) == bench.load_reader(base)(run)
+
+
+def test_device_peak_reads_the_card_and_nothing_without_one():
+    read = bench.load_reader("device_peak_bytes")
+    run = bench.Run(None, 1.0, 2.0, [], [], None, [])
+    assert read(run) is None
+    run.memory_peak_bytes = 1_838_203_392
+    assert read(run) == 1_838_203_392
 
 
 def _keep_all(orig):
@@ -87,6 +133,46 @@ def _nudge(orig, by=1e-2):
     return f
 
 
+def _chunk_record_off(orig):
+    """One record of the second chunk altered in the file only: the replay
+    gets the chunk as it was."""
+    def f(self, key, chunk_idx, stream, *args, **kw):
+        if chunk_idx == 1 and len(stream):
+            t = stream.t.copy()
+            t[0] += 0.25
+            stream = dataclasses.replace(stream, t=t)
+        return orig(self, key, chunk_idx, stream, *args, **kw)
+    return f
+
+
+def _after_finalize(act):
+    """Act on a stream's chunk files once its manifest is written."""
+    def make(orig):
+        def f(self, key, **kw):
+            orig(self, key, **kw)
+            if kw["n_chunks"] > 1:
+                act(self.root / key)
+        return f
+    return make
+
+
+def _swap(d):
+    a, b = d / "columns.00000.npz", d / "columns.00001.npz"
+    os.replace(a, d / "swap.tmp")
+    os.replace(b, a)
+    os.replace(d / "swap.tmp", b)
+
+
+def _delete(d):
+    (d / "columns.00001.npz").unlink()
+
+
+def _feed_over(orig):
+    def f(self):
+        return dict(orig(self), feed_hwm_chunks=3)
+    return f
+
+
 #: (cell, owner module, attribute, fault, the check it must fail)
 FAULTS = {
     "state_unchanged": ("ub-day.r600", "repro_torch.kernels.ops",
@@ -103,6 +189,17 @@ FAULTS = {
     "fidelity_altered": ("paper-grid.sweep", "repro_torch.kernels.ops",
                          "trend_correlation_batched_device", _nudge,
                          "fidelity_gap"),
+    "chunk_record_altered": (CHUNKED, "repro_torch.streamsim.store",
+                             "StreamStore.append_chunk", _chunk_record_off,
+                             "sims_bad"),
+    "chunk_files_swapped": (CHUNKED, "repro_torch.streamsim.store",
+                            "StreamStore.finalize_chunks",
+                            _after_finalize(_swap), "sims_bad"),
+    "chunk_file_deleted": (CHUNKED, "repro_torch.streamsim.store",
+                           "StreamStore.finalize_chunks",
+                           _after_finalize(_delete), "sims_bad"),
+    "feed_over_its_bound": (CHUNKED, "repro_torch.streamsim.producer",
+                            "ChunkFeed.stats", _feed_over, "feed_hwm"),
 }
 
 
@@ -138,6 +235,9 @@ LATE_FAULTS = {
                                  "repro_torch.streamsim.queue",
                                  "StreamQueue.put", _record_off,
                                  "replay_bad"),
+    "stored_chunks_swapped": (CHUNKED, "repro_torch.streamsim.store",
+                              "StreamStore.finalize_chunks",
+                              _after_finalize(_swap), "sims_bad"),
 }
 
 
@@ -200,3 +300,37 @@ def test_delivered_digest_samples_the_same_buckets_every_job():
     assert all(whole.digest != bench.Delivered.of(queue(n, i), 7,
                                                   False).digest
                for i in range(n))
+
+
+def test_two_day_chunked_source_is_correct(tmp_path):
+    """A configuration whose datasets run two days: set-up stores the
+    frozen generators' two days under the key the program's multi-day
+    sweep reads, the entry gets ``duration_s``, and the reference
+    compresses each day into ``max_range`` buckets. The program, had it
+    made its own days, would read not correct."""
+    root = tmp_path / "checkout"
+    shutil.copytree(bench.BENCH, root / "stream_bench",
+                    ignore=shutil.ignore_patterns("__pycache__", "test_*"))
+    cfg = bench.load_data("configs", "paper-grid-chunked")
+    cfg["name"] = "grid-2day"
+    cfg["datasets"] = {d: dict(s, days=2) for d, s in cfg["datasets"].items()
+                       if d != "userbehavior"}
+    (root / "stream_bench" / "configs" / "grid-2day.json").write_text(
+        json.dumps(cfg))
+    (root / "stream_bench" / "traffic" / "r300-900.json").write_text(
+        json.dumps({"max_ranges": [300, 900]}))
+    spec = bench.load_spec()
+    spec["workloads"].append({"name": "grid-2day.c600", "config": "grid-2day",
+                              "traffic": "r300-900", "chips": 1,
+                              "why": "a test cell"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    cell = bench.Cell("grid-2day.c600", SEED, "cpu", SCALE, root)
+    cell.close()
+    assert cell.knobs["duration_s"] == 2 * 86_400
+    assert cell.key_suffix == "__d172800"
+    out = bench.run_cell("grid-2day.c600", SEED, 0.0, False, device="cpu",
+                         scale=SCALE, root=root)
+    assert out["correct"], out["checks"]
+    assert out["failed"] == 0
+    assert 1 <= out["checks"]["feed_hwm"]["value"] <= 2

@@ -1,8 +1,10 @@
 """The per-layer metrics that read the program's own spans and counters
 (``repro_torch.tracing``, ``StreamQueue``'s waits), on the CPU: a traced
-run of each cell reads all four, each inside the metric of the layer
-around it; where the program keeps no such spans or counters, the readers
-find nothing and raise nothing."""
+run of each cell, with every per-layer metric read, reads the four of
+every path, each inside the metric of the layer around it, and the
+chunked runner's three legs where a cell runs it and nowhere else; where
+the program keeps no such spans or counters, the readers find nothing and
+raise nothing."""
 
 from __future__ import annotations
 
@@ -16,24 +18,50 @@ from stream_bench import bench, trace
 SCALE = 0.005
 SEED = 2**31 + 11
 SPAN_READERS = ("nsa_host_s", "store_write_s", "report_s")
+CHUNK_READERS = ("chunk_dispatch_s", "chunk_host_leg_s", "chunk_event_wait_s")
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in
                                   bench.load_spec()["workloads"]])
-def test_traced_run_reads_the_program_spans(cell):
+def test_traced_run_reads_the_program_spans(cell, monkeypatch):
+    every = bench.load_spec()["per_layer"]
+    listed = {x["name"] for x in bench.metrics_of(bench.load_spec(), cell,
+                                                  True)}
+    monkeypatch.setattr(bench, "metrics_of",
+                        lambda spec, name, traced: every if traced else [])
+    config = bench.load_data("configs", bench.cell_of(bench.load_spec(),
+                                                      cell)["config"])
     out = bench.run_cell(cell, SEED, 0.2, True, device="cpu", scale=SCALE)
     assert out["correct"], out["checks"]
     m = {k: v["value"] for k, v in out["metrics"].items()}
     assert set(SPAN_READERS) | {"queue_wait_s"} <= set(m)
-    assert 0 < m["nsa_host_s"] <= m["nsa_s"]
-    assert 0 < m["store_write_s"] <= m["materialize_s"]
+    assert 0 < m["nsa_host_s"]
     assert 0 < m["report_s"]
-    assert 0 <= m["queue_wait_s"] <= m["produce_s"]
+    chunked = bool(config["knobs"].get("chunk_s"))
+    if chunked:
+        # the chunk files are written in the host legs; nothing
+        # materializes the sims whole, and the report's produce_s holds
+        # the whole chunk pipeline, so no replay layer reads it
+        assert set(CHUNK_READERS) <= set(m)
+        assert not {"produce_s", "nsa_s", "materialize_s",
+                    "sweep_produce_s", "sweep_nsa_s",
+                    "sweep_materialize_s"} & listed
+        assert 0 <= m["queue_wait_s"] <= out["device"]["window_s"]
+        assert 0 < m["store_write_s"] <= m["chunk_host_leg_s"]
+        assert 0 <= m["chunk_event_wait_s"] <= m["chunk_host_leg_s"]
+        assert 0 < m["chunk_dispatch_s"]
+        assert "materialize_s" not in m
+    else:
+        assert not set(CHUNK_READERS) & set(m)
+        assert 0 <= m["queue_wait_s"] <= m["produce_s"]
+        assert m["nsa_host_s"] <= m["nsa_s"]
+        assert 0 < m["store_write_s"] <= m["materialize_s"]
     # the program's spans take no name of the harness's: its breakdown
     # reads as before
     from repro_torch import tracing
     names = {r.name for r in tracing.drain()}
     assert "nsa.host_tables" in names
+    assert (set(trace.PROGRAM_SPANS) <= names) == chunked
     assert not names & (set(trace.LAYER_SPANS) | set(bench.BENCH_SPANS))
 
 
@@ -42,7 +70,7 @@ def _run(jobs, ranges):
     return types.SimpleNamespace(jobs=jobs, device_trace=trace)
 
 
-@pytest.mark.parametrize("name", SPAN_READERS)
+@pytest.mark.parametrize("name", SPAN_READERS + CHUNK_READERS)
 def test_span_readers_find_nothing_without_the_tracer(name, monkeypatch):
     import repro_torch
     read = bench.load_reader(name)

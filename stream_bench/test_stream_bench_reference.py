@@ -133,9 +133,12 @@ def test_bf16_rounds_to_nearest_even():
 
 
 @pytest.mark.parametrize("config,ranges", [
-    ("ub-day", [600]), ("paper-grid", [600, 3600])])
+    ("ub-day", [600]), ("paper-grid", [600, 3600]),
+    ("paper-grid-chunked", [600, 3600])])
 def test_control_is_not_correct(config, ranges):
-    """The reference one precision lower, judged as the program would be."""
+    """The reference one precision lower, judged as the program would be;
+    the reference itself, with a feed within its bound where the
+    configuration bounds one, is correct, and without one is not."""
     from stream_bench import bench
     cfg = bench.load_data("configs", config)
     raw = {d: generators.make(spec, 0.02, 11)
@@ -146,5 +149,8 @@ def test_control_is_not_correct(config, ranges):
     assert not ok
     assert checks["vol_rel"]["value"] > cfg["limits"]["vol_rel"]
     assert checks["trend_gap"]["value"] > cfg["limits"]["trend_gap"]
-    ok, _ = judge.judge(exp, [judge.output_of(exp)], cfg["limits"])
+    ok, _ = judge.judge(exp, [judge.output_of(exp, feed_hwm=2)],
+                        cfg["limits"])
     assert ok
+    ok, _ = judge.judge(exp, [judge.output_of(exp)], cfg["limits"])
+    assert ok == ("feed_hwm" not in cfg["limits"])

@@ -16,7 +16,7 @@ import contextlib
 import functools
 import importlib
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 #: span name -> (module, attribute path) of the program's layer boundaries
 LAYER_SPANS: Dict[str, Tuple[str, str]] = {
@@ -46,8 +46,37 @@ LAYER_SPANS: Dict[str, Tuple[str, str]] = {
 }
 
 
+#: the program's own spans (``repro_torch.tracing``) that also label the
+#: device's idle time: the chunked runner's legs
+PROGRAM_SPANS = ("chunk.dispatch", "chunk.host_leg", "chunk.event_wait")
+
 #: device operations that are copies or fills, not kernels, by name prefix
 COPIES = ("Memcpy", "Memset")
+
+
+def program_seconds(device_trace, name: str) -> Optional[List[float]]:
+    """Seconds each job of the window spent in the program's spans ``name``
+    (``repro_torch.tracing``'s records, on the device trace's clock): a
+    record is job k's when it starts inside the k-th ``bench.entry`` range
+    of ``device_trace``. None where the program keeps no such records, or
+    none starts inside a job."""
+    try:
+        from repro_torch import tracing
+    except ImportError:
+        return None
+    entries = sorted((a, b) for n, a, b in getattr(
+        device_trace, "ranges", ()) if n == "bench.entry")
+    per, found = [0.0] * len(entries), False
+    for r in tracing.records():
+        if r.name != name:
+            continue
+        at = r.start_ns * 1e-3
+        for k, (a, b) in enumerate(entries):
+            if a <= at < b:
+                per[k] += r.seconds
+                found = True
+                break
+    return per if found else None
 
 
 class NullTracer:
