@@ -111,11 +111,21 @@ class Controller:
         generated with ``seed + d``, so days carry distinct traffic), each
         rebased onto ``[d·86400, (d+1)·86400)`` so the diurnal cycle stays
         aligned, concatenated and trimmed to ``duration_s``. Cached under
-        ``<dataset>__orig__d<duration>``."""
+        ``<dataset>__orig__d<duration>``. Traced as the span
+        ``prepare.multiday`` (``days``, ``records``, and ``cached``: 1 when
+        read from the store, 0 when built)."""
         key = f"{dataset}__orig__d{duration_s}"
-        if self.store.exists(key):
-            return self.store.get(key)
         n_days = -(-int(duration_s) // DAY_S)
+        with tracing.span("prepare.multiday", days=n_days) as sp:
+            cached = self.store.exists(key)
+            stream = self.store.get(key) if cached else \
+                self._build_multiday(dataset, scale, seed, duration_s, n_days)
+            sp.count(records=len(stream), cached=int(cached))
+        return stream
+
+    def _build_multiday(self, dataset: str, scale: float, seed: int,
+                        duration_s: int, n_days: int) -> Stream:
+        key = f"{dataset}__orig__d{duration_s}"
         ts, payloads = [], []
         for day in range(n_days):
             st = preprocess(make_stream(dataset, scale=scale, seed=seed + day))

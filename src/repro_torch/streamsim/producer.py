@@ -130,7 +130,10 @@ class ChunkFeed:
     ``feed_hwm_chunks`` is the high-watermark of chunks simultaneously
     resident in the feed (≤ ``maxsize`` by construction — the acceptance
     bound "peak host buckets ≤ 2 chunks per scenario"), and
-    ``feed_chunks`` the total handed through.
+    ``feed_chunks`` the total handed through. ``feed_put_wait_s`` and
+    ``feed_get_wait_s`` are the seconds the engine waited on a full feed
+    and the producer on an empty one: which side sets the pace. The clock
+    is read only on a wait.
     """
 
     def __init__(self, maxsize: int = 2):
@@ -142,6 +145,8 @@ class ChunkFeed:
         self._closed = False
         self.hwm = 0
         self.total = 0
+        self.put_wait_s = 0.0
+        self.get_wait_s = 0.0
 
     @property
     def closed(self) -> bool:
@@ -149,9 +154,15 @@ class ChunkFeed:
 
     def put(self, stream: Stream, timeout: Optional[float] = None) -> None:
         with self._cond:
-            while len(self._items) >= self.maxsize and not self._closed:
-                if not self._cond.wait(timeout=timeout):
-                    raise TimeoutError("ChunkFeed.put timed out")
+            if len(self._items) >= self.maxsize and not self._closed:
+                t0 = time.perf_counter()
+                try:
+                    while len(self._items) >= self.maxsize and \
+                            not self._closed:
+                        if not self._cond.wait(timeout=timeout):
+                            raise TimeoutError("ChunkFeed.put timed out")
+                finally:
+                    self.put_wait_s += time.perf_counter() - t0
             if self._closed:
                 raise RuntimeError("feed closed")
             self._items.append(stream)
@@ -163,9 +174,14 @@ class ChunkFeed:
         """Next chunk in timeline order; blocks (no busy-wait) while the
         feed is empty and open; ``None`` once closed and drained."""
         with self._cond:
-            while not self._items and not self._closed:
-                if not self._cond.wait(timeout=timeout):
-                    raise TimeoutError("ChunkFeed.get timed out")
+            if not self._items and not self._closed:
+                t0 = time.perf_counter()
+                try:
+                    while not self._items and not self._closed:
+                        if not self._cond.wait(timeout=timeout):
+                            raise TimeoutError("ChunkFeed.get timed out")
+                finally:
+                    self.get_wait_s += time.perf_counter() - t0
             if self._items:
                 item = self._items.pop(0)
                 self._cond.notify_all()
@@ -177,8 +193,10 @@ class ChunkFeed:
             self._closed = True
             self._cond.notify_all()
 
-    def stats(self) -> Dict[str, int]:
-        return {"feed_hwm_chunks": self.hwm, "feed_chunks": self.total}
+    def stats(self) -> Dict[str, float]:
+        return {"feed_hwm_chunks": self.hwm, "feed_chunks": self.total,
+                "feed_put_wait_s": self.put_wait_s,
+                "feed_get_wait_s": self.get_wait_s}
 
 
 class Producer:
@@ -779,7 +797,8 @@ class MultiQueueProducer:
         """Per-scenario producer stats (matching :meth:`Producer.stats`),
         or the whole mapping when ``key`` is omitted. Chunked replays add
         the feed's bounded-residency stats (``feed_hwm_chunks`` /
-        ``feed_chunks``)."""
+        ``feed_chunks``) and its waits (``feed_put_wait_s`` /
+        ``feed_get_wait_s``)."""
         if key is not None:
             out = {"emitted_buckets": self.emitted_buckets[key],
                    "emitted_records": self.emitted_records[key],

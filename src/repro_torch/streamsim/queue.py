@@ -49,9 +49,11 @@ _EOS = object()
 
 RETENTION_POLICIES = ("block", "drop_oldest")
 
-#: the fields of :meth:`StreamQueue.stats` that are seconds waited, not
-#: counts: they differ from run to run
-WAIT_FIELDS = ("put_wait_s", "get_wait_s")
+#: the fields of :meth:`StreamQueue.stats` and of a chunk feed's stats
+#: (:class:`~repro_torch.streamsim.producer.ChunkFeed`) that are seconds
+#: waited, not counts: they differ from run to run
+WAIT_FIELDS = ("put_wait_s", "get_wait_s", "feed_put_wait_s",
+               "feed_get_wait_s")
 
 
 def counts_only(stats: Dict[str, Any]) -> Dict[str, Any]:

@@ -212,8 +212,15 @@ def test_spans_under_the_profiler(tmp_path):
     produce = next(r for r in sweep if r.name == "replay.produce")
     assert replay.counts["buckets"] == produce.counts["buckets"] > 0
 
-    # the clock: each span of the profiler's thread beside the profile's
-    # range of the same name, in order
+    # the clock: each span of the profiler's thread inside the profile's
+    # range of the same name, in order, to within 1 ms on either side. The
+    # range opens before the span reads its start and closes after it reads
+    # its end, so the thread's waits between the two (a busy machine, the
+    # interpreter handing the replay's threads its lock for up to its 5 ms
+    # switch interval) only widen the range. A clock of the tracer's own,
+    # off the profiler's by 1 ms or more either way, puts outside it every
+    # span whose range no wait widened, and those are most: the median
+    # slack stays under 1 ms
     ranges = {}
     for e in prof.profiler.kineto_results.events():
         if e.name() in SWEEP_SPANS:
@@ -224,10 +231,13 @@ def test_spans_under_the_profiler(tmp_path):
         if r.thread == main:
             mine.setdefault(r.name, []).append((r.start_ns, r.end_ns))
     assert set(ranges) == set(mine)
+    slack = []
     for name, spans in mine.items():
         assert len(spans) == len(ranges[name])
         for (a, b), (c, d) in zip(sorted(spans), sorted(ranges[name])):
-            assert abs(a - c) < 1_000_000 and abs(b - d) < 1_000_000, name
+            assert c - 1_000_000 < a <= b < d + 1_000_000, name
+            slack += [a - c, d - b]
+    assert sorted(slack)[len(slack) // 2] < 1_000_000
 
 
 def test_chunked_run_many_spans(tmp_path):
