@@ -19,17 +19,44 @@ between namespaces: one winner of N claimants) and ``clear_markers``
 (:mod:`repro_torch.streamsim.service`) build on. A stream is visible only
 once its manifest is written, after its columns were renamed into place,
 so two processes preparing the same original never read half of one.
+
+Reading. ``get`` reads a ``columns.npz`` in place, not through
+``np.load``: it finds each member's array from the zip's central directory,
+the member's local header and its npy header, then reads each time column
+(``__t__``, ``__scale_stamp__``: every consumer reads them whole) with one
+``readinto`` into an array of its own, and maps the payload columns
+(``c:*``: NSA keeps a few rows of them, gathered later) with
+``np.frombuffer`` over one private, copy-on-write ``mmap`` of the file. A
+payload column is thus an ordinary writable ``ndarray`` whose writes never
+reach the file, and whose pages are read when a gather touches them; the
+map lives as long as its arrays, and deleting the stream while they live
+leaves them readable. A file whose members cannot all be placed so
+(compressed members, object or structured dtypes, Fortran order over more
+than one axis, a bad signature, data past the end, an empty or truncated
+file) is read by ``np.load`` as before, which raises where the file is
+broken. Chunked streams are concatenated from ``np.load`` reads.
+
+The in-place read does not run the zip's CRC32 check that ``np.load``
+does. Nothing the store promises rests on it: a stream becomes visible
+only when its manifest is renamed into place, after its columns were
+written to a temp file and renamed (so no reader sees a half-written
+file), and a file changed afterwards is no failure the store guards
+against.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import mmap
 import os
+import struct
 import tempfile
 import time
 import uuid
+import zipfile
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -38,6 +65,89 @@ from repro_torch.streamsim.preprocess import Stream
 
 _MANIFEST = "manifest.json"
 _COLUMNS = "columns.npz"
+#: the members ``get`` reads whole; the others it reads are payload columns
+_TIME_COLUMNS = ("__t__", "__scale_stamp__")
+_LOCAL_HEADER = struct.Struct("<4s22xHH")
+
+
+def _wanted(key: str) -> bool:
+    return key in _TIME_COLUMNS or key.startswith("c:")
+
+
+def _members_in_place(f) -> Optional[Dict[str, Tuple[int, np.dtype, tuple]]]:
+    """Where the array of each member that ``get`` reads lies in the open
+    npz ``f``: key -> (data offset, dtype, shape). None where one cannot be
+    read in place: the file is no zip, a member is compressed, encrypted or
+    no ``.npy``, its local header lacks its signature, its npy header is
+    not version 1.0 or 2.0, its dtype holds objects, fields or no bytes,
+    it is in Fortran order over more than one axis, or its data runs past
+    the member's or the file's end."""
+    size = os.fstat(f.fileno()).st_size
+    try:
+        with zipfile.ZipFile(f) as z:
+            infos = z.infolist()
+    except zipfile.BadZipFile:
+        return None
+    readers = {(1, 0): np.lib.format.read_array_header_1_0,
+               (2, 0): np.lib.format.read_array_header_2_0}
+    out = {}
+    for info in infos:
+        key = info.filename[:-len(".npy")]
+        if (not info.filename.endswith(".npy")
+                or info.compress_type != zipfile.ZIP_STORED
+                or info.flag_bits & 1):
+            return None
+        if not _wanted(key):
+            continue
+        # the data starts after the LOCAL header's name and extra field,
+        # whose lengths differ from the central directory's (np.savez
+        # writes a zip64 extra field only there)
+        f.seek(info.header_offset)
+        head = f.read(_LOCAL_HEADER.size)
+        if len(head) < _LOCAL_HEADER.size:
+            return None
+        sig, name_len, extra_len = _LOCAL_HEADER.unpack(head)
+        if sig != b"PK\x03\x04":
+            return None
+        start = f.tell() + name_len + extra_len
+        f.seek(start)
+        try:
+            read_header = readers.get(np.lib.format.read_magic(f))
+            if read_header is None:
+                return None
+            shape, fortran_order, dtype = read_header(f)
+        except ValueError:
+            return None
+        offset = f.tell()
+        if (dtype.hasobject or dtype.names is not None or not dtype.itemsize
+                or (fortran_order and len(shape) > 1)
+                or offset + math.prod(shape) * dtype.itemsize
+                > min(start + info.file_size, size)):
+            return None
+        out[key] = (offset, dtype, shape)
+    return out
+
+
+def _read_in_place(f, members) -> Tuple[Dict[str, np.ndarray], int]:
+    """The columns of the open npz ``f`` that :func:`_members_in_place`
+    placed, and the bytes mapped: a time column in one read into an array
+    of its own, the payload columns as views of one private map of the
+    file."""
+    columns, mapped, view = {}, 0, None
+    for key, (offset, dtype, shape) in members.items():
+        if key in _TIME_COLUMNS:
+            a = np.empty(shape, dtype)
+            f.seek(offset)
+            if f.readinto(a.reshape(-1).view(np.uint8)) != a.nbytes:
+                raise EOFError(f"{f.name}: {key!r} ends past the file")
+        else:
+            if view is None:
+                view = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+            a = np.frombuffer(view, dtype, math.prod(shape),
+                              offset).reshape(shape)
+            mapped += a.nbytes
+        columns[key] = a
+    return columns, mapped
 
 
 class StreamStore:
@@ -224,6 +334,14 @@ class StreamStore:
 
     # ------------------------------------------------------------------- get
     def get(self, key: str) -> Stream:
+        """The stream stored under ``key``. Of a ``columns.npz``, ``t`` and
+        ``scale_stamp`` are read whole, one read each, and the payload
+        columns are copy-on-write views of a map of the file, with no CRC32
+        check; chunk files, and a file whose members cannot all be placed,
+        are read by ``np.load`` (the module docstring's "Reading" says when,
+        and why the store's atomicity does not rest on the CRC). The span
+        ``store.read`` counts the files' ``bytes`` and the ``mapped`` bytes
+        of them (0 where ``np.load`` read them)."""
         d = self._dir(key)
         man = self.manifest(key)
         n_chunks = int(man.get("chunks", 0))
@@ -232,10 +350,15 @@ class StreamStore:
         with tracing.span("store.read") as sp:
             if sp:
                 sp.count(bytes=sum(os.path.getsize(p) for p in files))
-            return self._load(man["name"], files, chunked=n_chunks > 0)
+            stream, mapped = self._load(man["name"], files,
+                                        chunked=n_chunks > 0)
+            sp.count(mapped=mapped)
+            return stream
 
     @staticmethod
-    def _load(name: str, files: List[Path], chunked: bool) -> Stream:
+    def _load(name: str, files: List[Path],
+              chunked: bool) -> Tuple[Stream, int]:
+        """The stream in ``files``, and the bytes of them that are mapped."""
         if chunked:
             ts, sss, payloads = [], [], []
             for p in files:
@@ -250,12 +373,20 @@ class StreamStore:
             cols = payloads[0].keys() if payloads else ()
             payload = {c: np.concatenate([p[c] for p in payloads])
                        for c in cols}
-            return Stream(name=name, t=t, payload=payload, scale_stamp=ss)
-        with np.load(files[0], allow_pickle=False) as z:
-            t = z["__t__"]
-            ss = z["__scale_stamp__"] if "__scale_stamp__" in z.files else None
-            payload = {k[2:]: z[k] for k in z.files if k.startswith("c:")}
-        return Stream(name=name, t=t, payload=payload, scale_stamp=ss)
+            return Stream(name=name, t=t, payload=payload, scale_stamp=ss), 0
+        with open(files[0], "rb") as f:
+            members = _members_in_place(f)
+            if members is not None:
+                columns, mapped = _read_in_place(f, members)
+        if members is None:
+            with np.load(files[0], allow_pickle=False) as z:
+                columns = {k: z[k] for k in z.files if _wanted(k)}
+            mapped = 0
+        return Stream(
+            name=name, t=columns["__t__"],
+            payload={k[2:]: v for k, v in columns.items()
+                     if k.startswith("c:")},
+            scale_stamp=columns.get("__scale_stamp__")), mapped
 
     def manifest(self, key: str) -> Dict:
         with open(self._dir(key) / _MANIFEST) as f:
