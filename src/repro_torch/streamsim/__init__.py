@@ -26,7 +26,6 @@ from repro_torch.streamsim.preprocess import Stream, preprocess  # noqa: F401
 from repro_torch.streamsim.nsa import (  # noqa: F401
     ChunkedNSA,
     ChunkHandles,
-    materialize_sweep_chunk,
     nsa,
     nsa_batched,
     nsa_paper,

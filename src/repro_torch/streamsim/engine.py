@@ -60,8 +60,7 @@ from repro_torch.streamsim.metrics import (StreamMetrics, Volatility,
                                            trend_correlation_matrix)
 from repro_torch.streamsim.nsa import (ChunkedNSA, _resolve_backend,
                                        compression_factor, materialize_sweep,
-                                       materialize_sweep_chunk, nsa,
-                                       nsa_sweep_device)
+                                       nsa, nsa_sweep_device)
 from repro_torch.streamsim.plan import Shard, SweepPlan
 from repro_torch.streamsim.preprocess import Stream
 from repro_torch.streamsim.producer import (ChunkFeed, MultiQueueProducer,
@@ -148,6 +147,15 @@ class FidelityReport:
 
 
 # ---------------------------------------------------------------- execution
+def _local_scenarios(plan: SweepPlan) -> Tuple[Tuple[str, int], ...]:
+    """The plan's scenarios THIS process reports, in grid order."""
+    if plan.n_hosts == 1:
+        return tuple(s.scenario for s in plan.scenarios)
+    local = {s.scenario for s in plan.local_missing} | \
+        {s.scenario for s in plan.cached}
+    return tuple(s.scenario for s in plan.scenarios if s.scenario in local)
+
+
 @dataclasses.dataclass
 class ShardResult:
     """One shard's device-resident NSA + metrics output.
@@ -258,12 +266,7 @@ class DeviceSweepResult:
         """The scenarios THIS process reports: the full grid in a
         single-process run; cached + this process's shard scenarios
         otherwise."""
-        if self.plan.n_hosts == 1:
-            return tuple(s.scenario for s in self.plan.scenarios)
-        local = {s.scenario for s in self.plan.local_missing} | \
-            {s.scenario for s in self.plan.cached}
-        return tuple(s.scenario for s in self.plan.scenarios
-                     if s.scenario in local)
+        return _local_scenarios(self.plan)
 
     def _scenario_sources(self):
         """scenario -> ("shard", shard_result, row) | ("host", None, None)"""
@@ -682,20 +685,139 @@ def _execute_host(plan, originals, store, backend, multiple_mode,
             0.0 if spec.cached else t_sweep
     scenarios = [sc for sc in (s.scenario for s in plan.scenarios)
                  if sc in result.host_sims]
-    datasets = list(plan.datasets)
+    _host_stats(result, scenarios, [mr for _, mr in scenarios])
+    return result
+
+
+def _host_stats(result: DeviceSweepResult, scenarios, ranges) -> None:
+    """A host-mode result's statistics: ONE ``metrics_batched`` call over
+    ``[originals..., sims...]`` (each sim over its range in ``ranges``),
+    which also covers the cache hits, and the sims to report."""
+    datasets = list(result.plan.datasets)
     ms = metrics_batched(
-        [originals[d] for d in datasets] +
+        [result.originals[d] for d in datasets] +
         [result.host_sims[sc] for sc in scenarios],
-        [None] * len(datasets) + [mr for _, mr in scenarios],
-        backend=backend, device=device)
+        [None] * len(datasets) + list(ranges),
+        backend=result.backend, device=result.device)
     result._om = dict(zip(datasets, ms[:len(datasets)]))
     result.sm = dict(zip(scenarios, ms[len(datasets):]))
     result._host_group_done = True   # one call covered everything
     result._sims = {sc: result.host_sims[sc] for sc in scenarios}
-    return result
 
 
 # -------------------------------------------------------------- PSDA replay
+def _replay(producer, queues: Dict, consumers: Optional[Dict] = None,
+            main=None, deadline_s: Optional[float] = None, **counts):
+    """The one producer/consumer harness of every replay.
+
+    Inside a ``replay`` span (``counts`` are its opening counts),
+    ``producer.run`` (a :class:`Producer` or a :class:`MultiQueueProducer`)
+    walks on its own thread under ``replay.produce``; each of
+    ``consumers`` (key -> consumer of ``queues[key]``) drains its queue on
+    its own thread under ``replay.consume`` (a failed one keeps draining,
+    so the walk never blocks on it); and ``main``, if given, runs on the
+    CALLING thread, its exceptions propagating at once.
+
+    ``deadline_s`` bounds the consumers' joins: a consumer still running
+    at the deadline with buckets available (or its stream closed) is
+    *wedged* — its queue is closed (the walk sheds just that scenario) and
+    it fails with a named ``TimeoutError`` instead of hanging the replay;
+    *starved* consumers (empty open queue — victims of shared backpressure
+    behind the wedged sibling) get a 5 s grace join once the walk is done.
+
+    Returns ``(main's result, {key: consumer result}, {key: consumer
+    error}, producer status, wall seconds of the replay span)``.
+    """
+    consumers = consumers or {}
+    results: Dict = {}
+    errors: Dict[object, BaseException] = {}
+    status = [None]
+    t0 = time.perf_counter()
+    with tracing.span("replay", **counts) as sp:
+        within = sp.context()
+
+        def _produce():
+            with tracing.span("replay.produce", within=within) as ps:
+                status[0] = producer.run()
+                n = producer.emitted_buckets
+                ps.count(buckets=n if isinstance(n, int)
+                         else sum(n.values()))
+
+        def _consume(key):
+            with tracing.span("replay.consume", within=within):
+                try:
+                    results[key] = consumers[key](queues[key])
+                except Exception as exc:  # keep the producer walk drainable
+                    errors[key] = exc
+                    for _ in queues[key]:
+                        pass
+
+        prod_th = threading.Thread(target=_produce, daemon=True)
+        cons = {key: threading.Thread(target=_consume, args=(key,),
+                                      daemon=True) for key in consumers}
+        prod_th.start()
+        for th in cons.values():
+            th.start()
+        out = main() if main is not None else None
+        deadline = Deadline(deadline_s)
+        for th in cons.values():
+            th.join(deadline.remaining())    # None remaining == join forever
+        for key, th in cons.items():
+            q = queues[key]
+            if th.is_alive() and (q.qsize() > 0 or q.closed):
+                # wedged: buckets available (or stream over) yet not
+                # finishing — shed it so the walk and its siblings complete
+                errors[key] = _deadline_error(deadline_s, key, consumers[key])
+                q.close()
+        prod_th.join()
+        # post-shed grace: starved consumers (empty queue behind the wedged
+        # sibling's backpressure) finish quickly once the producer resumed;
+        # already-errored (wedged) threads are abandoned, not re-joined
+        grace = Deadline(5.0 if deadline_s is not None else None)
+        for key, th in cons.items():
+            if key in errors:
+                continue
+            if th.is_alive():
+                th.join(grace.remaining())
+            if th.is_alive():
+                errors[key] = _deadline_error(deadline_s, key, consumers[key])
+                queues[key].close()
+        sp.count(buckets=sum(q.buckets_in for q in queues.values()),
+                 records=sum(q.records_in for q in queues.values()))
+    return out, results, errors, status[0], time.perf_counter() - t0
+
+
+def _degraded(exc: BaseException, attempts: int, queue, producer_stats,
+              **state) -> Dict:
+    """The partial per-scenario metrics of a scenario whose consumer failed
+    for good (``on_failure="degrade"``): the failure, the attempts, any
+    resilience ``state``, and the transport counters."""
+    return {"degraded": True, "failed": repr(exc), "attempts": attempts,
+            **state, **queue.stats(), **producer_stats}
+
+
+def _raise_failures(errors: Dict, keys, what: str) -> None:
+    """Raise ONE ``RuntimeError`` naming every failed scenario (in ``keys``
+    order), the scenario exceptions chained via ``__cause__``, the first
+    failure outermost, so no traceback is swallowed."""
+    ordered = [(key, errors[key]) for key in keys if key in errors]
+    cause = None
+    for _, exc in reversed(ordered):  # first failure outermost
+        # a consumer exception may already carry its own __cause__ chain —
+        # link the NEXT failure to that chain's tail so no failure becomes
+        # unreachable
+        tail, seen = exc, {id(exc)}
+        while tail.__cause__ is not None and id(tail.__cause__) not in seen:
+            tail = tail.__cause__
+            seen.add(id(tail))
+        if tail.__cause__ is None and tail is not cause:
+            tail.__cause__ = cause
+        cause = exc
+    detail = "; ".join(f"{key!r}: {exc!r}" for key, exc in ordered)
+    raise RuntimeError(f"{len(ordered)} of {len(keys)} {what} consumer(s) "
+                       f"failed: {detail}") from cause
+
+
 def replay_one(sim: Stream, consumer, queue_size: int, faults=None):
     """Single-scenario PSDA leg (``Controller.run``): a producer thread
     fills a bounded queue under a :class:`VirtualClock`, the consumer
@@ -704,24 +826,9 @@ def replay_one(sim: Stream, consumer, queue_size: int, faults=None):
     :class:`~repro_torch.streamsim.faults.FaultInjector` schedule."""
     queue = StreamQueue(maxsize=queue_size)
     producer = Producer(sim, queue, clock=VirtualClock(), faults=faults)
-    t0 = time.perf_counter()
-    status = [None]
-
-    with tracing.span("replay") as sp:
-        within = sp.context()
-
-        def _produce():
-            with tracing.span("replay.produce", within=within) as ps:
-                status[0] = producer.run()
-                ps.count(buckets=producer.emitted_buckets)
-
-        th = threading.Thread(target=_produce, daemon=True)
-        th.start()
-        consumer_metrics = consumer(queue)
-        th.join()
-        sp.count(buckets=queue.buckets_in, records=queue.records_in)
-    t_prod = time.perf_counter() - t0
-    if status[0] != 0:
+    consumer_metrics, _, _, status, t_prod = _replay(
+        producer, {None: queue}, main=lambda: consumer(queue))
+    if status != 0:
         raise RuntimeError("producer reported fault status")
     return ({**consumer_metrics, **queue.stats(), **producer.stats()},
             t_prod)
@@ -757,39 +864,13 @@ def _replay_solo(key, sim: Stream, consumer, queue_size: int,
     """
     queue = StreamQueue(maxsize=queue_size)
     producer = Producer(sim, queue, clock=VirtualClock(), faults=faults)
-    status = [None]
-    box: Dict = {}
-    within = tracing.context()
-
-    def _produce():
-        with tracing.span("replay.produce", within=within):
-            status[0] = producer.run()
-
-    def _consume():
-        with tracing.span("replay.consume", within=within):
-            try:
-                box["result"] = consumer(queue)
-            except Exception as exc:   # keep the producer drainable
-                box["error"] = exc
-                for _ in queue:
-                    pass
-
-    tp = threading.Thread(target=_produce, daemon=True)
-    tc = threading.Thread(target=_consume, daemon=True)
-    deadline = Deadline(deadline_s)
-    tp.start()
-    tc.start()
-    tc.join(deadline.remaining())
-    if tc.is_alive():
-        queue.close()              # unblock a get()-parked consumer; the
-        tc.join(5.0)               # producer sheds via the closed queue
-        raise _deadline_error(deadline_s, key, consumer)
-    tp.join()
-    if "error" in box:
-        raise box["error"]
-    if status[0] != 0:
+    _, results, errors, status, _ = _replay(
+        producer, {key: queue}, {key: consumer}, deadline_s=deadline_s)
+    if key in errors:
+        raise errors[key]
+    if status != 0:
         raise RuntimeError("producer reported fault status")
-    return {**box["result"], **queue.stats(), **producer.stats()}
+    return {**results[key], **queue.stats(), **producer.stats()}
 
 
 def replay_many(sims: Dict, consumer, queue_size: int, *,
@@ -855,64 +936,9 @@ def replay_many(sims: Dict, consumer, queue_size: int, *,
     wrapped = {key: (fault_plan.wrap_consumer(key, consumer)
                      if fault_plan is not None else consumer)
                for key in sims}
-    status = [None]
-    results: Dict = {}
-    errors: Dict[object, BaseException] = {}
-
-    t0 = time.perf_counter()
-    with tracing.span("replay", scenarios=len(sims)) as sp:
-        within = sp.context()
-
-        def _produce():
-            with tracing.span("replay.produce", within=within) as ps:
-                status[0] = producer.run()
-                ps.count(buckets=sum(producer.emitted_buckets.values()))
-
-        def _consume(key):
-            with tracing.span("replay.consume", within=within):
-                try:
-                    results[key] = wrapped[key](group[key])
-                except Exception as exc:  # keep the producer loop drainable
-                    errors[key] = exc
-                    for _ in group[key]:
-                        pass
-
-        prod_th = threading.Thread(target=_produce, daemon=True)
-        cons = {key: threading.Thread(target=_consume, args=(key,),
-                                      daemon=True) for key in sims}
-        prod_th.start()
-        for th in cons.values():
-            th.start()
-        deadline = Deadline(consumer_deadline_s)
-        for th in cons.values():
-            th.join(deadline.remaining())    # None remaining == join forever
-        for key, th in cons.items():
-            if not th.is_alive():
-                continue
-            q = group[key]
-            if q.qsize() > 0 or q.closed:
-                # wedged: buckets available (or stream over) yet not
-                # finishing — shed it so the walk and its siblings complete
-                errors[key] = _deadline_error(consumer_deadline_s, key,
-                                              wrapped[key])
-                q.close()
-        prod_th.join()
-        # post-shed grace: starved consumers (empty queue behind the wedged
-        # sibling's backpressure) finish quickly once the producer resumed;
-        # already-errored (wedged) threads are abandoned, not re-joined
-        grace = Deadline(5.0 if consumer_deadline_s is not None else None)
-        for key, th in cons.items():
-            if key in errors:
-                continue
-            if th.is_alive():
-                th.join(grace.remaining())
-            if th.is_alive():
-                errors[key] = _deadline_error(consumer_deadline_s, key,
-                                              wrapped[key])
-                group[key].close()
-        sp.count(buckets=sum(q.buckets_in for q in group.queues.values()),
-                 records=sum(q.records_in for q in group.queues.values()))
-    t_prod = time.perf_counter() - t0
+    _, results, errors, status, t_prod = _replay(
+        producer, group.queues, wrapped, deadline_s=consumer_deadline_s,
+        scenarios=len(sims))
 
     # ---- phase 2: solo retries with backoff, behind the breaker
     attempts = {key: 1 for key in errors}
@@ -957,37 +983,13 @@ def replay_many(sims: Dict, consumer, queue_size: int, *,
         else:
             all_metrics[key] = {**results[key], **group[key].stats(),
                                 **producer.stats(key)}
-    if errors:
-        if on_failure == "degrade":
-            for key in errors:
-                all_metrics[key] = {
-                    "degraded": True,
-                    "failed": repr(errors[key]),
-                    "attempts": attempts[key],
-                    "breaker": breaker_state[key],
-                    **group[key].stats(),
-                    **producer.stats(key),
-                }
-        else:
-            ordered = [(key, errors[key]) for key in sims if key in errors]
-            cause = None
-            for _, exc in reversed(ordered):  # first failure outermost
-                # a consumer exception may already carry its own
-                # __cause__ chain — link the NEXT failure to that chain's
-                # tail so no failure becomes unreachable
-                tail, seen = exc, {id(exc)}
-                while tail.__cause__ is not None and id(tail.__cause__) \
-                        not in seen:
-                    tail = tail.__cause__
-                    seen.add(id(tail))
-                if tail.__cause__ is None and tail is not cause:
-                    tail.__cause__ = cause
-                cause = exc
-            detail = "; ".join(f"{key!r}: {exc!r}" for key, exc in ordered)
-            raise RuntimeError(
-                f"{len(ordered)} of {len(sims)} sweep consumer(s) failed: "
-                f"{detail}") from cause
-    if status[0] != 0:
+    if errors and on_failure == "raise":
+        _raise_failures(errors, list(sims), "sweep")
+    for key in errors:
+        all_metrics[key] = _degraded(errors[key], attempts[key], group[key],
+                                     producer.stats(key),
+                                     breaker=breaker_state[key])
+    if status != 0:
         raise RuntimeError("producer reported fault status")
     return all_metrics, t_prod
 
@@ -1167,12 +1169,7 @@ class ChunkedSweepRunner:
     def scenarios(self) -> Tuple[Tuple[str, int], ...]:
         """The scenarios THIS process replays and reports (grid order) —
         mirrors :attr:`DeviceSweepResult.scenarios`."""
-        if self.plan.n_hosts == 1:
-            return tuple(s.scenario for s in self.plan.scenarios)
-        local = {s.scenario for s in self.plan.local_missing} | \
-            {s.scenario for s in self.plan.cached}
-        return tuple(s.scenario for s in self.plan.scenarios
-                     if s.scenario in local)
+        return _local_scenarios(self.plan)
 
     def _prep_device(self) -> None:
         """Upload every shard's tables ONCE; domain errors surface here,
@@ -1309,16 +1306,18 @@ class ChunkedSweepRunner:
                 raise RuntimeError(
                     f"chunk {k}: device kept counts {totals.tolist()} differ "
                     f"from the tables' {h.kept.tolist()}")
-            chunks = materialize_sweep_chunk(self.originals,
-                                             st["nsa"].pairs, h, totals)
+            chunks = materialize_sweep(self.originals, st["nsa"].pairs,
+                                       h.ss_kept, h.idx, totals,
+                                       rec_off=h.rec_off)
             for r, spec in enumerate(st["shard"].specs):
                 if k >= spec.n_chunks:
                     continue
+                chunk = chunks[st["nsa"].pairs[r]]
                 st["totals"][r] += int(totals[r])
                 if self.store:
-                    self.store.append_chunk(spec.store_key, k, chunks[r])
-                    self._note_chunk(spec.store_key, chunks[r])
-                self._feed_chunk(feeds, spec, k, chunks[r])
+                    self.store.append_chunk(spec.store_key, k, chunk)
+                    self._note_chunk(spec.store_key, chunk)
+                self._feed_chunk(feeds, spec, k, chunk)
         self._host_round(result, feeds, k, cached)
 
     def _run_device(self, feeds) -> DeviceSweepResult:
@@ -1423,17 +1422,8 @@ class ChunkedSweepRunner:
             result.nsa_s[spec.scenario] = 0.0 if spec.cached else t_sweep
         scenarios = [sc for sc in (s.scenario for s in plan.scenarios)
                      if sc in result.host_sims]
-        datasets = list(plan.datasets)
-        ms = metrics_batched(
-            [self.originals[d] for d in datasets] +
-            [result.host_sims[sc] for sc in scenarios],
-            [None] * len(datasets) +
-            [self._specs[sc].span_s for sc in scenarios],
-            backend=self.backend, device=self.device)
-        result._om = dict(zip(datasets, ms[:len(datasets)]))
-        result.sm = dict(zip(scenarios, ms[len(datasets):]))
-        result._host_group_done = True
-        result._sims = {sc: result.host_sims[sc] for sc in scenarios}
+        _host_stats(result, scenarios,
+                    [self._specs[sc].span_s for sc in scenarios])
         result.sim_row_counts = {sc: len(result.host_sims[sc])
                                  for sc in scenarios}
         return result
@@ -1482,56 +1472,19 @@ def run_sweep_chunked(runner: ChunkedSweepRunner, consumer, *,
     wrapped = {sc: (fault_plan.wrap_consumer(sc, consumer)
                     if fault_plan is not None else consumer)
                for sc in scenarios}
-    status = [None]
-    results: Dict = {}
-    errors: Dict[object, BaseException] = {}
-
-    t0 = time.perf_counter()
-    with tracing.span("replay", scenarios=len(scenarios)) as sp:
-        within = sp.context()
-
-        def _produce():
-            with tracing.span("replay.produce", within=within) as ps:
-                status[0] = producer.run()
-                ps.count(buckets=sum(producer.emitted_buckets.values()))
-
-        def _consume(sc):
-            with tracing.span("replay.consume", within=within):
-                try:
-                    results[sc] = wrapped[sc](group[sc])
-                except Exception as exc:    # keep the producer walk drainable
-                    errors[sc] = exc
-                    for _ in group[sc]:
-                        pass
-
-        prod_th = threading.Thread(target=_produce, daemon=True)
-        cons = {sc: threading.Thread(target=_consume, args=(sc,),
-                                     daemon=True) for sc in scenarios}
-        prod_th.start()
-        for th in cons.values():
-            th.start()
-        result = runner.run(feeds)       # the chunk pipeline, on THIS thread
-        prod_th.join()
-        for th in cons.values():
-            th.join()
-        sp.count(buckets=sum(q.buckets_in for q in group.queues.values()),
-                 records=sum(q.records_in for q in group.queues.values()))
-    t_prod = time.perf_counter() - t0
+    result, results, errors, status, t_prod = _replay(
+        producer, group.queues, wrapped, main=lambda: runner.run(feeds),
+        scenarios=len(scenarios))
     if errors and on_failure == "raise":
-        ordered = [(sc, errors[sc]) for sc in scenarios if sc in errors]
-        detail = "; ".join(f"{sc!r}: {exc!r}" for sc, exc in ordered)
-        raise RuntimeError(
-            f"{len(ordered)} of {len(scenarios)} chunked sweep "
-            f"consumer(s) failed: {detail}") from ordered[0][1]
-    if status[0] != 0:
+        _raise_failures(errors, scenarios, "chunked sweep")
+    if status != 0:
         raise RuntimeError("producer reported fault status")
 
     all_metrics: Dict = {}
     for sc in scenarios:
         if sc in errors:
-            all_metrics[sc] = {
-                "degraded": True, "failed": repr(errors[sc]),
-                "attempts": 1, **group[sc].stats(), **producer.stats(sc)}
+            all_metrics[sc] = _degraded(errors[sc], 1, group[sc],
+                                        producer.stats(sc))
         else:
             all_metrics[sc] = {**results[sc], **group[sc].stats(),
                                **producer.stats(sc)}

@@ -37,8 +37,8 @@ Implementations
   which leaves the kept stamps on the device for the metrics kernel.
 - :class:`ChunkedNSA` — the same grid served one time chunk at a time
   (one B1 and one B2 launch per chunk over just the chunk's records),
-  for the chunked pipeline; :func:`materialize_sweep_chunk` is its host
-  gather.
+  for the chunked pipeline; :func:`materialize_sweep` with each chunk's
+  record offsets is its host gather.
 
 Backend selection rules
 -----------------------
@@ -54,7 +54,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -313,13 +313,18 @@ def nsa_sweep_device(streams: Dict[str, Stream],
 
 def materialize_sweep(streams: Dict[str, Stream],
                       pairs: Sequence[Tuple[str, int]],
-                      ss_kept, idx_b, totals) -> Dict[Tuple[str, int],
-                                                      Stream]:
-    """The single host pass of the device sweep: gather payload columns.
+                      ss_kept, idx_b, totals,
+                      rec_off=None) -> Dict[Tuple[str, int], Stream]:
+    """The host pass of the device sweep: gather payload columns.
 
     Moves the kept stamp / index columns (only the first ``max(totals)``
     of each row) to the host ONCE and fancy-indexes each scenario's
     timestamp and payload columns (which may be float64 or strings).
+    ``rec_off`` (one record offset a row) gathers ONE chunk of the chunked
+    sweep, whose kept indices count from the chunk's first record: pass
+    :class:`ChunkHandles`' fields, staged by :meth:`ChunkHandles.to_host`
+    (and waited for), with ``totals`` the host copy of its ``totals``, and
+    nothing touches the device.
     """
     with tracing.span("materialize.gather",
                       records=int(np.sum(totals))):
@@ -330,6 +335,8 @@ def materialize_sweep(streams: Dict[str, Stream],
         for r, (name, mr) in enumerate(pairs):
             src, total = streams[name], int(totals[r])
             idx = idx_host[r, :total]
+            if rec_off is not None:
+                idx = idx.astype(np.int64) + int(rec_off[r])
             out[(name, mr)] = Stream(
                 name=src.name,
                 t=src.t[idx],
@@ -534,30 +541,6 @@ class ChunkedNSA:
         ss_kept = torch.gather(ss, 1, torch.clamp(idx, max=Nc - 1).long())
         return ChunkHandles(ss_kept=ss_kept, idx=idx, totals=totals,
                             rec_off=a, kept=kept, lo=lo, hi=hi)
-
-
-def materialize_sweep_chunk(streams: Dict[str, Stream],
-                            pairs: Sequence[Tuple[str, int]],
-                            handles: ChunkHandles,
-                            totals: np.ndarray) -> List[Stream]:
-    """Host gather for ONE chunk: one Stream per scenario row, in ``pairs``
-    order. ``totals`` is the host copy of ``handles.totals``; handles staged
-    by :meth:`ChunkHandles.to_host` (and waited for) are read without
-    touching the device."""
-    w = int(np.max(totals, initial=0))
-    ss_host = handles.ss_kept[:, :w].cpu().numpy().astype(np.int64)
-    idx_host = handles.idx[:, :w].cpu().numpy()
-    out = []
-    for r, (name, _) in enumerate(pairs):
-        src, total = streams[name], int(totals[r])
-        gi = idx_host[r, :total].astype(np.int64) + int(handles.rec_off[r])
-        out.append(Stream(
-            name=src.name,
-            t=src.t[gi],
-            payload={k: v[gi] for k, v in src.payload.items()},
-            scale_stamp=ss_host[r, :total],
-        ))
-    return out
 
 
 def nsa_paper(stream: Stream, max_range: int, *, keep: str = "systematic",

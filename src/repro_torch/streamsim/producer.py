@@ -22,10 +22,10 @@ non-empty buckets interleave in ONE loop over a merged scale-stamp
 timeline, each scenario feeding its own bounded queue
 (:class:`repro_torch.streamsim.queue.QueueGroup`), while every scenario's
 consumer observes exactly the sequence of a sequential
-:meth:`Producer.run`. Under a :class:`RealClock` the loop is a heap-based
-timer wheel: one wall-clock loop fires every scenario's bucket at its due
-second. Fed :class:`ChunkFeed` s instead of whole streams, it replays the
-chunked engine's output round by round, in bounded host memory.
+:meth:`Producer.run`. Under a :class:`RealClock` the same loop fires every
+scenario's bucket at its due second. Fed :class:`ChunkFeed` s instead of
+whole streams, it replays the chunked engine's output round by round, in
+bounded host memory.
 
 Fault injection (chaos layer)
 -----------------------------
@@ -37,7 +37,7 @@ applied at the emission point; every event is counted and surfaced in
 ``stats()`` (``fault_*`` keys, present only when a schedule is attached),
 so per-scenario delivery reconciles as ``delivered == emitted - dropped +
 duplicated``. A no-op schedule leaves the replay **bit-identical** to the
-fault-free pipeline. The multi-queue walks tolerate a member queue being
+fault-free pipeline. The multi-queue walk tolerates a member queue being
 closed under them (the engine's consumer-deadline watchdog does that to
 shed a wedged scenario): the dead scenario's remaining buckets count as
 ``aborted_buckets`` and every other scenario replays to completion.
@@ -45,7 +45,6 @@ shed a wedged scenario): the dead scenario's remaining buckets count as
 
 from __future__ import annotations
 
-import heapq
 import threading
 import time
 from typing import Callable, Dict, Mapping, Optional
@@ -381,13 +380,11 @@ class MultiQueueProducer:
     own queue.
 
     Under a :class:`VirtualClock` (tests, CPU benchmarks,
-    ``Controller.run_many``) the walk is the gap-batched virtual-time
-    loop: each empty-second gap costs one ``sleep`` for the WHOLE sweep.
-    Under any other clock (:class:`RealClock` — live demos driving
-    several SPS consumers at once) the walk is a heap-based timer wheel
-    (:meth:`_run_timer_wheel`): each merged event is popped from a heap
-    keyed by its due wall time and emitted when that time arrives, so S
-    scenarios replay off ONE wall-clock loop instead of S timer threads.
+    ``Controller.run_many``) each empty-second gap costs one ``sleep`` for
+    the WHOLE sweep. Under any other clock (:class:`RealClock` — live demos
+    driving several SPS consumers at once) each merged event is emitted at
+    its due wall time, so S scenarios replay off ONE wall-clock loop
+    instead of S timer threads.
 
     Equivalence contract (tested): for each scenario the consumer observes
     exactly what a sequential ``Producer(stream, queue).run()`` produces —
@@ -415,8 +412,8 @@ class MultiQueueProducer:
     broker-stall semantics).
 
     Values are whole :class:`Stream` s, or all :class:`ChunkFeed` s of
-    time-chunk streams (the chunked replay, :meth:`_run_chunked`); a mix
-    raises ``ValueError``.
+    time-chunk streams (the chunked replay); a mix raises ``ValueError``.
+    :meth:`run` walks both alike.
     """
 
     def __init__(self, streams: Mapping, queues: Mapping,
@@ -450,49 +447,37 @@ class MultiQueueProducer:
         return [None if self.fault_plan.is_noop_for(k)
                 else self.fault_plan.injector(k) for k in keys]
 
-    def _emit_one(self, i, b, bucket_args, queues, injectors, n_buckets,
-                  n_records, keys):
-        """Apply one scenario's next bucket (chaos-aware); returns False
+    def _emit_one(self, i, b, t, payload, queue, inj, n_buckets,
+                  n_records, key) -> bool:
+        """Apply one scenario's next bucket through its fault schedule (the
+        sequential :meth:`Producer._emit` chaos discipline); returns False
         when the scenario's queue was closed under us (scenario dead)."""
-        t_col, payload_items, clock = bucket_args
-        inj = injectors[i]
+        clock = self.clock
         try:
-            if inj is not None:
-                action = inj.draw()
-                if action.stall_s > 0.0:
-                    clock.sleep(action.stall_s)
-                if action.delay_s > 0.0:
-                    clock.sleep(action.delay_s)
-            sl_t = t_col
-            bucket = Bucket(
-                scale_stamp=b,
-                t=sl_t,
-                payload=dict(payload_items),
-                emit_time=clock.time(),
-            )
-            n_buckets[i] += 1
+            action = inj.draw()
+            if action.stall_s > 0.0:
+                clock.sleep(action.stall_s)
+            if action.delay_s > 0.0:
+                clock.sleep(action.delay_s)
+            bucket = Bucket(scale_stamp=b, t=t, payload=payload,
+                            emit_time=clock.time())
+            n_buckets[i] += 1                  # emissions count ATTEMPTS
             n_records[i] += len(bucket)
-            if inj is not None:
-                # earlier holds advance on EVERY emission (held ones
-                # included) — the sequential _emit discipline
-                released = inj.release_due()
-                if action.hold:
-                    inj.hold(bucket, action.hold)
-                elif not action.drop:
-                    queues[i].put(bucket)
-                    if action.duplicate:
-                        queues[i].put(_dup_bucket(bucket))
-                    if self.on_emit is not None:
-                        self.on_emit(keys[i], bucket)
-                for rb in released:
-                    queues[i].put(rb)
-                return True
-            queues[i].put(bucket)
-            if self.on_emit is not None:
-                self.on_emit(keys[i], bucket)
+            # earlier holds advance on EVERY emission (held ones included)
+            released = inj.release_due()
+            if action.hold:
+                inj.hold(bucket, action.hold)
+            elif not action.drop:
+                queue.put(bucket)
+                if action.duplicate:
+                    queue.put(_dup_bucket(bucket))
+                if self.on_emit is not None:
+                    self.on_emit(key, bucket)
+            for rb in released:
+                queue.put(rb)
             return True
         except RuntimeError:
-            if not queues[i].closed:
+            if not queue.closed:
                 raise
             return False                    # shed scenario, walk continues
 
@@ -511,57 +496,94 @@ class MultiQueueProducer:
     def run(self) -> int:
         """Walk the merged timeline once; returns the paper status code.
 
-        Host work is O(total #non-empty buckets) plus one ``np.lexsort``
-        over the merged events — empty simulated seconds cost one batched
-        ``sleep`` for the WHOLE sweep, not one per scenario. Per-scenario
-        state (timestamp/payload columns, queue, counters) is hoisted into
-        index-addressed locals before the loop, so the per-event cost
-        matches the sequential :class:`Producer` hot path. Non-virtual
-        clocks take the timer-wheel walk instead
-        (:meth:`_run_timer_wheel`); feeds take the chunked walk
-        (:meth:`_run_chunked`).
+        The walk proceeds in *rounds*, one chunk per live scenario a round:
+        a whole :class:`Stream` is a source of one chunk, and a
+        :class:`ChunkFeed` yields chunks until it is closed (the engine
+        pushes every scenario's chunk ``k`` before any chunk ``k+1``, so the
+        sweep stays on one aligned chunk grid). A round's non-empty buckets
+        are merged by one ``np.lexsort`` into ascending stamp, then scenario
+        order, and the clock's gap state carries across rounds, so a
+        scenario's consumer observes the same bucket sequence (and, under a
+        :class:`VirtualClock`, the same ``emit_time`` stamps) whether its
+        stream came whole or in chunks. Replay of chunk 0 starts as soon as
+        it lands: nothing waits for the full timeline.
+
+        Under a :class:`VirtualClock` each empty-second gap costs one
+        ``sleep`` for the WHOLE sweep. Under any other clock each bucket
+        fires at its absolute due time ``t0 + (b + 1) * tick_s`` (the
+        sequential :class:`Producer`'s schedule), so S live consumers ride
+        one wall-clock loop; a stalled feed can only make buckets late,
+        never reordered. Host work is O(total #non-empty buckets), and
+        fault-free scenarios emit inline, as cheaply per event as the
+        sequential :class:`Producer` hot path.
+
+        A feed with no chunk ready blocks the walk in ``ChunkFeed.get`` on
+        a condition variable until the engine's ``put``/``close`` (no
+        busy-wait), and fault injectors persist across rounds (one draw per
+        emission attempt), so ``delivered == emitted - dropped +
+        duplicated`` holds per scenario however the engine paces chunks.
+        A whole stream's queue closes right after its last bucket (an empty
+        one at once); a feed's once the feed is closed and drained. A
+        scenario whose queue is closed under the walk goes dead, but its
+        source keeps draining (counting ``aborted_buckets``), so the engine
+        never blocks on a full feed of a shed scenario.
         """
-        if self.chunked:
-            return self._run_chunked()
-        if not isinstance(self.clock, VirtualClock):
-            return self._run_timer_wheel()
         try:
             keys = list(self.streams)
-            # hoisted per-scenario state, addressed by scenario index
-            t_cols = [self.streams[k].t for k in keys]
-            payloads = [list(self.streams[k].payload.items()) for k in keys]
+            sources = [self.streams[k] for k in keys]
             queues = [self.queues[k] for k in keys]
             injectors = self._injectors(keys)
             on_emit = self.on_emit
             clock, tick_s = self.clock, self.tick_s
-            n_buckets = [0] * len(keys)
-            n_records = [0] * len(keys)
-            dead = [False] * len(keys)
-            slices = []
-            events_b, events_s = [], []
-            last_bucket = [-1] * len(keys)
-            for i, key in enumerate(keys):
-                sl, _ = _group_by_scale_stamp(self.streams[key])
-                slices.append(sl)
-                if sl:
+            virtual = isinstance(clock, VirtualClock)
+            whole = not self.chunked
+            n = len(keys)
+            n_buckets = [0] * n
+            n_records = [0] * n
+            dead = [False] * n
+            live = [True] * n
+            last = [-1] * n                # a whole stream's last bucket
+            slices, t_cols, payloads = [None] * n, [None] * n, [None] * n
+            prev = -1                      # gap state carried across rounds
+            t0 = clock.time()              # wall-clock schedule origin
+            while any(live):
+                # ---- fetch this round's chunks (a feed blocks, no busy-wait)
+                events_b, events_s = [], []
+                for i in range(n):
+                    if not live[i]:
+                        continue
+                    chunk = sources[i] if whole else sources[i].get()
+                    live[i] = not whole and chunk is not None
+                    sl = {} if chunk is None else \
+                        _group_by_scale_stamp(chunk)[0]
+                    if not sl:
+                        if not live[i]:    # timeline over: nothing to emit
+                            self._close_scenario(i, queues, injectors)
+                        continue
                     bs = np.fromiter(sl, np.int64, len(sl))
+                    if whole:
+                        last[i] = int(bs[-1])
+                    slices[i], t_cols[i] = sl, chunk.t
+                    payloads[i] = list(chunk.payload.items())
                     events_b.append(bs)
                     events_s.append(np.full(len(bs), i, np.int64))
-                    last_bucket[i] = int(bs[-1])
-                else:
-                    queues[i].close()          # empty stream: nothing to emit
-            if events_b:
+                if not events_b:
+                    continue
                 bs = np.concatenate(events_b)
                 si = np.concatenate(events_s)
                 # ascending simulated second; scenario order within a second
                 order = np.lexsort((si, bs))
-                prev = -1
                 # .tolist() up front: the loop then touches only native
                 # ints (per-event numpy scalar unboxing would dominate)
                 for b, i in zip(bs[order].tolist(), si[order].tolist()):
-                    if b != prev:
-                        clock.sleep((b - prev) * tick_s)
-                        prev = b
+                    if virtual:
+                        if b != prev:
+                            clock.sleep((b - prev) * tick_s)
+                            prev = b
+                    else:
+                        delay = t0 + (b + 1) * tick_s - clock.time()
+                        if delay > 0:
+                            clock.sleep(delay)
                     if dead[i]:
                         self.aborted_buckets[keys[i]] += 1
                         continue
@@ -587,18 +609,14 @@ class MultiQueueProducer:
                         n_records[i] += len(bucket)
                         if on_emit is not None:
                             on_emit(keys[i], bucket)
-                    else:
-                        alive = self._emit_one(
-                            i, b,
-                            (t_cols[i][sl],
-                             [(k, v[sl]) for k, v in payloads[i]],
-                             clock),
-                            queues, injectors, n_buckets, n_records, keys)
-                        if not alive:
-                            dead[i] = True
-                            self.aborted_buckets[keys[i]] += 1
-                            continue
-                    if b == last_bucket[i]:
+                    elif not self._emit_one(
+                            i, b, t_cols[i][sl],
+                            {k: v[sl] for k, v in payloads[i]}, queues[i],
+                            inj, n_buckets, n_records, keys[i]):
+                        dead[i] = True
+                        self.aborted_buckets[keys[i]] += 1
+                        continue
+                    if b == last[i]:
                         # scenario done: close so its consumer can finish
                         # without waiting for the rest of the sweep
                         self._close_scenario(i, queues, injectors)
@@ -609,188 +627,9 @@ class MultiQueueProducer:
         except Exception:
             for q in self.queues.values():
                 q.close()
-            return STATUS_FAULT
-
-    def _run_timer_wheel(self) -> int:
-        """Wall-clock batched replay: ONE heap of due times feeds S queues.
-
-        Every scenario's non-empty buckets become timer events due at
-        ``t0 + (b + 1) * tick_s`` — the sequential :class:`Producer`'s
-        schedule (bucket ``b`` fires after ``b + 1`` ticks). The wheel
-        pops the earliest event, sleeps until its due time, emits the
-        bucket, and pushes that scenario's next one — S live consumers
-        ride one loop and one heap instead of S chained-timer threads
-        (Algorithm 2 spawned a ``threading.Timer`` per tick per stream).
-        Ties fire in scenario order (heap entries carry the scenario
-        index), matching the virtual-time walk; a bounded queue that
-        fills stalls the wheel exactly like the virtual loop (shared
-        backpressure — consumers must drain concurrently). Per-scenario
-        bucket sequence, queue stats, and producer stats equal the
-        sequential per-stream replay; ``emit_time`` is the wall time the
-        wheel fired.
-        """
-        try:
-            keys = list(self.streams)
-            t_cols = [self.streams[k].t for k in keys]
-            payloads = [list(self.streams[k].payload.items()) for k in keys]
-            queues = [self.queues[k] for k in keys]
-            injectors = self._injectors(keys)
-            clock, tick_s = self.clock, self.tick_s
-            n_buckets = [0] * len(keys)
-            n_records = [0] * len(keys)
-            dead = [False] * len(keys)
-            slices, events = [], []
-            heap = []
-            for i, key in enumerate(keys):
-                sl, _ = _group_by_scale_stamp(self.streams[key])
-                slices.append(sl)
-                bs = sorted(sl)
-                events.append(bs)
-                if bs:
-                    heap.append((bs[0], i, 0))
-                else:
-                    queues[i].close()          # empty stream: nothing to emit
-            heapq.heapify(heap)
-            t0 = clock.time()
-            while heap:
-                b, i, j = heapq.heappop(heap)
-                delay = t0 + (b + 1) * tick_s - clock.time()
-                if delay > 0:
-                    clock.sleep(delay)
-                if not dead[i]:
-                    sl = slices[i][b]
-                    alive = self._emit_one(
-                        i, b,
-                        (t_cols[i][sl],
-                         [(k, v[sl]) for k, v in payloads[i]],
-                         clock),
-                        queues, injectors, n_buckets, n_records, keys)
-                    if not alive:
-                        dead[i] = True
-                        self.aborted_buckets[keys[i]] += 1
-                else:
-                    self.aborted_buckets[keys[i]] += 1
-                if j + 1 < len(events[i]):
-                    heapq.heappush(heap, (events[i][j + 1], i, j + 1))
-                elif not dead[i]:
-                    # scenario done: close so its consumer can finish
-                    # without waiting for the rest of the sweep
-                    self._close_scenario(i, queues, injectors)
-            for i, key in enumerate(keys):
-                self.emitted_buckets[key] = n_buckets[i]
-                self.emitted_records[key] = n_records[i]
-            return STATUS_SUCCESS
-        except Exception:
-            for q in self.queues.values():
-                q.close()
-            return STATUS_FAULT
-
-    def _run_chunked(self) -> int:
-        """Replay from :class:`ChunkFeed` s of time-chunk streams.
-
-        The walk proceeds in *rounds*: one chunk per live scenario per
-        round (the engine pushes every scenario's chunk ``k`` before any
-        chunk ``k+1``, so the sweep stays on one aligned chunk grid),
-        merged-lexsorted and emitted exactly like :meth:`run` — the clock
-        and ``prev`` gap state carry ACROSS rounds, so under a
-        :class:`VirtualClock` per-bucket ``emit_time`` stamps are
-        identical to the whole-stream walk, and each scenario's consumer
-        observes the same bucket sequence either way. Replay of chunk 0
-        starts as soon as it lands: nothing waits for the full timeline.
-
-        **Stalled chunk iterator**: when a
-        feed has no chunk ready — the engine's next dispatch is still in
-        flight — the producer *blocks* in ``ChunkFeed.get`` on a
-        condition variable until the engine's ``put``/``close``. There is
-        no busy-wait and no timeout-retry loop, and fault injectors
-        persist across rounds (one draw per emission attempt, same RNG
-        walk as the whole-stream replay), so the reconciliation
-        identity ``delivered == emitted - dropped + duplicated`` holds
-        per scenario regardless of how the engine paces chunks. Under a
-        non-virtual clock each bucket still fires at its absolute due
-        time ``t0 + (b + 1) * tick_s`` (the timer-wheel schedule); a
-        stalled feed can only make buckets late, never reordered.
-
-        A scenario whose queue is closed under the walk goes dead but its
-        feed keeps draining (counting ``aborted_buckets``) — otherwise
-        the engine would block forever on a full feed of a shed scenario.
-        """
-        try:
-            keys = list(self.streams)
-            feeds = [self.streams[k] for k in keys]
-            queues = [self.queues[k] for k in keys]
-            injectors = self._injectors(keys)
-            clock, tick_s = self.clock, self.tick_s
-            virtual = isinstance(clock, VirtualClock)
-            n = len(keys)
-            n_buckets = [0] * n
-            n_records = [0] * n
-            dead = [False] * n
-            live = [True] * n
-            prev = -1                      # gap state carried across rounds
-            t0 = clock.time()              # wall-clock schedule origin
-            while any(live):
-                # ---- fetch this round's chunks (blocks, no busy-wait)
-                round_chunks = {}
-                for i in range(n):
-                    if not live[i]:
-                        continue
-                    chunk = feeds[i].get()
-                    if chunk is None:      # closed + drained: timeline over
-                        live[i] = False
-                        if dead[i]:
-                            queues[i].close()
-                        else:
-                            self._close_scenario(i, queues, injectors)
-                        continue
-                    round_chunks[i] = chunk
-                # ---- merged walk over the round's events (run() body)
-                events_b, events_s, slices = [], [], {}
-                for i, chunk in round_chunks.items():
-                    sl, _ = _group_by_scale_stamp(chunk)
-                    if not sl:
-                        continue           # empty chunk: nothing this round
-                    slices[i] = (sl, chunk)
-                    bs = np.fromiter(sl, np.int64, len(sl))
-                    events_b.append(bs)
-                    events_s.append(np.full(len(bs), i, np.int64))
-                if not events_b:
-                    continue
-                bs = np.concatenate(events_b)
-                si = np.concatenate(events_s)
-                order = np.lexsort((si, bs))
-                for b, i in zip(bs[order].tolist(), si[order].tolist()):
-                    if virtual:
-                        if b != prev:
-                            clock.sleep((b - prev) * tick_s)
-                            prev = b
-                    else:
-                        delay = t0 + (b + 1) * tick_s - clock.time()
-                        if delay > 0:
-                            clock.sleep(delay)
-                    if dead[i]:
-                        self.aborted_buckets[keys[i]] += 1
-                        continue
-                    sl, chunk = slices[i]
-                    s = sl[b]
-                    alive = self._emit_one(
-                        i, b,
-                        (chunk.t[s],
-                         [(k, v[s]) for k, v in chunk.payload.items()],
-                         clock),
-                        queues, injectors, n_buckets, n_records, keys)
-                    if not alive:
-                        dead[i] = True
-                        self.aborted_buckets[keys[i]] += 1
-            for i, key in enumerate(keys):
-                self.emitted_buckets[key] = n_buckets[i]
-                self.emitted_records[key] = n_records[i]
-            return STATUS_SUCCESS
-        except Exception:
-            for q in self.queues.values():
-                q.close()
-            for f in self.streams.values():
-                f.close()   # unblock the engine side — no orphaned put()
+            if self.chunked:
+                for f in self.streams.values():
+                    f.close()   # unblock the engine side: no orphaned put()
             return STATUS_FAULT
 
     def stats(self, key=None) -> Dict:

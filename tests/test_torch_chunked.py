@@ -449,24 +449,33 @@ def _slice(sim, lo, hi):
                     scale_stamp=sim.scale_stamp[a:b])
 
 
-def _walk(sources, chunked, cs=7, fault_plan=None):
+#: the walk's clocks: the virtual one, and a real one of 1 ms ticks whose
+#: emit times are wall times (so the logs leave them out)
+CLOCKS = {"virtual": lambda: (T.VirtualClock(), 1.0),
+          "real": lambda: (T.RealClock(), 0.001)}
+
+
+def _walk(sources, chunked, cs=7, fault_plan=None, clock="virtual"):
     """Replay ``sources`` through one MultiQueueProducer, whole or fed in
     ``cs``-second chunks from another thread; returns each scenario's
-    bucket log ``(stamp, emit_time, rows)`` and the producer stats."""
+    bucket log ``(stamp, emit_time, rows)`` (``emit_time`` None on the real
+    clock) and the producer stats."""
     if chunked:
         feeds = {k: T.ChunkFeed(maxsize=2) for k in sources}
         streams = feeds
     else:
         streams = sources
     group = T.QueueGroup(streams, maxsize=4)
-    producer = T.MultiQueueProducer(streams, group.queues,
-                                    clock=T.VirtualClock(),
-                                    fault_plan=fault_plan)
+    clk, tick_s = CLOCKS[clock]()
+    virtual = clock == "virtual"
+    producer = T.MultiQueueProducer(streams, group.queues, clock=clk,
+                                    tick_s=tick_s, fault_plan=fault_plan)
     logs = {k: [] for k in sources}
 
     def drain(k):
         for b in group[k]:
-            logs[k].append((b.scale_stamp, b.emit_time, len(b)))
+            logs[k].append((b.scale_stamp, b.emit_time if virtual else None,
+                            len(b)))
 
     threads = [threading.Thread(target=drain, args=(k,), daemon=True)
                for k in sources]
@@ -486,12 +495,13 @@ def _walk(sources, chunked, cs=7, fault_plan=None):
 
 
 class TestChunkedWalk:
-    def test_chunked_walk_equals_whole_stream_walk(self):
+    @pytest.mark.parametrize("clock", sorted(CLOCKS))
+    def test_chunked_walk_equals_whole_stream_walk(self, clock):
         s = _mini()
         sources = {("traffic", 20): T.nsa(s, 20),
                    ("traffic", 45): T.nsa(s, 45)}
-        whole, st_w = _walk(sources, chunked=False)
-        fed, st_c = _walk(sources, chunked=True)
+        whole, st_w = _walk(sources, chunked=False, clock=clock)
+        fed, st_c = _walk(sources, chunked=True, clock=clock)
         assert fed == whole and all(len(v) for v in whole.values())
         for k in sources:
             # the feed's waits depend on the threads' timing
@@ -500,14 +510,17 @@ class TestChunkedWalk:
             assert fstats.pop("feed_chunks") == -(-45 // 7)
             assert fstats == st_w[k]
 
-    def test_faults_walk_the_chunks_as_the_whole_stream(self):
+    @pytest.mark.parametrize("clock", sorted(CLOCKS))
+    def test_faults_walk_the_chunks_as_the_whole_stream(self, clock):
         s = _mini()
         sources = {("traffic", 40): T.nsa(s, 40)}
         def plan():                    # injectors are memoized per plan
             return T.FaultPlan(5, default=T.FaultSpec(**CHAOS))
 
-        whole, st_w = _walk(sources, chunked=False, fault_plan=plan())
-        fed, st_c = _walk(sources, chunked=True, fault_plan=plan())
+        whole, st_w = _walk(sources, chunked=False, fault_plan=plan(),
+                            clock=clock)
+        fed, st_c = _walk(sources, chunked=True, fault_plan=plan(),
+                          clock=clock)
         k = ("traffic", 40)
         assert fed == whole
         for name in ("fault_dropped", "fault_duplicated", "emitted_buckets"):
@@ -658,6 +671,48 @@ class TestChunkedRunMany:
             dropped += m.get("fault_dropped", 0)
         assert dropped > 0
 
+    @pytest.mark.parametrize("on_failure", ["raise", "degrade"])
+    def test_consumer_failures_match_jax_chunked_run_many(self, tmp_path,
+                                                         on_failure):
+        def consumer(queue):
+            buckets = list(queue)
+            n = sum(len(b) for b in buckets)
+            if buckets[-1].scale_stamp + 1 == 20:
+                raise ValueError(f"range 20, {n} records")
+            return {"records_seen": n}
+
+        got = {}
+        for mod, name, kw in ((T, "port", dict(backend="torch")),
+                              (J, "jax", dict(backend="numpy"))):
+            ctl = mod.Controller(str(tmp_path / name), **(
+                {"device": CPU} if mod is T else {}))
+            call = lambda: ctl.run_many(   # noqa: E731
+                DATASETS, RANGES, consumer, scale=SCALE, seed=SEED,
+                chunk_s=7, on_failure=on_failure, **kw)
+            if on_failure == "raise":
+                with pytest.raises(RuntimeError) as ei:
+                    call()
+                got[name] = ei.value
+            else:
+                got[name] = call()
+        port, ref = got["port"], got["jax"]
+        if on_failure == "raise":
+            assert str(port) == str(ref)
+            assert str(port).startswith("2 of 4 chunked sweep consumer(s)")
+            assert repr(port.__cause__) == repr(ref.__cause__)
+            return
+        _reports_equal(port, ref, vol_rtol=1e-3, corr_atol=1e-3)
+        for a, b in zip(port, ref):
+            for f in ("status", "failure", "attempts", "simulated_rows"):
+                assert getattr(a, f) == getattr(b, f), f
+            assert a.status == ("partial" if a.max_range == 20 else "ok")
+        bad = [r for r in port if r.status == "partial"]
+        assert len(bad) == 2 and all("range 20" in r.failure for r in bad)
+        for r in bad:
+            m = r.consumer_metrics
+            assert m["degraded"] and m["attempts"] == 1
+            assert m["records_in"] == r.simulated_rows
+
     def test_reference_value_errors(self, tmp_path):
         c = T.Controller(str(tmp_path / "s"), device=CPU)
         kw = dict(scale=SCALE, backend="torch")
@@ -749,7 +804,7 @@ class TestPipeline:
         events = []
         real_sample = b1_mod.stream_sample
         real_metrics = ops_mod.stream_metrics_chunk
-        real_mat = tengine.materialize_sweep_chunk
+        real_mat = tengine.materialize_sweep
 
         def counting_sample(*args, **kwargs):
             events.append("sample")
@@ -767,7 +822,7 @@ class TestPipeline:
 
         monkeypatch.setattr(b1_mod, "stream_sample", counting_sample)
         monkeypatch.setattr(ops_mod, "stream_metrics_chunk", checking_metrics)
-        monkeypatch.setattr(tengine, "materialize_sweep_chunk", tracking_mat)
+        monkeypatch.setattr(tengine, "materialize_sweep", tracking_mat)
         originals = {"traffic": _mini()}
         store = T.StreamStore(str(tmp_path / "store"))
         plan = T.plan_sweep(store, ["traffic"], [30],
