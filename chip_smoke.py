@@ -21,6 +21,12 @@ Phases, each of which raises on failure (nothing catches it):
      buckets, a day of random stamps at 86,528 buckets (the global-atomic
      branch), the original's sorted row beside a shuffled copy; two calls
      in a row bit-identical, the run shape after the largest unchanged;
+   - B3's time form on the day's original, where B1's buffer holds its
+     float64 timestamps: counts exact against the int32 form on the
+     stamps the host builds (``_bucket_series``) and against its own plain
+     version on the card, moments bit-equal to the int32 form's and
+     within MOMENT_RTOL of the plain version's, both forms timed (phase 7
+     does the same on nine days);
    - B1 and B2 at their edges, bit-equal to their plain versions: rows of
      1003 records (not a multiple of the vector width), inputs in views
      that start off a 16-byte boundary, all-zero and all-ones masks, rows
@@ -102,7 +108,8 @@ Phases, each of which raises on failure (nothing catches it):
    hold the concatenated trend to B4's bit for bit; B1 and B2 are then
    held to their plain versions and timed on B1's inputs for one of those
    chunks, rebuilt by ``ChunkedNSA.sample_inputs`` (the shape of 54 of
-   their 63 launches), each beside its wrapper's host time;
+   their 63 launches), each beside its wrapper's host time; B3's time form
+   on the nine-day original (95.7 M records), as on the day in phase 3;
 8. drive ``python -m repro_torch.launch.serve`` at its defaults (the
    paper's consumer LM at full width, 12 layers in f32, sogouq compressed
    to 120 s at scale 0.01, 8 slots): every arrival finishes and B8 runs
@@ -141,13 +148,18 @@ Phases, each of which raises on failure (nothing catches it):
    scenarios they computed split the grid, rows and stored sims equal
    phase 5's and statistics within 1e-3, the merged matrices within 1e-9
    of phase 5's numpy matrices with provenance on every row; each
-   participant launches B1 = B2 = its batches and B3 twice that, and
-   loads the kernels phase 2 built without rebuilding them;
+   participant launches B1 = B2 = its batches and B3 twice that (the
+   batch's sims, and its dataset's original by B3's time form on B1's
+   copy: a batch reads no other original), and loads the kernels phase 2
+   built without rebuilding them;
 13. drive the static plan over two hosts, ``run_many(..., n_hosts=2,
    host_index=0 or 1)`` alternately in a fresh shared store until the
    grid is covered (five runs): launches exact per run (B1, B2 once for
-   a computed slice, B3 for it and for the originals, B4 = B5 = the
-   run's local matrices), the last run's merged matrices full, with
+   a computed slice, B3 for it, for its datasets' originals (the time
+   form) and once for the cache hits and the originals of datasets it
+   reports only from cache hits, B4 = B5 = the run's local matrices),
+   the last run's merged matrices
+   full, with
    provenance from host0 and host1, within 1e-9 of phase 5's numpy
    matrices;
 14. drive phase 4's ``Controller.run`` in a fresh store with
@@ -262,6 +274,7 @@ GRAM_RTOL = 1e-4
 STAT_TOL = 1e-3
 #: launches each kernel must show on the run path: B1 and B2 once, B3 for
 #: the kept stamps and again for the original stream's report statistics
+#: (its time form, in the NSA leg, on the copy B1 read)
 MIN_LAUNCHES = {"stream_sample": 1, "compact": 1, "metrics_fused": 2}
 #: ... and on the sweep path: one B1/B2 shard, B3 for the shard and the
 #: originals, B4 and B5 once per max_range's fidelity matrix
@@ -564,9 +577,81 @@ def check_kernels(device: str, scale: float, seed: int,
     rows["metrics_fused"]["bound_ms"], rows["metrics_fused"]["bound_by"] = \
         _bound_ms(S * N * 4 + S * 4 + S * buckets * 4 + S * 8,
                   S * N * 3 + S * buckets * 4)
+    rows["metrics_fused"]["time_form"] = check_time_form(
+        "original", main_b1.t, main.t, timing_reps)
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
     return rows
+
+
+def check_time_form(name: str, t_dev, t_host, timing_reps: int = 20):
+    """B3's time form on one original whose float64 timestamps ``t_dev``
+    hold from its first element (B1's buffer of the stream): counts exact
+    against B3's int32 form on the stamps the host builds from ``t_host``
+    (``_bucket_series``, the host group's path) and against the time
+    form's plain version on the card's tensors, moments bit-equal to the
+    int32 form's and within MOMENT_RTOL of the plain version's (the int32
+    form shares everything after the loads, so only the plain version
+    checks that shared body at this shape); twice in a row bit-identical;
+    one kernel a call. Both forms timed; the time form's bound reads 8 B a
+    record. Returns the time form's row."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.metrics_fused import (
+        stream_metrics, stream_metrics_time, stream_metrics_time_plain)
+    from repro_torch.streamsim.metrics import _bucket_series
+    from repro_torch.streamsim.preprocess import Stream
+
+    b, tr = _bucket_series(Stream(name, t_host, {}), None, None)
+    if tr != ops.time_series_length(t_host):
+        raise AssertionError(f"metrics_fused/{name}/time_form: series "
+                             f"length {ops.time_series_length(t_host)} vs "
+                             f"{tr}")
+    ssb, lens, buckets = ops.stream_metrics_inputs([b], tr)
+    del b
+    dev = t_dev.device
+    ss = torch.from_numpy(ssb).to(dev)
+    lengths = torch.from_numpy(lens).to(dev)
+    del ssb
+    n = len(t_host)
+    args = (t_dev, torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.tensor([float(t_host[0])], dtype=torch.float64,
+                         device=dev),
+            lengths, torch.tensor([tr], dtype=torch.int32, device=dev),
+            buckets, n)
+    hist, mom = stream_metrics_time(*args)
+    hist32, mom32 = stream_metrics(ss, lengths, buckets)
+    _exact(f"metrics_fused/{name}/time_form/hist", hist, hist32)
+    if not torch.equal(mom, mom32):
+        raise AssertionError(f"metrics_fused/{name}/time_form: moments "
+                             f"{mom.tolist()} vs the int32 form's "
+                             f"{mom32.tolist()}")
+    del hist32, mom32
+    hist_p, mom_p = stream_metrics_time_plain(*args[:-1])
+    _exact(f"metrics_fused/{name}/time_form/plain_hist", hist, hist_p)
+    plain_err = _moments_err(f"metrics_fused/{name}/time_form/plain", mom,
+                             mom_p)
+    del hist_p, mom_p
+    _same_twice(f"metrics_fused/{name}/time_form",
+                lambda: stream_metrics_time(*args))
+    row = dict(
+        ms=_time_ms(lambda: stream_metrics_time(*args), timing_reps),
+        int32_ms=_time_ms(lambda: stream_metrics(ss, lengths, buckets),
+                          timing_reps),
+        host_ms=_enqueue_ms(lambda: stream_metrics_time(*args),
+                            timing_reps),
+        shape=f"S=1 N={n} B={buckets} ({name}, float64 time)",
+        max_abs_err_plain=plain_err,
+        kernels_per_call=_kernels_per_call(
+            f"metrics_fused/{name}/time_form",
+            lambda: stream_metrics_time(*args)))
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        n * 8 + 24 + buckets * 4 + 8, n * 5 + buckets * 4)
+    row["int32_bound_ms"], _ = _bound_ms(
+        ss.shape[1] * 4 + 4 + buckets * 4 + 8,
+        ss.shape[1] * 3 + buckets * 4)
+    return row
 
 
 def _b3_err(name: str, ss, lengths, buckets: int, config=None) -> float:
@@ -2196,12 +2281,16 @@ def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
     ref_store = StreamStore(workdir / "md_numpy")
     shutil.copytree(src_store._dir(key), ref_store._dir(key))
     # B1's inputs for one chunk, as the run's ChunkedNSA built them, for
-    # the chunk-shape timings of B1 and B2
+    # the chunk-shape timings of B1 and B2; B3's time form on the nine
+    # days where those inputs hold them
     (spec,) = result.plan.scenarios
     lo = MULTIDAY_TIMED_CHUNK * CHUNK_S
-    chunk_in, _ = ChunkedNSA({MAIN_DATASET: src_store.get(key)},
+    original = src_store.get(key)
+    chunk_in, _ = ChunkedNSA({MAIN_DATASET: original},
                              [(spec.dataset, spec.span_s)],
                              device=device).sample_inputs(lo, lo + CHUNK_S)
+    time_form = check_time_form("nine_days", chunk_in.t, original.t)
+    del original
     t0 = time.perf_counter()
     (ref,) = Controller(str(workdir / "md_numpy"), device=device).run_many(
         (MAIN_DATASET,), (MAIN_RANGE,), _SweepConsumer(), backend="numpy",
@@ -2226,6 +2315,7 @@ def run_multiday_path(device: str, scale: float, seed: int, workdir: Path):
         **result.pipeline_s, "trend_chunks_s": trend_chunk_s,
         "trend_corr": rep.trend_corr, "trend_corr_numpy": ref.trend_corr,
         "numpy_run_s": ref_s, "numpy_produce_s": ref.produce_s,
+        "b3_time_form": time_form,
         "tolerances": {"stats": STAT_TOL, "sims": "byte-equal",
                        "trend_chunks_vs_b4": "bit-equal"},
     }
@@ -2859,9 +2949,11 @@ def run_service_path(device: str, scale: float, seed: int, workdir: Path,
     grid; rows and stored sims equal to phase 5's, statistics within 1e-3;
     the merged matrices within 1e-9 of phase 5's numpy matrices and 1e-3
     of its torch matrices, provenance on every row; per participant B1 =
-    B2 = its batches and B3 = twice them (the batch's sims and the
-    originals' report statistics), nothing else; the kernels loaded, not
-    rebuilt. Returns ``(summed launches, summary)``."""
+    B2 = its batches and B3 = twice them (the batch's sims, and its
+    dataset's original by the time form on B1's copy: a batch reads and
+    publishes no other original), nothing else; the kernels loaded, not
+    rebuilt.
+    Returns ``(summed launches, summary)``."""
     from repro_torch.streamsim import (FidelityReport, SimulationReport,
                                        StreamStore)
 
@@ -2967,8 +3059,11 @@ def run_multihost_path(device: str, scale: float, seed: int, workdir: Path,
     store, host 0 and host 1 run alternately in this process until the
     grid is covered (each run plans what is still missing and takes its
     strided half). Each run launches B1 and B2 once when it computed a
-    slice, B3 for that slice and once for the originals and cache hits,
-    and B4 and B5 once for each local matrix (a max_range among its
+    slice, B3 for that slice, for the originals of its slice (the time
+    form on B1's copy) and once when it found cache hits (the report's
+    host group: the hits and the originals of datasets it reports only
+    from hits), and B4 and B5 once for each local
+    matrix (a max_range among its
     reports); the last run's merged matrices hold every label, with
     provenance from host0 and host1, within 1e-9 of phase 5's numpy
     matrices. Returns ``(summed launches, summary)``."""
@@ -2996,7 +3091,8 @@ def run_multihost_path(device: str, scale: float, seed: int, workdir: Path,
         expected = dict.fromkeys(launches, 0)
         expected.update(stream_sample=int(computed > 0),
                         compact=int(computed > 0),
-                        metrics_fused=int(computed > 0) + 1,
+                        metrics_fused=2 * int(computed > 0) +
+                        int(len(plan.cached) > 0),
                         trend_scan=len(local_mrs), pair_stats=len(local_mrs))
         _check_launches(f"multihost run {i} (host {host})", launches,
                         expected, exact=True)
@@ -4394,6 +4490,8 @@ def main() -> int:
         md_launches, multiday, chunk_in = run_multiday_path(
             "cuda", MAIN_SCALE, MAIN_SEED, Path(tmp))
         print(json.dumps({"multiday": multiday}), flush=True)
+        rows["metrics_fused"]["time_form_multiday"] = \
+            multiday["b3_time_form"]
         for name, row in check_chunk_shape(chunk_in).items():
             rows[name]["chunk"] = row
         for name, row in time_instances_chunk(chunk_in).items():
@@ -4474,7 +4572,7 @@ def main() -> int:
              "max_abs_err_f32", "max_abs_err_bf16", "library_max_abs_err",
              "library_nonzero_ms", "kernels_per_call", "host_ms",
              "recurrentgemma", "kernels_per_call_shapes",
-             "planted_faults_rejected")
+             "planted_faults_rejected", "time_form", "time_form_multiday")
     kernels = []
     for name, (source, tpu, path) in replaces.items():
         r = rows[name]

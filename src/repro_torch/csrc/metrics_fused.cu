@@ -14,6 +14,19 @@
 // 0 for B3; the TPU kernels' padding id >= buckets is ignored the same way,
 // and the guard also keeps the atomics in bounds).
 //
+// B3's time form, entry metrics_time_launch, counts original streams where
+// their float64 timestamps already lie on the device (B1's buffer of
+// sources, kernels/stream_sample.py): row s reads lengths[s] records from
+// t + first[s] and counts record i in bucket
+// min(max(floor(t[i] - t0[s]), 0), tr[s] - 1), as the host's
+// streamsim/metrics.py _bucket_series does with t0 = t[0]. The bucket is
+// computed in registers in f64 (a subtraction and a floor, which round as
+// the host's do; NaN counts in bucket 0, as its int cast and clip put it),
+// clamped in f64 before the int conversion, which so cannot overflow. A
+// sorted row gives sorted buckets, so the runs and tiles below work as on
+// sorted stamps; everything after the loads is B3's. Records are read 16
+// bytes (two) a load.
+//
 // The TPU kernel zeroed its VMEM-resident histogram at the first grid step
 // and reduced it to moments at the last, in order. Here the histogram lives
 // in device memory (the caller allocates it uninitialised) and blocks run
@@ -68,13 +81,14 @@
 // the row's counters, so the per-stream workspace needs no memset between
 // calls.
 //
-// What bounds it: bytes. Each counted stamp is read once (4 B/record), the
-// histogram written by its zeroing and the atomics and read once more for
-// the partials (4 B/bucket each), small beside the stamps for the original
-// stream. At the chunked paths' shapes (a few hundred ns of bytes) the
-// launch and the chain of dependent round trips (ticket, lengths, stamps,
-// span word, atomics, count ticket, partials) bound it; the first port
-// spent three device operations there (fill, histogram, moments).
+// What bounds it: bytes. Each counted stamp is read once (4 B/record, 8 B
+// in the time form), the histogram written by its zeroing and the atomics
+// and read once more for the partials (4 B/bucket each), small beside the
+// stamps for the original stream. At the chunked paths' shapes (a few
+// hundred ns of bytes) the launch and the chain of dependent round trips
+// (ticket, lengths, stamps, span word, atomics, count ticket, partials)
+// bound it; the first port spent three device operations there (fill,
+// histogram, moments).
 //
 // Exactness: counts are exact int32 (the host wrapper refuses more than
 // 2^31 - 1 records). Moments are f32 with a summation order other than the
@@ -117,6 +131,20 @@ constexpr int kPieceBlocks = 2 * kWarps;        // partials a block computes
 constexpr int kFoldMax = 256;                   // partials folded at once
 constexpr int kMinBlocks = 4;                   // resident blocks an SM
 constexpr int kMaxGroup = 16;                   // most tiles a block takes
+
+// The kernel's three forms: B3 on int32 stamps, B6 (stamps, carried
+// moments) and B3's time form (float64 timestamps, bucketed in registers).
+enum Form { kStamps, kCarry, kTime };
+
+// The time form's rows: row s reads its records from t + first[s], with
+// base t0[s] and series length tr[s] (buckets 0 .. tr[s] - 1; a length
+// below 1 reads as 1).
+struct TimeRows {
+  const double* t;
+  const long long* first;
+  const double* t0;
+  const int* tr;
+};
 
 // ---------------------------------------------------------- helpers
 // A span's word is a look-back status word (lookback.cuh): published as
@@ -191,6 +219,71 @@ __device__ __forceinline__ void load_tile(const int* __restrict__ row,
     for (int j = 0; j < kItems; ++j)
       r[j] = i0 + j < len ? static_cast<unsigned>(__ldg(row + i0 + j)) - ub
                           : 0xffffffffu;
+  }
+}
+
+// The bucket of timestamp t in a row with base t0 and last bucket top:
+// min(max(floor(t - t0), 0), top), in f64, so the conversion is in range.
+__device__ __forceinline__ unsigned time_bucket(double t, double t0,
+                                                double top) {
+  const double d = floor(__dsub_rn(t, t0));
+  return static_cast<unsigned>(d >= 0.0 ? fmin(d, top) : 0.0);
+}
+
+// A row of int32 stamps (B3, B6): load_tile over it.
+struct StampRow {
+  const int* row;
+  int n, base;
+  bool vec_ok;
+
+  __device__ __forceinline__ void load(long long tile, int len,
+                                       unsigned (&r)[kItems]) const {
+    load_tile(row, tile, len, n, base, vec_ok, r);
+  }
+};
+
+// A row of float64 timestamps (the time form): this thread's kItems
+// records of the tile as buckets, two records a 16-byte load where the
+// row's start allows; past the length every bit is set.
+struct TimeRow {
+  const double* row;
+  double t0, top;
+  bool vec_ok;
+
+  __device__ __forceinline__ void load(long long tile, int len,
+                                       unsigned (&r)[kItems]) const {
+    const long long i0 = tile * kTile + threadIdx.x * kItems;
+    if (vec_ok && i0 + kItems <= len) {
+      double2 u[kItems / 2];
+#pragma unroll
+      for (int k = 0; k < kItems / 2; ++k)
+        u[k] = __ldg(reinterpret_cast<const double2*>(row + i0) + k);
+#pragma unroll
+      for (int k = 0; k < kItems / 2; ++k) {
+        r[2 * k] = time_bucket(u[k].x, t0, top);
+        r[2 * k + 1] = time_bucket(u[k].y, t0, top);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        r[j] = i0 + j < len ? time_bucket(__ldg(row + i0 + j), t0, top)
+                            : 0xffffffffu;
+    }
+  }
+};
+
+// Row s's reader in form F.
+template <Form F>
+__device__ __forceinline__ auto row_reader(const int* ss, const TimeRows& tr,
+                                           int s, int n, int base,
+                                           bool vec_ok) {
+  if constexpr (F == kTime) {
+    const double* row = tr.t + __ldg(tr.first + s);
+    return TimeRow{row, __ldg(tr.t0 + s),
+                   static_cast<double>(max(__ldg(tr.tr + s), 1) - 1),
+                   reinterpret_cast<uintptr_t>(row) % 16 == 0};
+  } else {
+    return StampRow{ss + static_cast<size_t>(s) * n, n, base, vec_ok};
   }
 }
 
@@ -325,10 +418,10 @@ struct Kahan {
   }
 };
 
-template <bool kCarry>
+template <Form F>
 __device__ __forceinline__ Kahan start_state(const float* mcar, int s) {
   Kahan k;
-  if constexpr (kCarry) {
+  if constexpr (F == kCarry) {
     k.s1 = mcar[4 * s];
     k.c1 = mcar[4 * s + 1];
     k.s2 = mcar[4 * s + 2];
@@ -337,10 +430,10 @@ __device__ __forceinline__ Kahan start_state(const float* mcar, int s) {
   return k;
 }
 
-template <bool kCarry>
+template <Form F>
 __device__ __forceinline__ void write_moments(const Kahan& k, int s,
                                               float* mom) {
-  if constexpr (kCarry) {
+  if constexpr (F == kCarry) {
     mom[4 * s] = k.s1;
     mom[4 * s + 1] = k.c1;
     mom[4 * s + 2] = k.s2;
@@ -371,13 +464,15 @@ __device__ __forceinline__ long long active_groups(int length,
              (static_cast<long long>(len) + kTile - 1) / kTile);
 }
 
-// kCarry = false: the fold starts from zeros and writes [s1, s2] (B3);
-// kCarry = true: it starts from mcar[s] = [s1, c1, s2, c2] and writes the
-// updated 4-state (B6). Everything else is one code path.
-template <bool kCarry>
+// kStamps and kTime: the fold starts from zeros and writes [s1, s2] (B3);
+// kCarry: it starts from mcar[s] = [s1, c1, s2, c2] and writes the updated
+// 4-state (B6). kTime reads the rows' records through tr, the others
+// through ss. Everything else is one code path.
+template <Form F>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-metrics_fused(const int* __restrict__ ss, const int* __restrict__ lengths,
-              Shape sh, int rows, unsigned epoch,
+metrics_fused(const int* __restrict__ ss, TimeRows tr,
+              const int* __restrict__ lengths, Shape sh, int rows,
+              unsigned epoch,
               unsigned long long* __restrict__ words,
               unsigned* __restrict__ counters, int* __restrict__ hist,
               const float* __restrict__ mcar, float* __restrict__ mom) {
@@ -444,7 +539,7 @@ metrics_fused(const int* __restrict__ ss, const int* __restrict__ lengths,
     if (!s_last) return;
     __threadfence();
     // the row's last piece folds every partial, in block order
-    Kahan k = start_state<kCarry>(mcar, s);
+    Kahan k = start_state<F>(mcar, s);
     for (int c0 = 0; c0 < n_blocks; c0 += kFoldMax) {
       const int m = min(kFoldMax, n_blocks - c0);
       if (threadIdx.x < m) {
@@ -456,7 +551,7 @@ metrics_fused(const int* __restrict__ ss, const int* __restrict__ lengths,
       if (threadIdx.x == 0) k.add(p1, p2, m);
       __syncthreads();
     }
-    if (threadIdx.x == 0) write_moments<kCarry>(k, s, mom);
+    if (threadIdx.x == 0) write_moments<F>(k, s, mom);
     return;
   }
 
@@ -485,11 +580,11 @@ metrics_fused(const int* __restrict__ ss, const int* __restrict__ lengths,
     const int len = max(0, min(__ldg(lengths + s), sh.n));
     groups = active_groups(len, sh);
     if (g >= groups) return;           // past the row's length: no part
-    const int* row = ss + static_cast<size_t>(s) * sh.n;
+    const auto row = row_reader<F>(ss, tr, s, sh.n, sh.base, sh.vec_ok);
     const long long tiles = (static_cast<long long>(len) + kTile - 1) / kTile;
     long long tile = g;                // then every n_groups-th tile
     unsigned cur[kItems];
-    load_tile(row, tile, len, sh.n, sh.base, sh.vec_ok, cur);
+    row.load(tile, len, cur);
     // the spans already zeroed, seen while the first stamps are in flight
     if (threadIdx.x < 32) {
       const unsigned mask = __ballot_sync(
@@ -502,9 +597,7 @@ metrics_fused(const int* __restrict__ ss, const int* __restrict__ lengths,
     unsigned known = s_known;
     for (int k = 0; tile < tiles; tile += sh.n_groups, ++k) {
       unsigned next[kItems];           // the next tile's loads in flight
-      if (tile + sh.n_groups < tiles)
-        load_tile(row, tile + sh.n_groups, len, sh.n, sh.base, sh.vec_ok,
-                  next);
+      if (tile + sh.n_groups < tiles) row.load(tile + sh.n_groups, len, next);
       count_tile(cur, sh.buckets, epoch, row_words, h, bins[k & 1],
                  red[k & 1], known);
 #pragma unroll
@@ -528,9 +621,9 @@ metrics_fused(const int* __restrict__ ss, const int* __restrict__ lengths,
   // few blocks: the last part computes the partials and folds them
   block_partials(h, 0, sh.buckets / kBucketBlock, p1, p2);
   if (threadIdx.x == 0) {
-    Kahan k = start_state<kCarry>(mcar, s);
+    Kahan k = start_state<F>(mcar, s);
     k.add(p1, p2, sh.buckets / kBucketBlock);
-    write_moments<kCarry>(k, s, mom);
+    write_moments<F>(k, s, mom);
   }
 }
 
@@ -541,7 +634,7 @@ struct Card {
 constexpr int kMaxDevices = 64;
 
 // The current device's SM count and how many blocks of the kernel fit on
-// it at once (the fewer of the two instances), asked once per device and
+// it at once (the fewest of the three forms), asked once per device and
 // kept only when every query succeeded; filled under a lock, so two host
 // threads never race on it. Returns the first failed query's code (the
 // caller returns it to the wrapper, which raises), never a card with no
@@ -556,28 +649,32 @@ cudaError_t card(Card* out) {
   std::lock_guard<std::mutex> guard(lock);
   Card& c = cards[dev];
   if (c.sms == 0) {
-    int plain = 0, carry = 0, sms = 0;
+    int plain = 0, carry = 0, timed = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &plain, metrics_fused<false>, kThreads, 0);
+        &plain, metrics_fused<kStamps>, kThreads, 0);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &carry, metrics_fused<true>, kThreads, 0);
+        &carry, metrics_fused<kCarry>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &timed, metrics_fused<kTime>, kThreads, 0);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    if (plain < 1 || carry < 1 || sms < 1)
+    if (plain < 1 || carry < 1 || timed < 1 || sms < 1)
       return cudaErrorInvalidConfiguration;
-    c.resident = std::min(plain, carry) * sms;
+    c.resident = std::min({plain, carry, timed}) * sms;
     c.sms = sms;
   }
   *out = c;
   return cudaSuccess;
 }
 
-template <bool kCarry>
-int launch(const void* ss, const void* lengths, int base, int rows, int n,
-           int buckets, void* words, void* counters, unsigned epoch,
-           void* hist, const void* mcar, void* mom, void* stream) {
+template <Form F>
+int launch(const void* ss, const TimeRows& tr, const void* lengths, int base,
+           int rows, int n, int buckets, void* words, void* counters,
+           unsigned epoch, void* hist, const void* mcar, void* mom,
+           void* stream) {
   if (rows == 0) return 0;
   if (rows > 65535 || n < 0 || buckets <= 0 || buckets % kBucketBlock != 0 ||
       epoch == 0u || epoch > kEpochMask ||
@@ -603,14 +700,16 @@ int launch(const void* ss, const void* lengths, int base, int rows, int n,
   const int n_blocks = buckets / kBucketBlock;
   sh.n_pieces = n_blocks <= kPieceBlocks
                     ? 0 : (n_blocks + kPieceBlocks - 1) / kPieceBlocks;
+  // the stamp forms' rows start 16-byte aligned when n and ss allow; a
+  // time row checks its own start
   sh.vec_ok = n % 4 == 0 && reinterpret_cast<uintptr_t>(ss) % 16 == 0;
   const long long n_work = static_cast<long long>(rows) *
                            (sh.n_spans + sh.n_groups + sh.n_pieces);
   if (n_work >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  metrics_fused<kCarry><<<static_cast<unsigned>(n_work), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ss), static_cast<const int*>(lengths), sh, rows,
-      epoch, static_cast<unsigned long long*>(words),
+  metrics_fused<F><<<static_cast<unsigned>(n_work), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ss), tr, static_cast<const int*>(lengths), sh,
+      rows, epoch, static_cast<unsigned long long*>(words),
       static_cast<unsigned*>(counters), static_cast<int*>(hist),
       static_cast<const float*>(mcar), static_cast<float*>(mom));
   return static_cast<int>(cudaGetLastError());
@@ -642,8 +741,8 @@ unsigned metrics_max_epoch() { return kEpochMask; }
 int metrics_launch(const void* ss, const void* lengths, int rows, int n,
                    int buckets, void* words, void* counters, unsigned epoch,
                    void* hist, void* mom, void* stream) {
-  return launch<false>(ss, lengths, 0, rows, n, buckets, words, counters, epoch,
-                       hist, nullptr, mom, stream);
+  return launch<kStamps>(ss, TimeRows{}, lengths, 0, rows, n, buckets, words,
+                         counters, epoch, hist, nullptr, mom, stream);
 }
 
 // B6. As B3, with stamps counted in bucket ss - base, the moment fold seeded
@@ -652,8 +751,25 @@ int metrics_carry_launch(const void* ss, const void* lengths, int base,
                          int rows, int n, int buckets, void* words,
                          void* counters, unsigned epoch, void* hist,
                          const void* mcar, void* mom, void* stream) {
-  return launch<true>(ss, lengths, base, rows, n, buckets, words, counters, epoch,
-                      hist, mcar, mom, stream);
+  return launch<kCarry>(ss, TimeRows{}, lengths, base, rows, n, buckets, words,
+                        counters, epoch, hist, mcar, mom, stream);
+}
+
+// B3's time form. t float64, the rows' records end to end (16-byte aligned
+// where a row's 16-byte loads are to be used); first (S,) int64 each row's
+// first record in t; t0 (S,) float64 each row's base; tr (S,) int32 each
+// row's series length, 1 .. buckets; lengths (S,) int32 its records; n the
+// largest length; the rest as B3's.
+int metrics_time_launch(const void* t, const void* first, const void* t0,
+                        const void* tr, const void* lengths, int rows, int n,
+                        int buckets, void* words, void* counters,
+                        unsigned epoch, void* hist, void* mom, void* stream) {
+  const TimeRows rows_in{static_cast<const double*>(t),
+                         static_cast<const long long*>(first),
+                         static_cast<const double*>(t0),
+                         static_cast<const int*>(tr)};
+  return launch<kTime>(nullptr, rows_in, lengths, 0, rows, n, buckets, words,
+                       counters, epoch, hist, nullptr, mom, stream);
 }
 
 }  // extern "C"

@@ -5,8 +5,10 @@
 - :mod:`repro_torch.kernels.compact`       — B2, keep mask -> kept-record
   indices (three-phase scan with the scatter fused in).
 - :mod:`repro_torch.kernels.metrics_fused` — B3, per-row int32 histogram of
-  scale stamps plus its Kahan-folded moments ``[Σq, Σq²]``, and B6, the same
-  over one time chunk with the Kahan state carried from chunk to chunk.
+  scale stamps plus its Kahan-folded moments ``[Σq, Σq²]``; B6, the same
+  over one time chunk with the Kahan state carried from chunk to chunk; and
+  B3's time form, the same of original streams read as float64 timestamps
+  where B1 left them, bucketed in registers.
 - :mod:`repro_torch.kernels.trend_scan`    — B4, per-row inclusive int32
   prefix sums of count series (three-phase scan), B7, the same with each
   row's running total carried in and out, and B5, per-row sums and the Gram

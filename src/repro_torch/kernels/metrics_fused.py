@@ -8,7 +8,13 @@ Counterparts of ``repro/kernels/metrics_fused.py``:
 - :func:`stream_metrics_carry` (B6, ``stream_metrics_carry_pallas``): the
   same histogram over one chunk's stamps, counted in bucket ``ss - base``,
   and the moment fold seeded from a per-row Kahan state
-  ``[s1, c1, s2, c2]``; it returns the updated state.
+  ``[s1, c1, s2, c2]``; it returns the updated state;
+- :func:`stream_metrics_time`, B3's time form (no TPU counterpart: the
+  reference buckets an original stream on the host): the same histogram
+  and moments of original streams read as float64 timestamps where they
+  already lie on the device, each record bucketed as
+  ``clip(floor(t - t0), 0, tr - 1)``, the host's ``_bucket_series`` of
+  :mod:`repro_torch.streamsim.metrics`.
 
 Each wrapper launches ``csrc/metrics_fused.cu`` for CUDA tensors (one
 launch per call: the histogram's zeroing, the counting and the moment
@@ -117,6 +123,44 @@ def _histogram(ss, lengths, buckets: int, base: int = 0,
     return hist[:, :buckets].contiguous()
 
 
+def _time_buckets(t, first, t0, lengths, tr, buckets: int):
+    """The time form's bucket of every record, ``(S, N)`` int64 with
+    ``buckets`` past each row's length: ``floor(t - t0)`` in float64,
+    clamped to ``[0, tr - 1]`` (NaN to 0, as the host's int cast and clip
+    put it)."""
+    lens, firsts, trs = lengths.tolist(), first.tolist(), tr.tolist()
+    ss = torch.full((len(lens), max(lens + [1])), buckets, dtype=torch.int64,
+                    device=t.device)
+    for s, (a, m, top) in enumerate(zip(firsts, lens, trs)):
+        d = torch.floor(t[a:a + m] - t0[s])
+        d = torch.where(d >= 0, d, torch.zeros_like(d))
+        ss[s, :m] = d.clamp_(max=max(top, 1) - 1).to(torch.int64)
+    return ss
+
+
+def stream_metrics_time_plain(t, first, t0, lengths, tr, buckets: int, *,
+                              bucket_block: int = BUCKET_BLOCK):
+    """Plain PyTorch version of B3's time form (any device).
+
+    t       : (T,) float64 timestamps, the rows' records end to end.
+    first   : (S,) int64, each row's first record in ``t``.
+    t0      : (S,) float64, each row's base (its stream's ``t[0]``).
+    lengths : (S,) int32, each row's records.
+    tr      : (S,) int32, each row's series length (at least 1).
+    buckets : histogram width, a multiple of ``bucket_block``.
+    bucket_block : buckets a moment partial.
+
+    Record ``i`` of row ``s`` counts in bucket ``min(max(floor(t[first[s] +
+    i] - t0[s]), 0), tr[s] - 1)`` when that is below ``buckets``. Returns
+    ``(hist int32 (S, buckets), mom float32 (S, 2))``: the histogram of
+    those buckets and its moments, as :func:`stream_metrics_plain` gives
+    them on the same histogram.
+    """
+    ss = _time_buckets(t, first, t0, lengths, tr, buckets)
+    hist = _histogram(ss, lengths, buckets, block=bucket_block)
+    return hist, _kahan_moments(hist, bucket_block)
+
+
 def stream_metrics_plain(ss, lengths, buckets: int, *,
                          bucket_block: int = BUCKET_BLOCK):
     """Plain PyTorch version of B3 (any device).
@@ -170,6 +214,13 @@ def _carry_entry(defs):
 
 
 @functools.lru_cache(maxsize=None)
+def _time_entry(defs):
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    return _build.bind("metrics_fused", "metrics_time_launch",
+                       [p, p, p, p, p, i, i, i, p, p, u, p, p, p], defs)
+
+
+@functools.lru_cache(maxsize=None)
 def _limits(defs):
     """(buckets per zeroed span, buckets per moment partial, largest
     epoch), read from the library."""
@@ -185,12 +236,15 @@ def _limits(defs):
 _workspaces = {}
 
 
-def _launch(ss, lengths, buckets: int, defs, mcar=None, base: int = 0):
-    """One launch on ``ss``'s device and current stream: B3, or B6 when
-    ``mcar`` is given. ``hist`` and ``mom`` are allocated uninitialised;
-    the kernel writes them whole."""
-    S, n = ss.shape
-    dev = ss.device
+def _launch(lengths, n: int, buckets: int, defs, *, ss=None, mcar=None,
+            base: int = 0, time=None):
+    """One launch on ``lengths``' device and current stream: B3 on the
+    stamps ``ss``, B6 when ``mcar`` is given too, B3's time form when
+    ``time`` = ``(t, first, t0, tr)`` is; ``n`` is the stamps' width or the
+    longest time row. ``hist`` and ``mom`` are allocated uninitialised; the
+    kernel writes them whole."""
+    S = lengths.shape[0]
+    dev = lengths.device
     hist = torch.empty((S, buckets), dtype=torch.int32, device=dev)
     mom = torch.empty((S, 2 if mcar is None else 4), dtype=torch.float32,
                       device=dev)
@@ -203,7 +257,10 @@ def _launch(ss, lengths, buckets: int, defs, mcar=None, base: int = 0):
         words, counters, epoch = ws.take(
             S * (-(-buckets // span) + buckets // block), 1 + 2 * S)
         scratch = (p(words), p(counters), epoch, p(hist))
-        if mcar is None:
+        if time is not None:
+            code = _time_entry(defs)(*map(p, time), p(lengths), S, n,
+                                     buckets, *scratch, p(mom), stream)
+        elif mcar is None:
             code = _entry(defs)(p(ss), p(lengths), S, n, buckets, *scratch,
                                 p(mom), stream)
         else:
@@ -248,7 +305,7 @@ def stream_metrics(ss, lengths, buckets: int, *, config=None):
                                     bucket_block=block)
     defs = defines(config)
     _check_inputs(ss, lengths, buckets, block)
-    out = _launch(ss, lengths, buckets, defs)
+    out = _launch(lengths, ss.shape[1], buckets, defs, ss=ss)
     stream_metrics.launches += 1
     return out
 
@@ -277,9 +334,50 @@ def stream_metrics_carry(ss, lengths, buckets: int, mcar, base=0, *,
                          "on the stamps' device")
     if not -2 ** 31 <= int(base) < 2 ** 31:
         raise ValueError(f"base {base} outside int32")
-    out = _launch(ss, lengths, buckets, defs, mcar, base)
+    out = _launch(lengths, ss.shape[1], buckets, defs, ss=ss, mcar=mcar,
+                  base=base)
     stream_metrics_carry.launches += 1
     return out
 
 
 stream_metrics_carry.launches = 0
+
+
+def stream_metrics_time(t, first, t0, lengths, tr, buckets: int, n: int, *,
+                        config=None):
+    """B3's time form on the timestamps' device: the CUDA kernel for CUDA
+    tensors (the instance ``config`` names, ``None`` the default), the plain
+    version for CPU tensors (same contract as
+    :func:`stream_metrics_time_plain`, at ``config``'s ``bucket_block``).
+    ``n`` is the longest row (``lengths.max()``, from the host: it sizes
+    the launch). The kernel reads each row's records where ``first`` and
+    ``lengths`` put them in ``t`` (the caller keeps them inside ``t``) and
+    writes ``hist`` and ``mom`` whole. A launch is one of B3's: it adds one
+    to ``stream_metrics.launches``."""
+    block = bucket_block_of(config)
+    if t.device.type == "cpu":
+        return stream_metrics_time_plain(t, first, t0, lengths, tr, buckets,
+                                         bucket_block=block)
+    defs = defines(config)
+    if t.device.type != "cuda" or t.dtype != torch.float64 or \
+            t.ndim != 1 or not t.is_contiguous():
+        raise ValueError("t must be a contiguous 1-D float64 tensor on cuda "
+                         "or cpu")
+    S = lengths.shape[0]
+    for name, x, dtype in (("first", first, torch.int64),
+                           ("t0", t0, torch.float64),
+                           ("lengths", lengths, torch.int32),
+                           ("tr", tr, torch.int32)):
+        if x.dtype != dtype or tuple(x.shape) != (S,) or \
+                x.device != t.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({S},) {dtype} "
+                             "tensor on the timestamps' device")
+    if buckets <= 0 or buckets % block:
+        raise ValueError(f"buckets {buckets} must be a positive multiple "
+                         f"of {block}")
+    if S > 65535 or S * buckets >= 2 ** 31 or not 0 <= n < 2 ** 31:
+        raise ValueError(f"batch {S} x {n} (x {buckets} buckets) too large "
+                         "for one launch")
+    out = _launch(lengths, n, buckets, defs, time=(t, first, t0, tr))
+    stream_metrics.launches += 1
+    return out

@@ -3,7 +3,10 @@
 Counterpart of ``repro/kernels/ops.py``: every name of its ``__all__``
 (the batched and 1-D NSA, compaction and metrics wrappers, volatility
 moments, trend scans, S×S trend correlation, pairwise trends, chunk
-carries, flash decode and the device predicates).
+carries, flash decode and the device predicates), and
+:func:`original_metrics`, which counts original streams where a B1 launch
+left their float64 copy (B3's time form; the reference buckets them on the
+host).
 Each op builds the host-side tables and layouts,
 moves them to the requested device and calls a kernel wrapper, which
 launches the CUDA kernel for CUDA tensors and runs the kernel's plain
@@ -42,6 +45,8 @@ from repro_torch.kernels.metrics_fused import BUCKET_BLOCK, stream_metrics \
     as _stream_metrics_kernel
 from repro_torch.kernels.metrics_fused import stream_metrics_carry \
     as _stream_metrics_carry_kernel
+from repro_torch.kernels.metrics_fused import stream_metrics_time \
+    as _stream_metrics_time_kernel
 from repro_torch.kernels.stream_sample import MAX_RANGE_LIMIT, SampleArgs
 from repro_torch.kernels.stream_sample import stream_sample \
     as _stream_sample_kernel
@@ -219,7 +224,8 @@ def _nsa_tables(t64: np.ndarray, max_range: int, multiple: float,
     return starts, counts, ktab, (t_min, inv_span, float(max_range))
 
 
-def stream_sample_batched(ts, max_range, multiples, *, device=None):
+def stream_sample_batched(ts, max_range, multiples, *, device=None,
+                          on_upload=None):
     """Batched fused NSA inner loop: S streams, one kernel launch.
 
     ts        : sequence of S sorted 1-D float64 timestamp arrays (ragged
@@ -229,6 +235,12 @@ def stream_sample_batched(ts, max_range, multiples, *, device=None):
                 range-padded sweep form: tables pad to the maximum).
     multiples : per-stream multiple (a scalar broadcasts).
     device    : where the launch runs (``None`` means CUDA).
+    on_upload : optional; called with the launch's :class:`Sources` (the
+                streams' float64 copy on the device) once B1 is queued, to
+                queue another kernel on the same records
+                (:func:`original_metrics`) while the copy is alive: it is
+                freed when this returns, before the caller's next launch
+                allocates.
 
     Returns ``(ss int32 (S, N), keep bool (S, N), lengths int64 (S,))`` with
     ``N`` the longest row rounded up to ``TILE``; ``keep`` is False past
@@ -248,6 +260,8 @@ def stream_sample_batched(ts, max_range, multiples, *, device=None):
     with tracing.span("nsa.kernels"):
         parts = [_stream_sample_kernel(*args.rows(a, b), config=cfg)
                  for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    if on_upload is not None:
+        on_upload(Sources.of(inputs, args))
     if len(parts) == 1:
         ss, keep = parts[0]
     else:
@@ -308,6 +322,35 @@ def _tiles(x, tile: int) -> int:
 _SOURCE_ALIGN = 32
 
 
+def _source_offsets(sources) -> np.ndarray:
+    """Each source's first record in B1's buffer, and the buffer's length
+    last (int64, one more than the sources)."""
+    offs = np.zeros(len(sources) + 1, np.int64)
+    offs[1:] = np.cumsum([-(-len(x) // _SOURCE_ALIGN) * _SOURCE_ALIGN
+                          for x in sources])
+    return offs
+
+
+@dataclasses.dataclass(frozen=True)
+class Sources:
+    """The distinct streams of a B1 launch where they lie on the device.
+
+    ``t`` is B1's float64 buffer (:attr:`SampleArgs.t`), ``arrays`` the
+    host arrays copied into it, ``first`` each one's first record in ``t``
+    (int64) and ``row_source`` the source of each of B1's rows (int32)."""
+    t: torch.Tensor
+    arrays: tuple
+    first: np.ndarray
+    row_source: np.ndarray
+
+    @classmethod
+    def of(cls, inputs, args: SampleArgs) -> "Sources":
+        """The sources of :func:`stream_sample_inputs`' ``inputs`` in the
+        buffer of ``args`` (:func:`stream_sample_args` of them)."""
+        return cls(args.t, tuple(inputs[0]),
+                   _source_offsets(inputs[0])[:-1], inputs[1])
+
+
 def stream_sample_args(inputs, device) -> SampleArgs:
     """B1's arguments on ``device`` from :func:`stream_sample_inputs`'
     host arrays: each source copied once into one float64 buffer, each row
@@ -316,9 +359,7 @@ def stream_sample_args(inputs, device) -> SampleArgs:
     copied)."""
     sources, src, t_min, starts, counts, ktab, scalars, lengths = inputs
     dev = resolve_device(device)
-    offs = np.zeros(len(sources) + 1, np.int64)
-    offs[1:] = np.cumsum([-(-len(x) // _SOURCE_ALIGN) * _SOURCE_ALIGN
-                          for x in sources])
+    offs = _source_offsets(sources)
     rows = (offs[:-1][src], t_min, starts, counts, ktab, scalars, lengths)
     with tracing.span("nsa.upload", bytes=sum(
             x.nbytes for x in (*sources, *rows))):
@@ -502,6 +543,74 @@ def stream_metrics_batched_device(ss, valid_counts, max_range: int):
         ss.to(torch.int32).contiguous(), lengths,
         _padded_buckets(max_range, cfg.bucket_block), config=cfg)
     return hist[:, :max_range], mom
+
+
+def time_series_length(t) -> int:
+    """The per-second series length of a sorted original stream, as
+    :func:`repro_torch.streamsim.metrics._bucket_series` gives it:
+    ``floor(t[-1] - t[0]) + 1`` (0 for an empty stream). Raises
+    :class:`PallasDomainError` when that is not a finite int32."""
+    t = np.asarray(t)
+    if len(t) == 0:
+        return 0
+    last = np.floor(t[-1] - t[0])
+    if not np.isfinite(last) or not 0 <= last < _HIST_COUNT_LIMIT:
+        raise PallasDomainError(f"a series of {last} + 1 seconds is outside "
+                                "the int32 histogram")
+    return int(last) + 1
+
+
+def _pinned(x, dev) -> torch.Tensor:
+    """A small host array on ``dev`` without waiting for the device: CUDA
+    copies go through pinned memory, queued on the current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def original_metrics(sources: Sources, which, width: int):
+    """Per-second counts and moments of original streams from the copy of
+    them a B1 launch left on the device: one launch of B3's time form.
+
+    sources : the :class:`Sources` of the B1 launch
+              (:func:`stream_sample_batched`'s ``on_upload``).
+    which   : indices of the sources to count (each non-empty, float64,
+              sorted).
+    width   : the series width the rows are padded to, at least each one's
+              :func:`time_series_length`.
+
+    Row ``d`` counts record ``i`` of source ``which[d]`` in bucket
+    ``clip(floor(t_i - t_0), 0, tr_d - 1)`` with ``tr_d`` its series
+    length: the counts :func:`repro_torch.streamsim.metrics.
+    _bucket_series` bins, read in place (nothing record-sized is
+    allocated). Returns ``(hist int32 (D, W), moments f32 (D, 2))`` on the
+    sources' device, ``W`` the ``width`` rounded up to the tile config's
+    ``bucket_block``, queued without waiting for the device. Raises
+    :class:`PallasDomainError` where the histogram leaves the int32
+    domain.
+    """
+    arrays = [sources.arrays[k] for k in which]
+    if not arrays or any(len(x) == 0 for x in arrays):
+        raise ValueError("need at least one non-empty source")
+    lengths = np.array([len(x) for x in arrays], np.int64)
+    trs = np.array([time_series_length(x) for x in arrays], np.int64)
+    if trs.max() > width:
+        raise ValueError(f"series of {trs.max()} s wider than {width}")
+    _check_metrics_domain(int(lengths.max()))
+    dev = sources.t.device
+    cfg = tuning.config_for("metrics_fused", s=len(arrays),
+                            n=int(lengths.max()), r=width, device=dev)
+    buckets = _padded_buckets(width, cfg.bucket_block)
+    if len(arrays) * buckets >= 2 ** 31:
+        raise PallasDomainError(f"{len(arrays)} x {buckets} buckets "
+                                "overflow one launch's histogram")
+    return _stream_metrics_time_kernel(
+        sources.t, _pinned(sources.first[list(which)], dev),
+        _pinned(np.array([x[0] for x in arrays], np.float64), dev),
+        _pinned(lengths.astype(np.int32), dev),
+        _pinned(trs.astype(np.int32), dev), buckets, int(lengths.max()),
+        config=cfg)
 
 
 def stream_metrics(ss, max_range: int, *, device=None):

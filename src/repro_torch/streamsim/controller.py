@@ -505,8 +505,8 @@ service_deadline_s :
     def _publish_and_merge_fidelity(self, result, plan, window_s):
         """Cross-host fidelity merge for STATIC multi-host sweeps.
 
-        Publishes this host's exact per-scenario count rows (and the
-        per-dataset original rows) under the host-independent
+        Publishes the original count rows of the datasets this host reports
+        and then its exact per-scenario count rows under the host-independent
         ``sweep_group_id`` namespace, then runs the sweep service's
         count-row merge. Returns the merged full-grid
         :class:`FidelityReport` list, or None while peers' rows are still
@@ -515,6 +515,12 @@ service_deadline_s :
         gid = plan.sweep_group_id
         ns = f"{gid}/fidelity"
         worker = f"host{plan.host_index}"
+        for d in result.datasets:
+            name = f"orig__{d}"
+            if not self.store.has_marker(ns, name):
+                self.store.put_marker(ns, name, {
+                    "counts": pack_counts(result.om[d].counts),
+                    "worker": worker})
         for (d, mr), row in result.count_rows().items():
             name = f"sim__{scenario_marker(d, mr)}"
             # first writer wins: rows are deterministic, and keeping the
@@ -524,12 +530,6 @@ service_deadline_s :
                 self.store.put_marker(ns, name,
                                       {"counts": pack_counts(row),
                                        "worker": worker})
-        for d in plan.datasets:
-            name = f"orig__{d}"
-            if not self.store.has_marker(ns, name):
-                self.store.put_marker(ns, name, {
-                    "counts": pack_counts(result.om[d].counts),
-                    "worker": worker})
         merged = merge_fidelity(self.store, gid, plan.datasets,
                                 plan.max_ranges, window_s=window_s)
         D = len(plan.datasets)

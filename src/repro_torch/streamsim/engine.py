@@ -22,9 +22,10 @@ The middle layer of the plan → engine → replay/report architecture:
   :func:`replay_many`, :func:`build_report`): the PSDA replay (one
   :class:`~repro_torch.streamsim.producer.MultiQueueProducer` loop for a
   sweep) and the :class:`SimulationReport` s, whose statistics read the
-  original streams' metrics (one more B3 call) and the pairwise trend
-  correlation (plain PyTorch, :func:`~repro_torch.kernels.ops.
-  trend_corr_pairwise`).
+  original streams' metrics (B3's time form, launched in the NSA leg on
+  the float64 copy B1 read: :func:`~repro_torch.kernels.ops.
+  original_metrics`) and the pairwise trend correlation (plain PyTorch,
+  :func:`~repro_torch.kernels.ops.trend_corr_pairwise`).
 - **Chunked pipeline** (:class:`ChunkedSweepRunner`,
   :func:`run_sweep_chunked`): the same sweep computed, persisted and
   replayed one time chunk at a time (B1, B2 and B6 per chunk, the carry
@@ -45,6 +46,7 @@ chain falls back to host mode wholesale; nothing else falls back.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -156,6 +158,12 @@ def _local_scenarios(plan: SweepPlan) -> Tuple[Tuple[str, int], ...]:
     return tuple(s.scenario for s in plan.scenarios if s.scenario in local)
 
 
+def _local_datasets(plan: SweepPlan) -> Tuple[str, ...]:
+    """The datasets of :func:`_local_scenarios`, in the plan's order."""
+    read = {d for d, _ in _local_scenarios(plan)}
+    return tuple(d for d in plan.datasets if d in read)
+
+
 @dataclasses.dataclass
 class ShardResult:
     """One shard's device-resident NSA + metrics output.
@@ -210,7 +218,14 @@ class DeviceSweepResult:
         self._sims: Optional[Dict[Tuple[str, int], Stream]] = None
         self._persisted = False   # shard sims written to the store yet?
         self._stats: Optional[Dict] = None
-        self._om_mat = None   # cached device upload of the originals' rows
+        self._om_mat = None   # the originals' rows on the report device
+        #: the originals' count rows and moments that the NSA legs counted
+        #: on the device (:meth:`count_originals`), one entry a launch:
+        #: ``(datasets, hist (k, W) int32, mom (k, 2) f32)``, on the
+        #: launch's device
+        self._orig_rows: List[Tuple[Tuple[str, ...], object, object]] = []
+        self._orig_dev = None
+        self._time_trs: Optional[Dict[str, int]] = None
         #: optional SweepCheckpoint; materialize() then persists
         #: per-scenario completion markers for crash-resume
         self.checkpoint: Optional[SweepCheckpoint] = None
@@ -230,11 +245,88 @@ class DeviceSweepResult:
 
     @property
     def om(self) -> Dict[str, StreamMetrics]:
-        """Per-dataset original-stream metrics, computed lazily (one
-        batched metrics call over the originals and the cache-hit sims,
-        run only when report statistics are read)."""
+        """Per-dataset original-stream metrics of :attr:`datasets`,
+        computed lazily when report statistics are read: the rows the NSA
+        legs counted on the device (:meth:`count_originals`) in one copy to
+        the host, and one batched metrics call over the other originals and
+        the cache-hit sims."""
         self._ensure_host_group()
         return self._om
+
+    @property
+    def datasets(self) -> Tuple[str, ...]:
+        """The datasets of :attr:`scenarios`, in the plan's order: the
+        originals whose statistics this process's reports, matrices and
+        published rows read."""
+        return _local_datasets(self.plan)
+
+    def count_originals(self, pairs, sources) -> None:
+        """Queue B3's time form over the originals of ``pairs`` that no
+        earlier leg counted, read from ``sources`` (the float64 copy of them
+        a B1 launch left on the device), and keep the rows for the report:
+        one launch, no wait, nothing record-sized allocated. Originals the
+        time form does not take (:meth:`_time_series_lengths`), or a launch
+        outside its domain, are left to the report's ``metrics_batched``."""
+        from repro_torch.kernels import ops
+
+        trs = self._time_series_lengths()
+        counted = {d for names, _, _ in self._orig_rows for d in names}
+        rows = [d for d, _ in pairs]
+        names = [d for d in dict.fromkeys(rows)
+                 if d in trs and d not in counted]
+        if not names:
+            return
+        which = [int(sources.row_source[rows.index(d)]) for d in names]
+        try:
+            hist, mom = ops.original_metrics(sources, which,
+                                             max(trs.values()))
+        except ops.PallasDomainError:
+            return
+        self._orig_rows.append((tuple(names), hist, mom))
+
+    def _time_series_lengths(self) -> Dict[str, int]:
+        """dataset -> series length of each original that B3's time form
+        counts: a non-empty float64 stream without scale stamps, whose
+        series fits the int32 histogram (the others go through
+        ``metrics_batched``)."""
+        from repro_torch.kernels import ops
+
+        if self._time_trs is None:
+            self._time_trs = {}
+            for d in self.datasets:
+                st = self.originals[d]
+                if st.scale_stamp is not None or len(st) == 0 or \
+                        np.asarray(st.t).dtype != np.float64:
+                    continue
+                try:
+                    self._time_trs[d] = ops.time_series_length(st.t)
+                except ops.PallasDomainError:
+                    pass
+        return self._time_trs
+
+    def _orig_device(self):
+        """``(datasets, hist, mom)``: the rows the NSA legs counted on the
+        report device in the plan's dataset order, ``hist`` (k, W) int32
+        with ``W`` the longest row's series length, ``mom`` (k, 2) f32 (k
+        may be 0)."""
+        import torch
+
+        if self._orig_dev is None:
+            at = {}
+            for names, hist, mom in self._orig_rows:
+                for i, d in enumerate(names):
+                    at.setdefault(d, (hist, mom, i))
+            ds = tuple(d for d in self.datasets if d in at)
+            if ds:
+                w = max(self._time_series_lengths()[d] for d in ds)
+                hist = torch.cat([at[d][0][at[d][2]:at[d][2] + 1, :w].to(
+                    self.device) for d in ds])
+                mom = torch.cat([at[d][1][at[d][2]:at[d][2] + 1].to(
+                    self.device) for d in ds])
+            else:
+                hist = mom = None
+            self._orig_dev = (ds, hist, mom)
+        return self._orig_dev
 
     def _tuned(self):
         """The store-backed tuner context of this result's device legs (the
@@ -245,20 +337,43 @@ class DeviceSweepResult:
                                     device=self.device)
 
     def _ensure_host_group(self) -> None:
+        """The originals' and the cache hits' statistics: the originals the
+        NSA legs counted on the device come from one copy of their rows
+        and moments (``device_rows``); the other originals and the cache
+        hits from one ``metrics_batched`` call (``host_rows``)."""
+        import torch
+
         if self._host_group_done:
             return
         self._host_group_done = True
-        datasets = list(self.plan.datasets)
+        datasets = list(self.datasets)
         cached = [s.scenario for s in self.plan.cached]
-        with tracing.span("report.stats", rows=len(datasets) + len(cached)), \
+        dev_ds, hist, mom = self._orig_device()
+        host_ds = [d for d in datasets if d not in dev_ds]
+        om = {}
+        with tracing.span("report.stats", rows=len(datasets) + len(cached),
+                          device_rows=len(dev_ds),
+                          host_rows=len(host_ds) + len(cached)), \
                 self._tuned():
-            ms = metrics_batched(
-                [self.originals[d] for d in datasets] +
-                [self.host_sims[sc] for sc in cached],
-                [None] * len(datasets) + [mr for _, mr in cached],
-                backend=self.backend, device=self.device)
-        self._om = dict(zip(datasets, ms[:len(datasets)]))
-        self._cached_sm = dict(zip(cached, ms[len(datasets):]))
+            if dev_ds:
+                trs = [self._time_series_lengths()[d] for d in dev_ds]
+                w = max(trs)
+                both = torch.cat([hist[:, :w], mom.view(torch.int32)],
+                                 dim=1).cpu().numpy()
+                m = both[:, w:].view(np.float32).astype(np.float64)
+                for i, (d, tr) in enumerate(zip(dev_ds, trs)):
+                    om[d] = StreamMetrics(
+                        both[i, :tr].astype(np.int64),
+                        _volatility_from_moments(m[i, 0], m[i, 1], tr))
+            if host_ds or cached:
+                ms = metrics_batched(
+                    [self.originals[d] for d in host_ds] +
+                    [self.host_sims[sc] for sc in cached],
+                    [None] * len(host_ds) + [mr for _, mr in cached],
+                    backend=self.backend, device=self.device)
+                om.update(zip(host_ds, ms[:len(host_ds)]))
+                self._cached_sm = dict(zip(cached, ms[len(host_ds):]))
+        self._om = {d: om[d] for d in datasets}
 
     # ------------------------------------------------------------- topology
     @property
@@ -367,21 +482,35 @@ class DeviceSweepResult:
 
     def _orig_count_matrix(self):
         """(D, W) int32 matrix of the originals' count rows on the report
-        device (one upload for the whole sweep, cached) + per-dataset
-        lengths/totals."""
+        device (cached) + per-dataset lengths/totals: the rows the NSA legs
+        counted on the device as they are, the others in one upload."""
         import torch
 
         if self._om_mat is not None:
             return self._om_mat
-        datasets = list(self.plan.datasets)
+        datasets = list(self.datasets)
         trs = np.array([len(self.om[d].counts) for d in datasets], np.int64)
         W = max(int(trs.max(initial=1)), 1)
-        mat = np.zeros((len(datasets), W), np.int32)
-        for i, d in enumerate(datasets):
-            mat[i, :trs[i]] = self.om[d].counts
         totals = np.array([int(self.om[d].counts.sum())
                            for d in datasets], np.int64)
-        self._om_mat = (torch.from_numpy(mat).to(self.device), trs, totals,
+        dev_ds, hist, _ = self._orig_device()
+        if list(dev_ds) == datasets:
+            mat = hist[:, :W]
+        else:
+            host = np.zeros((len(datasets), W), np.int32)
+            for i, d in enumerate(datasets):
+                if d not in dev_ds:
+                    host[i, :trs[i]] = self.om[d].counts
+            mat = torch.from_numpy(host).to(self.device)
+            if dev_ds:
+                rows = hist[:, :W]
+                if rows.shape[1] < W:
+                    rows = torch.nn.functional.pad(
+                        rows, (0, W - rows.shape[1]))
+                pos = torch.tensor([datasets.index(d) for d in dev_ds],
+                                   device=self.device)
+                mat.index_copy_(0, pos, rows)
+        self._om_mat = (mat, trs, totals,
                         {d: i for i, d in enumerate(datasets)})
         return self._om_mat
 
@@ -632,9 +761,13 @@ def _execute_device(plan, originals, store, backend, multiple_mode,
                 t0 = time.perf_counter()
                 with tracing.span("nsa", records_in=sum(
                         len(originals[d]) for d, _ in pairs)) as sp:
+                    # the originals' statistics, queued on B1's copy of
+                    # them before B2 allocates: nothing keeps the copy
+                    # past B1, so B2's buffers never sit beside it
                     ss_kept, idx, totals, _ = nsa_sweep_device(
                         originals, pairs, multiple_mode=multiple_mode,
-                        device=dev)
+                        device=dev, on_upload=functools.partial(
+                            result.count_originals, pairs))
                     with tracing.span("nsa.kernels"):
                         hist, mom = ops.stream_metrics_batched_device(
                             ss_kept, totals, shard.max_range)
@@ -693,7 +826,7 @@ def _host_stats(result: DeviceSweepResult, scenarios, ranges) -> None:
     """A host-mode result's statistics: ONE ``metrics_batched`` call over
     ``[originals..., sims...]`` (each sim over its range in ``ranges``),
     which also covers the cache hits, and the sims to report."""
-    datasets = list(result.plan.datasets)
+    datasets = list(result.datasets)
     ms = metrics_batched(
         [result.originals[d] for d in datasets] +
         [result.host_sims[sc] for sc in scenarios],
@@ -1357,6 +1490,9 @@ class ChunkedSweepRunner:
             prev = (cur, k)
         result.pipeline_s = {"dispatch_s": dispatch_s, "host_leg_s": host_s,
                              "event_wait_s": self._waited_s}
+        # the originals' statistics, from the rows ChunkedNSA holds
+        for st in self._shard_states:
+            result.count_originals(st["nsa"].pairs, st["nsa"].sources)
 
         # compose: fold each shard's carry into monolithic-shaped stats
         for st in self._shard_states:

@@ -263,7 +263,7 @@ def nsa_sweep(streams: Dict[str, Stream], max_ranges: Sequence[int], *,
 def nsa_sweep_device(streams: Dict[str, Stream],
                      pairs: Sequence[Tuple[str, int]], *,
                      multiple_mode: str = "time", device=None,
-                     autotune: Optional[str] = None):
+                     autotune: Optional[str] = None, on_upload=None):
     """The device leg of a range-padded sweep — NO host gather.
 
     Runs ONE ``stream_sample`` launch (B1) plus ONE batched compaction (B2)
@@ -271,7 +271,11 @@ def nsa_sweep_device(streams: Dict[str, Stream],
     the streams must be non-empty) on ``device`` (``None`` means CUDA),
     then gathers each row's kept stamps on the device. ``autotune`` is the
     tile-tuning mode of both launches (:mod:`repro_torch.kernels.tuning`;
-    an unknown mode raises ``ValueError``).
+    an unknown mode raises ``ValueError``). ``on_upload`` is called with
+    B1's :class:`~repro_torch.kernels.ops.Sources` (the streams' float64
+    copy on the device, rows in the order of ``pairs``) once B1 is queued
+    and before B2 allocates (:func:`~repro_torch.kernels.ops.
+    stream_sample_batched`).
 
     Returns
     -------
@@ -299,7 +303,8 @@ def nsa_sweep_device(streams: Dict[str, Stream],
                        multiple_mode) for name, mr in pairs]
     with tuning.tuner_context(autotune, device=device):
         ss_b, keep_b, lengths = ops.stream_sample_batched(
-            ts, [mr for _, mr in pairs], mults, device=device)
+            ts, [mr for _, mr in pairs], mults, device=device,
+            on_upload=on_upload)
         with tracing.span("nsa.kernels"):
             idx_b, totals = ops.compact_mask_batched(keep_b)
             N = idx_b.shape[1]
@@ -467,6 +472,8 @@ class ChunkedNSA:
         self.width = starts_b.shape[1]
         #: B1's arguments over whole rows: the chunks read their slices
         self._args = ops.stream_sample_args(inputs, self.device)
+        #: the streams where ``_args`` holds them, rows in ``pairs``' order
+        self.sources = ops.Sources.of(inputs, self._args)
         self.N = self._args.n
         ops._check_metrics_domain(self.N)  # any chunk's kept width <= N
         # host copies for slicing: column lo gives the first record of
@@ -481,14 +488,6 @@ class ChunkedNSA:
 
     def n_chunks(self, chunk_s: int) -> int:
         return -(-self.width // int(chunk_s))
-
-    def _upload(self, x):
-        """A small per-chunk host array on the device, without a sync."""
-        import torch
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
 
     def sample_inputs(self, lo: int, hi: int):
         """B1's arguments (:class:`~repro_torch.kernels.stream_sample.
@@ -507,13 +506,15 @@ class ChunkedNSA:
         a = self._starts_np[:, lo]
         b = self.lengths if hi >= self.width else self._starts_np[:, hi]
         m = b - a
-        whole = self._args
+        whole, dev = self._args, self.device
         # rebase the bucket tables by the slice offset: local rank equals
         # global rank, so the keep bits match the monolithic launch
         return whole._replace(
-            base=whole.base + self._upload(np.minimum(a, self.lengths - 1)),
-            starts=whole.starts - self._upload(a.astype(np.int32))[:, None],
-            lengths=self._upload(m.astype(np.int32)),
+            base=whole.base + ops._pinned(np.minimum(a, self.lengths - 1),
+                                          dev),
+            starts=whole.starts - ops._pinned(a.astype(np.int32),
+                                              dev)[:, None],
+            lengths=ops._pinned(m.astype(np.int32), dev),
             n=ops._tiles(m.max(), ops.TILE)), a
 
     def chunk(self, lo: int, hi: int) -> ChunkHandles:

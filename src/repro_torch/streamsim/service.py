@@ -415,9 +415,11 @@ class SweepService:
 
     def _publish_originals(self, result) -> None:
         """Exact per-dataset original count rows — the merge's left-hand
-        block. Idempotent: originals are deterministic per (scale, seed),
-        so a rewrite by another worker carries identical content."""
-        for d in self.datasets:
+        block — of the datasets the batch reports (published before any of
+        their sim rows, so the merge never meets a sim row without its
+        original). Idempotent: originals are deterministic per (scale,
+        seed), so a rewrite by another worker carries identical content."""
+        for d in result.datasets:
             name = f"orig__{d}"
             if not self.store.has_marker(self.ns_fidelity, name):
                 row = {"counts": np.asarray(result.om[d].counts),
