@@ -4,11 +4,12 @@ A cell of ``BENCHMARK.json`` names a configuration
 (``stream_bench/configs/<config>.json``: the recorded streams, their
 scale, the entry of the program, its knobs, the guarantees, the limits of
 the comparison) and a traffic mix (``stream_bench/traffic/<traffic>.json``:
-the compressed ranges each job simulates). Every metric is a reader of its
-own, ``stream_bench/metrics/<metric>.py``, with a ``read(run)`` that takes
-a :class:`Run` and returns a number, or None where it finds nothing to
-read. Adding a cell, a mix or a metric adds files and entries; no file of
-the harness changes.
+the compressed ranges each job simulates; with ``"posd": true`` a job
+that preprocesses and stores the raw streams itself). Every metric is a
+reader of its own, ``stream_bench/metrics/<metric>.py``, with a
+``read(run)`` that takes a :class:`Run` and returns a number, or None
+where it finds nothing to read. Adding a cell, a mix or a metric adds
+files and entries; no file of the harness changes.
 
 One run:
 
@@ -19,17 +20,22 @@ One run:
    ``Controller._prepare_multiday`` reads, and the entry gets
    ``duration_s`` N days), into a template store under ``TMPDIR``, and run
    one untimed job (it builds or loads the kernels and warms every shape).
+   Where the traffic runs POSD inside the job, set-up makes the raw
+   streams only, and the untimed job stores them as every job does.
 2. The window: jobs back to back until the seconds have passed; the job in
    flight is finished and counted. A job gets a fresh store whose
    originals are hard links into the template (no original byte is
-   written again), calls the configuration's entry with its knobs, drains
+   written again), or, where the traffic runs POSD inside the job, hands
+   each raw stream to ``preprocess`` (the span ``bench.posd``) and
+   ``StreamStore.put`` from the call on; it calls the configuration's
+   entry with its knobs (which reads the originals back), drains
    the replay into the benchmark's consumer, and deletes its store. Of
    what it produced it keeps its reports and matrices, each bucket's
    stamp and count, its feed's high-water mark where it replayed chunk by
    chunk, a digest of the records of a sample of buckets drawn from the
    seed and one of each stored sim's files (its ``columns.npz``, or its
-   chunk files in order); the window's first job keeps its records and
-   sims whole.
+   chunk files in order), and of each original it stored itself; the
+   window's first job keeps its records and stored streams whole.
 3. The check: the plain reference works out the job's outputs from the
    same raw streams, and every job is compared with it
    (:mod:`stream_bench.judge`): the first job record for record, the
@@ -62,7 +68,7 @@ ROOT = BENCH.parent
 
 #: host ranges the device trace labels idle time with, besides the layers
 BENCH_SPANS = ("bench.window", "bench.job_setup", "bench.entry",
-               "bench.job_check", "bench.job_delete")
+               "bench.posd", "bench.job_check", "bench.job_delete")
 
 
 # ---------------------------------------------------------------- the spec
@@ -189,6 +195,11 @@ class Job:
     #: stored), in the job checked in full
     stored: Optional[Dict[Tuple[str, int], Optional[List[Path]]]] = None
     error: Optional[str] = None
+    #: dataset -> the digest of the original the job stored (None where
+    #: none was), where it ran POSD itself
+    orig_digest: Optional[Dict[str, Optional[tuple]]] = None
+    #: dataset -> its files kept whole, in the job checked in full
+    orig_stored: Optional[Dict[str, Optional[List[Path]]]] = None
 
     @property
     def reports(self) -> list:
@@ -223,8 +234,12 @@ class Job:
         stored = None if self.stored is None else {
             sc: None if files is None else judge.load_stored(files)
             for sc, files in self.stored.items()}
+        orig = None if self.orig_stored is None else {
+            d: None if files is None else judge.load_stored(files)
+            for d, files in self.orig_stored.items()}
         return judge.JobOutput(reports, fid, replay, self.stored_digest,
-                               stored, failed=self.error is not None)
+                               stored, failed=self.error is not None,
+                               orig_digest=self.orig_digest, orig=orig)
 
 
 def _vol(v) -> Tuple[float, float, float, int]:
@@ -246,6 +261,8 @@ class Cell:
         self.scale = float(self.config["scale"] if scale is None else scale)
         self.datasets = list(self.config["datasets"])
         self.ranges = [int(mr) for mr in self.traffic["max_ranges"]]
+        #: POSD and the original's write inside each job, not in set-up
+        self.posd = bool(self.traffic.get("posd", False))
         self.knobs = dict(self.config["knobs"])
         days = {int(s["days"]) for s in self.config["datasets"].values()}
         if len(days) != 1:
@@ -279,27 +296,21 @@ class Cell:
 
     def set_up(self) -> None:
         """The raw streams, preprocessed and stored by the program into the
-        template store."""
-        from repro_torch.streamsim.datasets import RawStream
-        from repro_torch.streamsim.preprocess import preprocess
+        template store; where the jobs run POSD, the raw streams alone."""
         from repro_torch.streamsim.store import StreamStore
         self.make_raw()
-        store = StreamStore(self.template)
-        for d in self.datasets:
-            stream = preprocess(RawStream(name=d, columns=dict(self.raw[d])))
-            self.records[d] = len(stream)
-            store.put(f"{d}__orig{self.key_suffix}", stream,
-                      {"scale": self.scale, "seed": self.seed})
+        if not self.posd:
+            self.store_originals(StreamStore(self.template))
 
     def run_job(self, index: int, full: bool = False) -> Job:
         """Job ``index`` of the window (-1: the warm-up); with ``full`` it
-        keeps its records and stored sims whole for the check."""
+        keeps its records and stored streams whole for the check."""
         from repro_torch.streamsim.controller import Controller
         tr = self.tracer
         tr.job = index
         jdir = self.workdir / f"job{index + 1:05d}"
         with tr.span("bench.job_setup"):
-            for d in self.datasets:
+            for d in self.datasets if not self.posd else ():
                 key = f"{d}__orig{self.key_suffix}"
                 src, dst = self.template / key, jdir / key
                 dst.mkdir(parents=True)
@@ -311,6 +322,8 @@ class Cell:
         t_call = time.perf_counter()
         try:
             with tr.span("bench.entry"):
+                if self.posd:
+                    self.store_originals(ctl.store)
                 if self.config["entry"] == "run":
                     for d in self.datasets:
                         for mr in self.ranges:
@@ -327,6 +340,8 @@ class Cell:
         except Exception:
             error = traceback.format_exc()
         digests, stored = {}, {} if full else None
+        orig_digest, orig_stored = ({}, {} if full else None) if self.posd \
+            else (None, None)
         with tr.span("bench.job_check"):
             slots = [Delivered.of(b, self.seed, full)
                      for b in consumer.slots]
@@ -335,22 +350,47 @@ class Cell:
                 self.checked.mkdir(exist_ok=True)
             for d in self.datasets:
                 for mr in self.ranges:
-                    key = f"{d}__sim{mr}{self.key_suffix}"
-                    files = judge.stored_files(jdir / key)
-                    digests[(d, mr)] = None if files is None else tuple(
-                        judge.npz_digest(p) for p in files)
-                    if full:
-                        stored[(d, mr)] = None
-                        if files is not None:
-                            (self.checked / key).mkdir()
-                            stored[(d, mr)] = [self.checked / key / p.name
-                                               for p in files]
-                            for p, kept in zip(files, stored[(d, mr)]):
-                                os.link(p, kept)
+                    self._keep(jdir, f"{d}__sim{mr}{self.key_suffix}",
+                               (d, mr), digests, stored)
+                if self.posd:
+                    self._keep(jdir, f"{d}__orig{self.key_suffix}", d,
+                               orig_digest, orig_stored)
         with tr.span("bench.job_delete"):
             shutil.rmtree(jdir)
         return Job(index, t_call, consumer.first, time.perf_counter(),
-                   calls, fidelity, slots, digests, stored, error)
+                   calls, fidelity, slots, digests, stored, error,
+                   orig_digest, orig_stored)
+
+    def store_originals(self, store) -> None:
+        """Each raw stream through the program's ``preprocess`` (the span
+        ``bench.posd``) and into ``store`` under the key
+        ``Controller.prepare`` reads (``_prepare_multiday``'s for N days)."""
+        from repro_torch.streamsim.datasets import RawStream
+        from repro_torch.streamsim.preprocess import preprocess
+        for d in self.datasets:
+            with self.tracer.span("bench.posd"):
+                stream = preprocess(RawStream(name=d,
+                                              columns=dict(self.raw[d])))
+            self.records[d] = len(stream)
+            store.put(f"{d}__orig{self.key_suffix}", stream,
+                      {"scale": self.scale, "seed": self.seed})
+
+    def _keep(self, jdir: Path, key: str, name, digests: Dict,
+              kept: Optional[Dict]) -> None:
+        """The digest of the stream the job stored under ``key`` into
+        ``digests[name]`` (None where none was stored); with ``kept``, its
+        files linked out of the job's store into ``kept[name]``."""
+        files = judge.stored_files(jdir / key)
+        digests[name] = None if files is None else tuple(
+            judge.npz_digest(p) for p in files)
+        if kept is None:
+            return
+        kept[name] = None
+        if files is not None:
+            (self.checked / key).mkdir()
+            kept[name] = [self.checked / key / p.name for p in files]
+            for p, out in zip(files, kept[name]):
+                os.link(p, out)
 
     def window(self, seconds: float) -> Tuple[List[Job], float]:
         """Jobs back to back until ``seconds`` have passed; the first is
@@ -448,7 +488,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
         t_ref = time.perf_counter()
         exp = cell.expected()
         correct, checks = judge.judge(exp, (j.output() for j in jobs),
-                                      cell.config["limits"])
+                                      cell.config["limits"], cell.posd)
         print(f"reference and check: {time.perf_counter() - t_ref:.3f} s",
               file=sys.stderr)
 

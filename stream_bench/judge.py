@@ -23,13 +23,19 @@ below come out, each held to the limit the configuration gives it:
   deployment): the most chunks of a scenario the replay's feed held on
   the host at once, the largest over every report of every job; a report
   without the program's ``feed_hwm_chunks`` reads as over any limit.
+- ``orig_bad``, where the job ran POSD itself (a traffic mix with
+  ``"posd": true``): records of the originals the job stored (``t`` and
+  every payload column, with their types) that are not the reference's
+  POSD, record for record; a missing or extra record counts. NSA keeps a
+  few records of a day, so ``sims_bad`` alone would not see a wrong
+  payload in one it drops.
 
-A job that kept its records and stored sims whole is compared record for
-record. A later job that kept only digests (of its stored sims whole, of
-the records of a sample of buckets drawn from the seed) counts what the
-last whole job counted where its digests are that job's, and every record
-of the scenario where they are not. Bucket stamps and counts, reports and
-matrices are compared for every job.
+A job that kept its records and stored streams whole is compared record
+for record. A later job that kept only digests (of its stored streams
+whole, of the records of a sample of buckets drawn from the seed) counts
+what the last whole job counted where its digests are that job's, and
+every record of the scenario (or original) where they are not. Bucket
+stamps and counts, reports and matrices are compared for every job.
 """
 
 from __future__ import annotations
@@ -68,6 +74,13 @@ class JobOutput:
     #: nothing was stored), where the job is checked whole
     stored: Optional[Dict[Scenario, Optional[Dict[str, np.ndarray]]]] = None
     failed: bool = False
+    #: dataset -> the :func:`npz_digest` of each of the original's files,
+    #: as the job stored it (None where nothing was stored), where the job
+    #: ran POSD itself; else None
+    orig_digest: Optional[Dict[str, Optional[tuple]]] = None
+    #: dataset -> the stored original's columns (None where nothing was
+    #: stored), where the job ran POSD itself and is checked whole
+    orig: Optional[Dict[str, Optional[Dict[str, np.ndarray]]]] = None
 
 
 def output_of(exp, feed_hwm: Optional[int] = None) -> JobOutput:
@@ -84,7 +97,9 @@ def output_of(exp, feed_hwm: Optional[int] = None) -> JobOutput:
                       "columns": {k: v for k, v in sim.items()
                                   if k != "scale_stamp"}}
     return JobOutput(reports, dict(exp.fidelity), replay,
-                     {sc: None for sc in exp.sims}, dict(exp.sims))
+                     {sc: None for sc in exp.sims}, dict(exp.sims),
+                     orig_digest=dict.fromkeys(exp.originals),
+                     orig=dict(exp.originals))
 
 
 def stored_files(stream_dir: Path) -> Optional[List[Path]]:
@@ -156,23 +171,31 @@ def _rel(got: float, want: float) -> float:
     return g / abs(want) if want else g
 
 
-def numbers(expected, outputs: Iterable[JobOutput], feed: bool = False
-            ) -> Tuple[Dict[str, float], int, int]:
+def numbers(expected, outputs: Iterable[JobOutput], feed: bool = False,
+            posd: bool = False) -> Tuple[Dict[str, float], int, int]:
     """The numbers over every job of the window (``feed_hwm`` with
-    ``feed``), the jobs, and of them the failed ones. ``outputs`` may be a
-    generator: one job's outputs at a time are held."""
+    ``feed``, ``orig_bad`` with ``posd``), the jobs, and of them the failed
+    ones. ``outputs`` may be a generator: one job's outputs at a time are
+    held."""
     n = {"sims_bad": 0, "replay_bad": 0, "rows_bad": 0, "vol_rel": 0.0,
          "trend_gap": 0.0}
     if expected.fidelity:
         n["fidelity_gap"] = 0.0
     if feed:
         n["feed_hwm"] = 0
+    if posd:
+        n["orig_bad"] = 0
     #: (kind, scenario) -> (digest, records bad) of the last whole job
     whole: Dict[Tuple[str, Scenario], Tuple[object, int]] = {}
     jobs = failed = 0
     for out in outputs:
         jobs += 1
         failed += out.failed
+        for d, want_orig in (expected.originals.items() if posd else ()):
+            digest = (out.orig_digest or {}).get(d)
+            got = None if out.orig is None else (out.orig.get(d),)
+            n["orig_bad"] += _records_bad(whole, ("orig", d), digest, got,
+                                          want_orig)
         for sc in expected.scenarios:
             want_sim = expected.sims[sc]
             stored = None if out.stored is None else (out.stored.get(sc),)
@@ -243,11 +266,13 @@ def _replay_bad(whole, sc, got: Optional[Dict],
         None if whole_cols is None else (whole_cols,), cols)
 
 
-def judge(expected, outputs: Iterable[JobOutput],
-          limits: Dict[str, float]) -> Tuple[bool, Dict[str, Dict]]:
+def judge(expected, outputs: Iterable[JobOutput], limits: Dict[str, float],
+          posd: bool = False) -> Tuple[bool, Dict[str, Dict]]:
     """``(correct, {number: {"value", "limit"}})``: correct when there were
-    jobs, none failed, and every number is within its limit."""
-    got, jobs, failed = numbers(expected, outputs, "feed_hwm" in limits)
+    jobs, none failed, and every number is within its limit. ``posd``: the
+    jobs ran POSD themselves, and their stored originals are compared."""
+    got, jobs, failed = numbers(expected, outputs, "feed_hwm" in limits,
+                                posd)
     checks = {k: {"value": v, "limit": limits[k]} for k, v in got.items()}
     ok = jobs > 0 and not failed and all(
         c["value"] <= c["limit"] for c in checks.values())

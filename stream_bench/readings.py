@@ -57,7 +57,7 @@ def main(argv=None) -> int:
             exp = cell.expected()
             low = cell.expected(low=True)
             ok, checks = judge.judge(exp, [judge.output_of(low)],
-                                     cell.config["limits"])
+                                     cell.config["limits"], cell.posd)
         finally:
             cell.close()
         out["control"][seed] = {

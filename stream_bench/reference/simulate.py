@@ -18,7 +18,8 @@ and matrix keep the scenario's ``max_range`` as its name.
 configuration states, as a later change might be tempted to compute them:
 the normalization in float32 (stated: float64) and every statistic in
 bfloat16 (stated: float32), the prefix sums of the trends kept in
-bfloat16 as the scan would store them. It must come out as not correct.
+bfloat16 as the scan would store them, and the stored original's stamps as
+float32 holds them (stated: float64). It must come out as not correct.
 
 Imports nothing of the program.
 """
@@ -242,6 +243,9 @@ class Expected:
     reports: Dict[Scenario, Dict]
     #: max_range -> (labels, S×S matrix), for entries that give matrices
     fidelity: Dict[int, Tuple[List[str], np.ndarray]]
+    #: dataset -> the original as POSD stores it (``t`` and the payload
+    #: columns)
+    originals: Dict[str, Dict[str, np.ndarray]]
 
 
 def expected(raw: Dict[str, Dict[str, np.ndarray]], config: Dict,
@@ -257,12 +261,14 @@ def expected(raw: Dict[str, Dict[str, np.ndarray]], config: Dict,
     fid_win = int(config["knobs"].get("fidelity_window_s", win))
     scenarios = [(d, int(mr)) for d in datasets for mr in max_ranges]
     sims, sim_counts, reports = {}, {}, {}
-    orig = {}
+    orig, originals = {}, {}
     for d in datasets:
         spec = config["datasets"][d]
         t, payload = posd(raw[d], spec["time_column"], spec["tz_offset_s"])
         q = original_counts(t)
         orig[d] = (t, payload, q, volatility(q, len(q), low))
+        stored = t.astype(np.float32).astype(np.float64) if low else t
+        originals[d] = {"t": stored, **payload}
     for d, mr in scenarios:
         t, payload, q, vol = orig[d]
         span = mr * n_days
@@ -284,5 +290,5 @@ def expected(raw: Dict[str, Dict[str, np.ndarray]], config: Dict,
             rows = [orig[d][2] for d in datasets] + \
                 [sim_counts[(d, mr)] for d in datasets]
             fidelity[int(mr)] = (labels, corr_matrix(rows, fid_win, low))
-    return Expected(scenarios, sims, sim_counts, reports, fidelity)
+    return Expected(scenarios, sims, sim_counts, reports, fidelity, originals)
 

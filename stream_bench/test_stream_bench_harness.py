@@ -9,41 +9,121 @@ import dataclasses
 import json
 import os
 import shutil
+from unittest import mock
 
 import numpy as np
 import pytest
 
 from stream_bench import bench
+from stream_bench.reference import generators
 
 SCALE = 0.005
 SEED = 2**31 + 5
 CHUNKED = "paper-grid-chunked.c600"
 _ONE_DAY = ["sims_bad", "replay_bad", "rows_bad", "vol_rel", "trend_gap"]
-#: the numbers each cell's checks print, in order: the monolithic cells'
-#: as before the chunked cell came
-CHECK_KEYS = {"ub-day.r3600": _ONE_DAY, "ub-day.r600": _ONE_DAY,
-              "paper-grid.sweep": _ONE_DAY + ["fidelity_gap"],
-              CHUNKED: _ONE_DAY + ["fidelity_gap", "feed_hwm"]}
+#: a cell of traffic ``posd`` (POSD and the original's write in every
+#: job), which ``BENCHMARK.json`` does not run (PERF.md, section 7)
+POSD = "ub-day.posd"
+_load_spec = bench.load_spec
+
+
+def spec_with_posd(root=bench.ROOT):
+    """``BENCHMARK.json`` with the cell :data:`POSD` added, reporting what
+    ``ub-day.r3600`` reports and ``posd_s``."""
+    spec = _load_spec(root)
+    spec["workloads"].append({"name": POSD, "config": "ub-day",
+                              "traffic": "posd", "chips": 1,
+                              "why": "POSD in the job"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "ub-day.r3600" in m.get("workloads", []):
+            m["workloads"].append(POSD)
+    spec["per_layer"].append({"name": "posd_s", "unit": "s",
+                              "better": "lower", "source": "program_span",
+                              "layer": "POSD", "moves": "first_bucket_s",
+                              "workloads": [POSD]})
+    return spec
+
+
+def check_keys(cell):
+    """The numbers the cell's checks print, in order, from its data: the
+    day's five, ``fidelity_gap`` where the entry gives fidelity matrices,
+    ``feed_hwm`` where the configuration limits it, ``orig_bad`` where the
+    traffic runs POSD in the job."""
+    entry = bench.cell_of(spec_with_posd(), cell)
+    config = bench.load_data("configs", entry["config"])
+    traffic = bench.load_data("traffic", entry["traffic"])
+    return _ONE_DAY + ["fidelity_gap"] * (config["entry"] == "run_many") + \
+        ["feed_hwm"] * ("feed_hwm" in config["limits"]) + \
+        ["orig_bad"] * bool(traffic.get("posd"))
 
 
 def _run(cell, traced=False, seconds=0.2):
-    return bench.run_cell(cell, SEED, seconds, traced, device="cpu",
-                          scale=SCALE)
+    with mock.patch.object(bench, "load_spec", spec_with_posd):
+        return bench.run_cell(cell, SEED, seconds, traced, device="cpu",
+                              scale=SCALE)
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in
-                                  bench.load_spec()["workloads"]])
+                                  spec_with_posd()["workloads"]])
 def test_cell_runs_correct_on_cpu(cell):
     out = _run(cell)
     assert out["correct"], out["checks"]
     assert out["attempted"] >= 1 and out["failed"] == 0
-    want = {m["name"] for m in bench.metrics_of(bench.load_spec(), cell,
+    want = {m["name"] for m in bench.metrics_of(spec_with_posd(), cell,
                                                 False)}
     # the card's memory peak finds nothing to read without a card
     assert set(out["metrics"]) == want - {"device_peak_bytes"}
     assert list(out)[-1] == "checks"
-    assert list(out["checks"]) == CHECK_KEYS[cell]
+    assert list(out["checks"]) == check_keys(cell)
     assert all(m["value"] > 0 for m in out["metrics"].values())
+
+
+def test_check_keys_follow_the_cells_data():
+    """The keys a cell prints come from its configuration and traffic, so a
+    cell added later needs no table here."""
+    assert check_keys("ub-day.r3600") == _ONE_DAY
+    assert check_keys("paper-grid.sweep") == _ONE_DAY + ["fidelity_gap"]
+    assert check_keys(CHUNKED) == check_keys("ub-9day.r3600") == \
+        _ONE_DAY + ["fidelity_gap", "feed_hwm"]
+    assert check_keys(POSD) == _ONE_DAY + ["orig_bad"]
+
+
+def test_traced_posd_run_reads_posd_s_once_a_job_on_cpu(monkeypatch):
+    """POSD inside the job: one ``bench.posd`` span a job of the window,
+    read by ``posd_s``."""
+    seen = {}
+    close = bench.Cell.close
+
+    def keep(self):
+        seen["spans"] = [s for s in self.tracer.records
+                         if s[0] == "bench.posd"]
+        close(self)
+
+    monkeypatch.setattr(bench.Cell, "close", keep)
+    out = _run(POSD, traced=True)
+    assert out["correct"], out["checks"]
+    assert out["metrics"]["posd_s"]["value"] > 0
+    assert sorted(job for _, job, _, _ in seen["spans"]) == \
+        list(range(out["attempted"]))
+
+
+@pytest.mark.parametrize("cell,links", [("ub-day.r3600", 2), (POSD, 1)])
+def test_original_is_linked_or_written_in_the_job(cell, links, monkeypatch):
+    """The entry reads an original hard-linked from set-up's template, or,
+    where the job runs POSD, one the job wrote itself."""
+    from repro_torch.streamsim.store import StreamStore
+    got = []
+    get = StreamStore.get
+
+    def counted(self, key):
+        if "__orig" in key:
+            got.append(os.stat(self.root / key / "columns.npz").st_nlink)
+        return get(self, key)
+
+    monkeypatch.setattr(StreamStore, "get", counted)
+    out = _run(cell)
+    assert out["correct"], out["checks"]
+    assert got and set(got) == {links}
 
 
 def test_traced_run_reads_the_span_metrics_on_cpu():
@@ -173,6 +253,29 @@ def _feed_over(orig):
     return f
 
 
+def _no_shift(orig):
+    def f(t, *, tz_offset_s=0.0):
+        return t
+    return f
+
+
+def _dropped_payload_off(orig):
+    """One payload value of a record that NSA at 3600 s drops, altered in
+    the stored original only: the entry reads it back and drops it."""
+    def f(self, key, stream, *args, **kw):
+        if "__orig" in key:
+            from stream_bench.reference import simulate
+            kept = simulate.nsa(stream.t, {}, 3600)["t"]
+            i = int(np.flatnonzero(~np.isin(stream.t, kept))[0])
+            name = sorted(stream.payload)[0]
+            col = stream.payload[name].copy()
+            col[i] += 1
+            stream = dataclasses.replace(
+                stream, payload=dict(stream.payload, **{name: col}))
+        return orig(self, key, stream, *args, **kw)
+    return f
+
+
 #: (cell, owner module, attribute, fault, the check it must fail)
 FAULTS = {
     "state_unchanged": ("ub-day.r600", "repro_torch.kernels.ops",
@@ -200,7 +303,17 @@ FAULTS = {
                            _after_finalize(_delete), "sims_bad"),
     "feed_over_its_bound": (CHUNKED, "repro_torch.streamsim.producer",
                             "ChunkFeed.stats", _feed_over, "feed_hwm"),
+    "bucket_lost_half_day": ("ub-day.r43200", "repro_torch.streamsim.queue",
+                             "StreamQueue.put", _drop_buckets, "replay_bad"),
+    "posd_zone_unshifted": (POSD, "repro_torch.streamsim.preprocess",
+                            "unify_timezone", _no_shift, "orig_bad"),
+    "orig_dropped_record_altered": (POSD, "repro_torch.streamsim.store",
+                                    "StreamStore.put", _dropped_payload_off,
+                                    "orig_bad"),
 }
+#: fault -> numbers it must read exactly
+EXACT = {"orig_dropped_record_altered": {"orig_bad": 1, "sims_bad": 0,
+                                         "replay_bad": 0}}
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
@@ -216,6 +329,8 @@ def test_planted_fault_is_not_correct(fault, monkeypatch):
     assert not out["correct"]
     c = out["checks"][check]
     assert c["value"] > c["limit"], out["checks"]
+    for k, v in EXACT.get(fault, {}).items():
+        assert out["checks"][k]["value"] == v, out["checks"]
 
 
 def _record_off(orig):
@@ -238,6 +353,9 @@ LATE_FAULTS = {
     "stored_chunks_swapped": (CHUNKED, "repro_torch.streamsim.store",
                               "StreamStore.finalize_chunks",
                               _after_finalize(_swap), "sims_bad"),
+    "stored_original_altered": (POSD, "repro_torch.streamsim.store",
+                                "StreamStore.put", _dropped_payload_off,
+                                "orig_bad"),
 }
 
 
@@ -276,6 +394,15 @@ def test_fault_in_a_later_job_fails_its_digest(fault, monkeypatch):
     assert not out["correct"]
     c = out["checks"][check]
     assert c["value"] > c["limit"], out["checks"]
+    if check == "orig_bad":
+        # the later job's original is counted in full, and nothing else
+        # it produced differs
+        config = bench.load_data("configs", bench.cell_of(
+            spec_with_posd(), cell)["config"])
+        day = generators.make(config["datasets"]["userbehavior"], SCALE,
+                              SEED)
+        assert c["value"] == len(day["timestamp"])
+        assert out["checks"]["sims_bad"]["value"] == 0
 
 
 def test_delivered_digest_samples_the_same_buckets_every_job():

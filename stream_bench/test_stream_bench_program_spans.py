@@ -14,6 +14,7 @@ import types
 import pytest
 
 from stream_bench import bench, trace
+from stream_bench.test_stream_bench_harness import spec_with_posd
 
 SCALE = 0.005
 SEED = 2**31 + 11
@@ -22,15 +23,17 @@ CHUNK_READERS = ("chunk_dispatch_s", "chunk_host_leg_s", "chunk_event_wait_s")
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in
-                                  bench.load_spec()["workloads"]])
+                                  spec_with_posd()["workloads"]])
 def test_traced_run_reads_the_program_spans(cell, monkeypatch):
-    every = bench.load_spec()["per_layer"]
-    listed = {x["name"] for x in bench.metrics_of(bench.load_spec(), cell,
-                                                  True)}
+    spec = spec_with_posd()
+    every = spec["per_layer"]
+    listed = {x["name"] for x in bench.metrics_of(spec, cell, True)}
+    monkeypatch.setattr(bench, "load_spec", spec_with_posd)
     monkeypatch.setattr(bench, "metrics_of",
                         lambda spec, name, traced: every if traced else [])
-    config = bench.load_data("configs", bench.cell_of(bench.load_spec(),
-                                                      cell)["config"])
+    entry = bench.cell_of(spec, cell)
+    config = bench.load_data("configs", entry["config"])
+    posd = bool(bench.load_data("traffic", entry["traffic"]).get("posd"))
     out = bench.run_cell(cell, SEED, 0.2, True, device="cpu", scale=SCALE)
     assert out["correct"], out["checks"]
     m = {k: v["value"] for k, v in out["metrics"].items()}
@@ -55,7 +58,10 @@ def test_traced_run_reads_the_program_spans(cell, monkeypatch):
         assert not set(CHUNK_READERS) & set(m)
         assert 0 <= m["queue_wait_s"] <= m["produce_s"]
         assert m["nsa_host_s"] <= m["nsa_s"]
-        assert 0 < m["store_write_s"] <= m["materialize_s"]
+        # where the job runs POSD, the original's write is in the job too
+        assert 0 < m["store_write_s"]
+        assert posd or m["store_write_s"] <= m["materialize_s"]
+    assert ("posd_s" in m) == posd
     # the program's spans take no name of the harness's: its breakdown
     # reads as before
     from repro_torch import tracing

@@ -154,3 +154,24 @@ def test_control_is_not_correct(config, ranges):
     assert ok
     ok, _ = judge.judge(exp, [judge.output_of(exp)], cfg["limits"])
     assert ok == ("feed_hwm" not in cfg["limits"])
+
+
+def test_control_fails_the_stored_original():
+    """Where the jobs run POSD, the control's original (its stamps as
+    float32 holds them) is not the reference's, and the reference's is."""
+    cfg = bench.load_data("configs", "ub-day")
+    raw = {d: generators.make(spec, 0.02, 13)
+           for d, spec in cfg["datasets"].items()}
+    exp = simulate.expected(raw, cfg, [3600])
+    low = simulate.expected(raw, cfg, [3600], low=True)
+    ok, checks = judge.judge(exp, [judge.output_of(low)], cfg["limits"],
+                             posd=True)
+    assert not ok
+    n = len(exp.originals["userbehavior"]["t"])
+    assert checks["orig_bad"]["value"] > n // 2
+    ok, checks = judge.judge(exp, [judge.output_of(exp)], cfg["limits"],
+                             posd=True)
+    assert ok and checks["orig_bad"]["value"] == 0
+    # without POSD in the job the stored originals are not compared
+    _, checks = judge.judge(exp, [judge.output_of(low)], cfg["limits"])
+    assert "orig_bad" not in checks
